@@ -1,0 +1,129 @@
+"""CLI entry point of the PyTorch/CUDA port:
+
+    python -m pd_mg_pin_corrosion_tpu_torch [params.cfg] [key=value ...]
+                                            [--device cuda|cpu]
+
+Same argv contract, console lines and output files as the JAX package's
+``cli.py``: loads the config (default config/params.cfg), applies the
+``key=value`` overrides, builds grid + grains + kit + state on the device,
+and runs the coupled solver. The device comes from ``--device``, else
+``$PD_TORCH_DEVICE``, else ``cuda``; without a CUDA device the run stops
+with an error unless ``cpu`` was asked for explicitly.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+# configurations this slice does not run, with the ROADMAP item that adds them
+_UNSUPPORTED = (
+    (lambda c: c.dim != 2, "dim = 3", "3D flagship slice"),
+    (lambda c: c.use_amr, "use_amr = 1", "block AMR"),
+    (lambda c: not c.use_implicit, "use_implicit = 0", "explicit transport"),
+    (lambda c: c.gs_parity, "gs_parity = 1",
+     "gs_parity and checkpoint/resume"),
+    (lambda c: c.flow_warm_start > 0, "flow_warm_start > 0", "block AMR"),
+    (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
+     "left out: implicit_extrapolate_x0"),
+    (lambda c: c.checkpoint_every > 0 or c.resume_from,
+     "checkpoint_every > 0 / resume_from", "gs_parity and checkpoint/resume"),
+)
+
+
+class DeviceUnavailable(RuntimeError):
+    pass
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError for a configuration outside this slice."""
+    for test, what, item in _UNSUPPORTED:
+        if test(cfg):
+            raise NotImplementedError(
+                f"pd_mg_pin_corrosion_tpu_torch does not run {what} yet "
+                f"(ROADMAP.md, port order: '{item}')")
+
+
+def parse_args(argv):
+    """(cfg_path, overrides, device) from the argv contract."""
+    cfg_path = "config/params.cfg"
+    overrides = []
+    device = os.environ.get("PD_TORCH_DEVICE", "cuda")
+    args = list(argv)
+    while args:
+        a = args.pop(0)
+        if a == "--device":
+            if not args:
+                raise SystemExit("--device needs a value (cuda or cpu)")
+            device = args.pop(0)
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        elif "=" in a:
+            overrides.append(a)
+        else:
+            cfg_path = a
+    return cfg_path, overrides, device
+
+
+def run(argv=None):
+    """Run one simulation; returns the CoupledSolver (its run totals and
+    final_state)."""
+    argv = sys.argv[1:] if argv is None else argv
+    cfg_path, overrides, device = parse_args(argv)
+
+    print("=== Peridynamic Mg-Pin Corrosion Simulation (PyTorch/CUDA port) ===")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceUnavailable("no CUDA device available; pass --device cpu"
+                                " (or PD_TORCH_DEVICE=cpu) to run on the CPU")
+
+    from .config import Config
+    cfg = Config.load(cfg_path)
+    if overrides:
+        cfg.apply_overrides(overrides)
+    check_supported(cfg)
+    print(f"  Dimension: {cfg.dim}D\n")
+    cfg.print()
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host")
+    print(f"  Device: {dev} ({name})")
+
+    t0 = time.time()
+    print("Building grid...")
+    from .grid import build_grid
+    grid = build_grid(cfg)
+    counts = grid.type_counts()
+    print(f"Grid: Nx={grid.Nx} Ny={grid.Ny} Nz={grid.Nz}  N_total={grid.N_total}")
+    print("Node types: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+
+    print("Generating grain structure...")
+    from . import grains as grains_mod
+    grains = grains_mod.generate(grid, cfg)
+
+    print("Initializing fields...")
+    from .fields import initialize_state
+    from .kit import build_kit
+    kit = build_kit(grid, cfg, device=dev)
+    state = initialize_state(grid, cfg, grains=grains, dtype=kit.dtype,
+                             device=dev)
+    print(f"  [Timer] initialization: {time.time() - t0:.3f} s")
+
+    from .coupling import CoupledSolver
+    solver = CoupledSolver()
+    solver.run(grid, state, kit, cfg)
+    return solver
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except (DeviceUnavailable, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,283 @@
+"""Coupled corrosion loop: flow steady solves + implicit transport steps
++ phase change.
+
+Port of the step-at-a-time host loop of
+``pd_mg_pin_corrosion_tpu/coupling.py`` ``CoupledSolver.run`` (reference
+src/coupling.cpp:82-302), implicit path:
+
+* Phase 1 — flow re-solve only when dissolution changed the geometry;
+* Phase 2 — corrosion with frozen velocity: the operator is assembled once
+  per cycle, adaptive dt per step, exit at the dissolution_batch-th node
+  below C_thresh or after corrosion_steps_per_check steps;
+* Phase 3 — phase change as a device-side remask (no neighbour rebuild).
+
+Diagnostics CSVs are schema-identical to the reference
+(coupling.cpp:55-80). The JAX package's fused device loops
+(``implicit_fused_chunk``, ``coupled_fused_cycles``) produce the same CSVs
+as this loop and are parsed and ignored here.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+
+import torch
+
+from . import boundary as bc
+from .fields import State
+from .grid import FLUID, SOLID_MG
+from .io_vtk import VTKWriter
+from .ops.ard import apply_phase_change
+from .ops.ard_implicit import assemble, compute_adaptive_dt, implicit_step
+from .ops.ns import vel_magnitude
+from .solvers import poiseuille_l2_error, solve_steady
+
+
+def diagnostics(state: State, kit):
+    """(pin_mass_loss_pct, solid_nodes, v_max, C_max_fluid) as 0-d tensors
+    (coupling.cpp:20-53)."""
+    init_solid = kit.initial_solid_mask
+    n0 = init_solid.to(kit.dtype).sum()
+    C_solid_sum = torch.where(init_solid, state.C, 0.0).sum()
+    loss = torch.clamp((1.0 - C_solid_sum / (n0 + 1e-30)) * 100.0, min=0.0)
+    solid_count = (state.node_type == SOLID_MG).sum()
+    fluid = state.node_type == FLUID
+    v_max = torch.where(fluid, vel_magnitude(state.vel), 0.0).max()
+    C_max = torch.where(fluid, state.C, 0.0).max()
+    return loss, solid_count, v_max, C_max
+
+
+def volume_loss_fraction(state: State, kit) -> torch.Tensor:
+    """Normalized volume loss over initially-solid nodes (coupling.cpp:157-163)."""
+    init_solid = kit.initial_solid_mask
+    n0 = init_solid.to(kit.dtype).sum()
+    C_solid_sum = torch.where(init_solid, state.C, 0.0).sum()
+    return torch.clamp(1.0 - C_solid_sum / (n0 + 1e-30), min=0.0)
+
+
+def implicit_inner_step(state: State, op, kit):
+    """One implicit corrosion step: adaptive dt -> BCs -> GMRES ->
+    smoothing -> dissolution count + diagnostics (coupling.cpp:174-212)."""
+    dt = compute_adaptive_dt(state, op, kit)
+    state = bc.apply_inlet_bc(state, kit)
+    state = bc.apply_outlet_bc(state, kit)
+    state = bc.apply_wall_concentration_bc(state, kit)
+    state, res = implicit_step(state, op, kit, dt)
+    state = bc.smooth_boundary_concentration(state, kit)
+    n_below = ((state.node_type == SOLID_MG)
+               & (state.C < kit.cfg.C_thresh)).sum()
+    return state, dt, n_below, res, diagnostics(state, kit)
+
+
+class CoupledSolver:
+    def __init__(self):
+        self.writer = VTKWriter()
+        self.flow_writer = VTKWriter()
+        self.frame_count = 0
+        self.total_implicit_steps = 0
+        self.total_dissolved = 0
+        self.dissolved_since_flow = 0
+        self.flow_solve_count = 0
+        self.cycles = 0
+        self.gmres_warnings = 0
+        self._prof = False
+        self._device = None
+        self.phase_s = {}
+        # run totals read by chip_smoke.py and the phase report
+        self.flow_iters = 0
+        self.flow_seconds = 0.0
+        self.implicit_seconds = 0.0
+        self.cycle_steps = []     # implicit steps of each coupling cycle
+        self.final_state = None
+
+    # ------------------------------------------------------------------
+    def _filename(self, cfg, prefix, time_s):
+        return f"{cfg.output_dir}/{prefix}_{self.frame_count:06d}_t{time_s:.1f}s.vti"
+
+    def _write_state(self, cfg, grid, state, prefix, t, pvd_writer):
+        t_ph = time.time()
+        fname = self._filename(cfg, prefix, t)
+        self.writer.write(fname, grid, state, cfg)
+        pvd_writer.add_timestep(t, fname)
+        self.frame_count += 1
+        self._phase("io_vtk", t_ph)
+
+    def _init_csv(self, cfg):
+        with open(f"{cfg.output_dir}/diagnostics.csv", "w") as f:
+            f.write("time_s,time_h,pin_mass_loss_pct,solid_nodes,v_max,C_max_fluid\n")
+        with open(f"{cfg.output_dir}/mass_loss.csv", "w") as f:
+            f.write("time_h,pin_mass_loss_pct\n")
+
+    def _write_diagnostics(self, cfg, t, diag):
+        loss, solid, v_max, C_max = torch.stack(
+            [d.to(torch.float64) for d in diag]).tolist()
+        solid = int(solid)
+        print(f"  t={t:.1f} s ({t / 3600.0:.2f} h)  pin_mass_loss={loss:.2f}%  "
+              f"solid={solid}  v_max={v_max:.3e}  C_max_fluid={C_max:.4f}")
+        with open(f"{cfg.output_dir}/diagnostics.csv", "a") as f:
+            f.write(f"{t:.6e},{t / 3600.0:.6e},{loss:.6e},{solid},"
+                    f"{v_max:.6e},{C_max:.6e}\n")
+        with open(f"{cfg.output_dir}/mass_loss.csv", "a") as f:
+            f.write(f"{t / 3600.0:.6f},{loss:.6f}\n")
+
+    # ------------------------------------------------------------------
+    def _sync(self):
+        if self._device is not None and self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+    def _phase(self, name, t0, fence=False):
+        """Cumulative per-phase wall-clock (PD_TPU_PHASE_TIMERS=1). With
+        ``fence`` the device is synchronised first, so the elapsed time
+        belongs to this phase and not the next. Off by default: the fences
+        are syncs a production run should not pay."""
+        if not self._prof:
+            return
+        if fence:
+            self._sync()
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + (time.time() - t0)
+
+    def _report_phases(self, total):
+        if not self._prof or not self.phase_s:
+            return
+        print("  [Timer] phase breakdown:")
+        acc = 0.0
+        for name, s in sorted(self.phase_s.items(), key=lambda kv: -kv[1]):
+            print(f"    {name:16s} {s:9.2f} s  ({100.0 * s / total:5.1f} %)")
+            acc += s
+        print(f"    {'(untimed)':16s} {total - acc:9.2f} s  "
+              f"({100.0 * (total - acc) / total:5.1f} %)")
+
+    # ------------------------------------------------------------------
+    def run(self, grid, state: State, kit, cfg) -> State:
+        t_start = time.time()
+        self._prof = bool(os.environ.get("PD_TPU_PHASE_TIMERS"))
+        self._device = kit.device
+        self.phase_s = {}
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        self.writer.set_pvd_path(f"{cfg.output_dir}/simulation.pvd")
+        self.flow_writer.set_pvd_path(f"{cfg.output_dir}/flow.pvd")
+        self._init_csv(cfg)
+        t_corr = 0.0
+        gmres_tol = 1e-10 if kit.dtype == torch.float64 else 1e-6
+
+        n_init_solid = int(kit.initial_solid_mask.sum())
+        print(f"Initial solid nodes: {n_init_solid}")
+        print(f"Using IMPLICIT ARD solver (dt_max={cfg.implicit_dt_max:.1f} s, "
+              f"fraction={cfg.implicit_dt_fraction:.2f})")
+
+        self._write_state(cfg, grid, state, "state", t_corr, self.writer)
+
+        need_flow_solve = True
+        self.dissolved_since_flow = 0
+
+        while t_corr < cfg.T_final:
+            self.cycles += 1
+            cycle = self.cycles
+            print(f"\n=== Coupling cycle {cycle}, t={t_corr:.1f} s "
+                  f"({t_corr / 3600.0:.2f} h) ===")
+
+            # --- Phase 1: steady flow (only when geometry changed) ---
+            if need_flow_solve:
+                print(f"  Flow re-solve triggered ({self.dissolved_since_flow} "
+                      f"nodes dissolved since last flow solve)")
+                t_ph = time.time()
+                is_resolve = cycle > 1 or self.total_dissolved > 0
+                cap = (cfg.flow_max_iters_resolve
+                       if is_resolve and cfg.flow_max_iters_resolve > 0
+                       else None)
+                state, iters, eps, conv, div = solve_steady(state, kit,
+                                                            max_iters=cap)
+                self._sync()
+                # iterations run: the breaking one, or all of the budget
+                budget = cfg.flow_max_iters if cap is None else cap
+                self.flow_iters += min(iters, budget)
+                self.flow_seconds += time.time() - t_ph
+                print(f"  Flow: {iters} iters, eps={eps:.3e}, "
+                      f"converged={conv}, diverged={div}")
+                # in-path Poiseuille validation (pd_ns.cpp:341-368)
+                if not div:
+                    err = poiseuille_l2_error(state, grid, cfg)
+                    if math.isfinite(err):
+                        print(f"  Poiseuille validation (upstream): "
+                              f"L2 rel error = {err:.3e}")
+                self._phase("flow_solve", t_ph)
+                self.dissolved_since_flow = 0
+                need_flow_solve = False
+                self.flow_solve_count += 1
+                if (self.flow_solve_count - 1) % max(cfg.flow_output_stride, 1) == 0:
+                    self._write_state(cfg, grid, state, "flow", t_corr,
+                                      self.flow_writer)
+            else:
+                print("  Skipping flow solve (no dissolution since last flow solve)")
+
+            # --- Phase 2: corrosion with frozen velocity ---
+            t_ph = time.time()
+            op = assemble(state, kit, volume_loss_fraction(state, kit))
+            self._phase("assemble", t_ph, fence=True)
+
+            implicit_step_n = 0
+            t_cycle_start = t_corr
+            dissolution_occurred = False
+            t_ph = time.time()
+            while (implicit_step_n < cfg.corrosion_steps_per_check
+                   and t_corr < cfg.T_final and not dissolution_occurred):
+                state, dt, n_below, res, diag = implicit_inner_step(
+                    state, op, kit)
+                if res > 100.0 * gmres_tol:
+                    # failure-detection telemetry (pd_ard_implicit.cpp:411-414)
+                    self.gmres_warnings += 1
+                    print(f"WARNING: GMRES did not converge (|res|={res:.2e})")
+                t_corr += float(dt)
+                implicit_step_n += 1
+                self.total_implicit_steps += 1
+
+                if self.total_implicit_steps % cfg.diagnostic_every == 0:
+                    self._write_diagnostics(cfg, t_corr, diag)
+                if self.total_implicit_steps % cfg.implicit_output_every == 0:
+                    self._write_state(cfg, grid, state, "corr", t_corr,
+                                      self.writer)
+                # reference: exit at the first dissolution event
+                # (coupling.cpp:207-212); dissolution_batch > 1 defers the
+                # exit until enough nodes are below threshold
+                dissolution_occurred = int(n_below) >= max(
+                    cfg.dissolution_batch, 1)
+            self.implicit_seconds += time.time() - t_ph
+            self.cycle_steps.append(implicit_step_n)
+            self._phase("implicit_steps", t_ph)
+            print(f"  Implicit cycle: {implicit_step_n} steps, "
+                  f"t={t_cycle_start:.2f} to {t_corr:.2f} s "
+                  f"({t_corr / 3600.0:.4f} h)")
+
+            # --- Phase 3: phase change (device remask, no rebuild) ---
+            t_ph = time.time()
+            state, n_dissolved = apply_phase_change(state, kit)
+            n_dissolved = int(n_dissolved)
+            self._phase("phase_change", t_ph)
+            self.total_dissolved += n_dissolved
+            self.dissolved_since_flow += n_dissolved
+            if n_dissolved > 0:
+                print(f"  Phase change: {n_dissolved} nodes dissolved "
+                      f"(total: {self.total_dissolved}, since flow: "
+                      f"{self.dissolved_since_flow})")
+                need_flow_solve = True
+            else:
+                print("  No phase changes this cycle")
+
+            if int((state.node_type == SOLID_MG).sum()) == 0:
+                print(f"\n=== All solid nodes dissolved at t={t_corr:.1f} s "
+                      f"({t_corr / 3600.0:.2f} h) ===")
+                break
+
+        self._write_state(cfg, grid, state, "final", t_corr, self.writer)
+        t_ph = time.time()
+        self.writer.flush()  # join the last async VTI write before exit
+        self._phase("io_vtk", t_ph)
+        print("\n=== Simulation complete ===")
+        print(f"  Final time: {t_corr:.1f} s ({t_corr / 3600.0:.2f} h)")
+        total = time.time() - t_start
+        print(f"  [Timer] total_simulation: {total:.3f} s")
+        self._report_phases(total)
+        self.final_state = state
+        return state

@@ -1,0 +1,151 @@
+"""Build, load and launch helpers for the port's CUDA kernels.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` into ONE shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds) and
+loaded with ``ctypes``. The build happens at first use, into
+``build/torch_kernels/`` beside the package, under a file name keyed on a
+hash of the sources and flags, so an edited source always rebuilds and an unchanged one is reused. Nothing is built
+when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+
+# -fmad=false: no a*b+c contraction, so each kernel reproduces its plain
+# PyTorch twin's roundings exactly (the twins are separate mul/add ops).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float   # build (or load) time of this process's first use
+    built: bool      # False when a cached library was loaded
+    log: str         # nvcc output (ptxas register / spill report)
+
+
+_LIBRARY: KernelLibrary | None = None
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "pd_mg_pin_corrosion_tpu_torch cannot be built")
+    return nvcc
+
+
+def _source_key(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.pd_ns2d.restype = i32
+    lib.pd_ns2d.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                            f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    lib.pd_matvec2d.restype = i32
+    lib.pd_matvec2d.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, i32,
+                                vp]
+    lib.pd_basis_dots.restype = i32
+    lib.pd_basis_dots.argtypes = [vp, vp, i32, i64, i32, vp, vp, i32, vp]
+    lib.pd_basis_axpy.restype = i32
+    lib.pd_basis_axpy.argtypes = [vp, vp, vp, i32, i64, i32, vp, i32, vp]
+    lib.pd_cuda_error_string.restype = ctypes.c_char_p
+    lib.pd_cuda_error_string.argtypes = [i32]
+
+
+def load() -> KernelLibrary:
+    """The kernel library, building it first if needed. Raises on any
+    build or load failure — there is no fallback."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    key = _source_key(sources)
+    out_dir = BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libpd_torch_kernels_{key}.so"
+    t0 = time.time()
+    built, log = False, ""
+    if not so.exists():
+        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in sources if s.suffix == ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        (out_dir / f"build_{key}.log").write_text(log)
+        os.replace(tmp, so)
+        built = True
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    _LIBRARY = KernelLibrary(lib, so, time.time() - t0, built, log)
+    return _LIBRARY
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = load().lib.pd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+# ---------------------------------------------------------------------------
+# wrapper helpers
+# ---------------------------------------------------------------------------
+
+def use_plain(name: str, *tensors) -> bool:
+    """The device rule every wrapper follows: tensors on the CPU take the
+    plain PyTorch version; CUDA float32 tensors launch the kernel; anything
+    else raises (CUDA float64 parity runs call the plain version at the
+    call site, never through a wrapper)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if t.is_floating_point() and t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+                            f"{t.dtype} (f64 runs use the plain version)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: non-contiguous input")
+    return False
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,68 @@
+"""Bi-material transport helpers shared by the implicit solver, and phase
+change.
+
+Port of ``compute_salt_blocked``, ``micro_d_factor`` and
+``apply_phase_change`` of ``pd_mg_pin_corrosion_tpu/ops/ard.py``
+(reference src/pd_ard.cpp). The explicit ``ard_step`` is not part of this
+slice (ROADMAP: explicit transport).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import torch
+
+from ..fields import State
+from ..grid import FLUID, OUTSIDE, SOLID_MG
+from ..kit import Kit
+
+
+def compute_salt_blocked(state: State, kit: Kit) -> torch.Tensor:
+    """Salt-layer blocking (pd_ard.cpp:58-73 / pd_ard_implicit.cpp:68-87):
+    a SOLID node with ANY FLUID neighbour at C >= C_sat has all its
+    interface bonds disabled."""
+    NT = kit.neighbors(kit.pad(state.node_type, OUTSIDE))
+    CJ = kit.neighbors(kit.pad(state.C, 0.0))
+    blocked = ((NT == FLUID) & (CJ >= kit.cfg.C_sat)).any(0)
+    return blocked & (state.node_type == SOLID_MG)
+
+
+def micro_d_factor(cfg, volume_loss_fraction, dtype,
+                   device="cpu") -> torch.Tensor:
+    """Volume-loss scaling of the solid micro-diffusivities: the Hermann et
+    al. 2022 Eq. 42 decay 10^(-V_L/corrosion_decay_l) (pd_ard.cpp:75-79)
+    times the optional acceleration extension 10^(+V_L/corrosion_accel_l)."""
+    vl = torch.as_tensor(volume_loss_fraction, dtype=dtype, device=device)
+    factor = torch.ones((), dtype=dtype, device=device)
+    if cfg.corrosion_decay_l > 0.0:
+        factor = factor * torch.pow(10.0, -vl / cfg.corrosion_decay_l)
+    if cfg.corrosion_accel_l > 0.0:
+        factor = factor * torch.pow(10.0, vl / cfg.corrosion_accel_l)
+    return factor
+
+
+def solid_diffusivity(is_gb, is_precip, cfg, factor) -> torch.Tensor:
+    """Solid-side micro-diffusivity GB > precipitate > grain, times the
+    volume-loss factor (a 0-d tensor fixing dtype and device)."""
+    D_grain = factor.new_tensor(cfg.D_grain)
+    return torch.where(is_gb, cfg.D_gb,
+                       torch.where(is_precip, cfg.D_precip, D_grain)) * factor
+
+
+def apply_phase_change(state: State, kit: Kit):
+    """Dissolve solid nodes below C_thresh — a device-side remask
+    (pd_ard.cpp:193-212). Returns (new_state, n_dissolved as a 0-d tensor)."""
+    cfg = kit.cfg
+    dissolve = ((state.phase == 0) & (state.node_type == SOLID_MG)
+                & (state.C < cfg.C_thresh))
+    n = dissolve.sum()
+    fluid_t = torch.full_like(state.node_type, FLUID)
+    return replace(
+        state,
+        node_type=torch.where(dissolve, fluid_t, state.node_type),
+        phase=torch.where(dissolve, torch.ones_like(state.phase), state.phase),
+        D_map=torch.where(dissolve, cfg.D_liquid, state.D_map),
+        rho=torch.where(dissolve, cfg.rho_f, state.rho),
+        vel=torch.where(dissolve[..., None], 0.0, state.vel),
+        C=torch.where(dissolve, cfg.C_thresh, state.C)), n

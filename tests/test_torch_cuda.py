@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``cuda``: every test here needs an NVIDIA GPU and skips without
+one (this decision is taken inside the fixture, never at import). Run on
+the card with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+(``tests/conftest.py`` imports JAX, which that machine need not have); the
+first test builds the kernels with nvcc.
+
+The kernels are compiled without FMA contraction, so each one must equal
+its plain twin on the same inputs bit for bit; the tolerance checks below
+are the ones chip_smoke.py states, the exact checks are this file's own.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
+                                           initialize_state, kernels)
+from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
+from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+pytestmark = pytest.mark.cuda
+
+PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "parity.cfg")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    cfg = Config.load(PARITY)
+    cfg.precision = "f32"
+    cfg.compute_derived()
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    state = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(0)
+    fluid = state.node_type == 0
+    noise = torch.tensor(rng.normal(0, 0.01, state.vel.shape),
+                         dtype=torch.float32, device="cuda")
+    state.vel = torch.where(fluid[..., None], state.vel + noise, state.vel)
+    state.C = torch.tensor(rng.random(kit.shape), dtype=torch.float32,
+                           device="cuda")
+    return kit, state
+
+
+def test_ns2d_equals_plain(setup):
+    kit, st = setup
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    n0 = kernels.ns2d.launches
+    r1, v1 = kernels.ns2d(*args)
+    r2, v2 = kernels.ns2d(*args)
+    rp, vp = kernels.ns2d_plain(*args)
+    assert kernels.ns2d.launches == n0 + 2
+    assert torch.equal(r1, r2) and torch.equal(v1, v2)
+    torch.testing.assert_close(r1, rp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(v1, vp, rtol=1e-5, atol=1e-9)
+    assert torch.equal(r1, rp) and torch.equal(v1, vp)
+
+
+def test_matvec2d_equals_plain(setup):
+    kit, st = setup
+    op = ai.assemble(st, kit)
+    x = torch.tensor(np.random.default_rng(5).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
+    y = kernels.matvec2d(x, op.W, op.diag, op.unknown, kit)
+    yp = kernels.matvec2d_plain(x, op.W, op.diag, op.unknown, kit)
+    assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
+    assert torch.equal(y, yp)
+    assert torch.equal(y, kernels.matvec2d(x, op.W, op.diag, op.unknown, kit))
+
+
+@pytest.mark.parametrize("k", [1, 9, 26, 40])
+def test_basis_kernels_equal_plain(setup, k):
+    rng = np.random.default_rng(k)
+    n = 196_749
+    V = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32, device="cuda")
+    w = torch.tensor(rng.normal(size=n), dtype=torch.float32, device="cuda")
+    c = torch.tensor(rng.normal(size=k), dtype=torch.float64, device="cuda")
+    d1, d2 = kernels.basis_dots(V, w), kernels.basis_dots(V, w)
+    assert torch.equal(d1, d2)
+    torch.testing.assert_close(d1, kernels.basis_dots_plain(V, w),
+                               rtol=2e-6, atol=0.0)
+    a = kernels.basis_axpy(c, V, w)
+    assert torch.equal(a, kernels.basis_axpy_plain(c, V, w))
+    assert torch.equal(kernels.basis_axpy(c, V),
+                       kernels.basis_axpy_plain(c, V))
+
+
+def test_f64_on_cuda_is_refused(setup):
+    kit, st = setup
+    x = torch.zeros(kit.shape, dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        kernels.basis_dots(x.reshape(1, -1), x.reshape(-1))

@@ -1,0 +1,34 @@
+"""The PyTorch port must import without JAX and without the JAX package
+(the machine with the card has no JAX), and must build nothing on import."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import pd_mg_pin_corrosion_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith(".__main__")]
+for name in names:
+    importlib.import_module(name)
+import pd_mg_pin_corrosion_tpu_torch.kernels.build as build
+assert build._LIBRARY is None, "a kernel library was loaded at import"
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "pd_mg_pin_corrosion_tpu"
+             or m.startswith("pd_mg_pin_corrosion_tpu."))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # every module of the slice was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20

@@ -1,0 +1,128 @@
+"""The port's whole slice against the JAX package: ``cli.run`` (the
+``python -m pd_mg_pin_corrosion_tpu_torch`` path, on the CPU) and the JAX
+``CoupledSolver.run`` on tests/golden/parity.cfg, capped the same way, give
+the same diagnostics.csv; plus the CLI's refusals and the VTI writer."""
+
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pd_mg_pin_corrosion_tpu import Config as JConfig
+from pd_mg_pin_corrosion_tpu import build_grid as j_build_grid
+from pd_mg_pin_corrosion_tpu import build_kit as j_build_kit
+from pd_mg_pin_corrosion_tpu import grains as j_grains
+from pd_mg_pin_corrosion_tpu import initialize_state as j_initialize_state
+from pd_mg_pin_corrosion_tpu.coupling import CoupledSolver as JSolver
+from pd_mg_pin_corrosion_tpu.io_vtk import VTKWriter as JWriter
+from pd_mg_pin_corrosion_tpu_torch import Config as TConfig
+from pd_mg_pin_corrosion_tpu_torch import build_grid as t_build_grid
+from pd_mg_pin_corrosion_tpu_torch import cli, state_from_numpy
+from pd_mg_pin_corrosion_tpu_torch.io_vtk import VTKWriter as TWriter
+
+torch.set_num_threads(2)
+
+PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                      "parity.cfg")
+# flow capped at 300 iterations per solve (the JAX package needs ~10^4 to
+# converge here); T_final stays 100 s, so all 180 solid nodes dissolve
+CAPS = ["flow_max_iters=300"]
+
+
+def _run_jax(out, overrides):
+    cfg = JConfig.load(PARITY)
+    cfg.apply_overrides([f"output_dir={out}", *overrides])
+    grid = j_build_grid(cfg)
+    g = j_grains.generate(grid, cfg)
+    kit = j_build_kit(grid, cfg)
+    state = j_initialize_state(grid, cfg, grains=g, dtype=kit.jdtype)
+    JSolver().run(grid, state, kit, cfg)
+    return np.atleast_1d(np.genfromtxt(f"{out}/diagnostics.csv",
+                                       delimiter=",", names=True))
+
+
+def _run_port(out, overrides):
+    solver = cli.run([PARITY, f"output_dir={out}", *overrides,
+                      "--device", "cpu"])
+    rows = np.atleast_1d(np.genfromtxt(f"{out}/diagnostics.csv",
+                                       delimiter=",", names=True))
+    return solver, rows
+
+
+def test_slice_f64_matches_jax(tmp_path):
+    ov = ["precision=f64", *CAPS]
+    ref = _run_jax(tmp_path / "jax", ov)
+    solver, ours = _run_port(tmp_path / "port", ov)
+    assert solver.total_dissolved == 180 and len(ours) == len(ref) >= 6
+    # tests/test_parity.py's gates
+    np.testing.assert_array_equal(ours["solid_nodes"], ref["solid_nodes"])
+    np.testing.assert_allclose(ours["time_s"], ref["time_s"], rtol=1e-9)
+    for col in ("pin_mass_loss_pct", "v_max", "C_max_fluid"):
+        np.testing.assert_allclose(ours[col], ref[col], rtol=1e-6, err_msg=col)
+    files = set(os.listdir(tmp_path / "port"))
+    assert {"simulation.pvd", "flow.pvd", "mass_loss.csv"} <= files
+    assert any(f.startswith("final_") and f.endswith(".vti") for f in files)
+
+
+def test_slice_f32_first_cycle_matches_jax(tmp_path):
+    # T_final = 1.2 s: exactly the first coupling cycle (two 0.6 s steps)
+    ov = ["precision=f32", "T_final=1.2", *CAPS]
+    ref = _run_jax(tmp_path / "jax", ov)
+    solver, ours = _run_port(tmp_path / "port", ov)
+    assert solver.cycles == 1 and len(ours) == len(ref) == 2
+    assert solver.gmres_warnings == 0
+    np.testing.assert_array_equal(ours["solid_nodes"], ref["solid_nodes"])
+    for col in ("time_s", "pin_mass_loss_pct", "v_max", "C_max_fluid"):
+        np.testing.assert_allclose(ours[col], ref[col], rtol=1e-4, err_msg=col)
+
+
+@pytest.mark.parametrize("override", [
+    "dim=3", "use_amr=1", "use_implicit=0", "gs_parity=1", "flow_warm_start=2",
+    "implicit_extrapolate_x0=1", "checkpoint_every=5",
+    "resume_from=out/checkpoint.npz"])
+def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.run([PARITY, f"output_dir={tmp_path}", override, "--device", "cpu"])
+    assert cli.main([PARITY, f"output_dir={tmp_path}", override,
+                     "--device=cpu"]) == 1
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_cli_without_cuda_fails_unless_cpu_is_asked(monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("PD_TORCH_DEVICE", raising=False)
+    assert cli.main([PARITY, f"output_dir={tmp_path}"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "diagnostics.csv")
+    assert cli.parse_args([PARITY, "a=1", "--device", "cpu"]) == (
+        PARITY, ["a=1"], "cpu")
+    monkeypatch.setenv("PD_TORCH_DEVICE", "cpu")
+    assert cli.parse_args([])[2] == "cpu"
+
+
+@pytest.mark.parametrize("binary", [0, 1])
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_vti_bytes_match_jax_writer(precision, binary, tmp_path):
+    cfg = JConfig.load(PARITY)
+    cfg.apply_overrides([f"precision={precision}", f"vtk_binary={binary}"])
+    grid = j_build_grid(cfg)
+    kit = j_build_kit(grid, cfg)
+    js = j_initialize_state(grid, cfg, grains=j_grains.generate(grid, cfg),
+                            dtype=kit.jdtype)
+    rng = np.random.default_rng(4)
+    js = dataclasses.replace(js, C=jnp.asarray(rng.random(kit.shape), kit.jdtype))
+    ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
+                           for f in dataclasses.fields(js)},
+                          dtype=torch.float32 if precision == "f32" else torch.float64)
+    tgrid = t_build_grid(TConfig.load(PARITY))
+    a, b = str(tmp_path / "jax.vti"), str(tmp_path / "port.vti")
+    jw, tw = JWriter(), TWriter()
+    jw.write(a, grid, js, cfg)
+    tw.write(b, tgrid, ts, cfg)
+    jw.flush()
+    tw.flush()
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
