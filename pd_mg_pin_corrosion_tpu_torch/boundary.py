@@ -1,15 +1,18 @@
 """Boundary conditions as masked-tensor updates.
 
-Port of the functional (non-gs_parity) 2D paths of
+Port of the functional (non-gs_parity) 2D and 3D paths of
 ``pd_mg_pin_corrosion_tpu/boundary.py`` (reference src/boundary.cpp).
 Neighbour averages are stencil-shift sums over ``kit.neighbors`` with
-dynamic node-type masks; all reads come from the input snapshot (the
-race-free fixed point of the reference's in-place sweeps). Each function
-returns a new State; the tensors it changes are fresh copies.
+dynamic node-type masks, taken over slot chunks (``kit.slot_chunks``) so a
+3D call never holds a [178, N] stack of the whole grid; all reads come from
+the input snapshot (the race-free fixed point of the reference's in-place
+sweeps). Each function returns a new State; the tensors it changes are
+fresh copies.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import replace
 
 import torch
@@ -24,10 +27,16 @@ def _band_sums(kit: Kit, values, pred, lo: int, hi: int):
     count_s pred_j). The INLET/OUTLET ghost layers occupy fixed axial rows
     (kit.inlet_rows / kit.outlet_rows), so these flow-loop BCs only touch a
     thin slab of rows."""
-    P = kit.neighbors(kit.pad(pred, 0.0), lo, hi)
-    totals = [(kit.neighbors(kit.pad(v, 0.0), lo, hi) * P).sum(0)
-              for v in values]
-    return totals, P.sum(0)
+    pads = [kit.pad(f, 0.0) for f in [pred, *values]]
+    shape = (hi - lo,) + kit.shape[1:]
+    totals = [torch.zeros(shape, dtype=kit.dtype, device=kit.device)
+              for _ in pads]
+    for s0, s1 in kit.slot_chunks(math.prod(shape)):
+        P = kit.neighbors(pads[0], lo, hi, s0, s1)
+        totals[0] += P.sum(0)
+        for t, vp in zip(totals[1:], pads[1:]):
+            t += (kit.neighbors(vp, lo, hi, s0, s1) * P).sum(0)
+    return totals[1:], totals[0]
 
 
 def apply_inlet_bc(state: State, kit: Kit) -> State:
@@ -116,13 +125,18 @@ def smooth_boundary_concentration(state: State, kit: Kit) -> State:
     fluid = state.node_type == FLUID
     near_in = kit.near_inlet_mask & fluid
     near_out = kit.near_outlet_mask & fluid
-    d_ax = torch.tensor([o[0] for o in kit.offsets],
-                        device=kit.device).view(-1, 1, 1)
-    use = ((d_ax > 0) & near_in) | ((d_ax < 0) & near_out)     # [S, Ny, Nx]
-    FJ = kit.neighbors(kit.pad(fluid.to(kit.dtype), 0.0))
-    sel = torch.where(use, FJ, 0.0)
-    tot = (kit.neighbors(kit.pad(state.C, 0.0)) * sel).sum(0)
-    cnt = sel.sum(0)
+    d_ax = torch.tensor([o[0] for o in kit.offsets], device=kit.device)
+    d_ax = d_ax.view((-1,) + (1,) * kit.dim)
+    fl_p = kit.pad(fluid.to(kit.dtype), 0.0)
+    C_p = kit.pad(state.C, 0.0)
+    tot = torch.zeros_like(state.C)
+    cnt = torch.zeros_like(state.C)
+    for s0, s1 in kit.slot_chunks():
+        d = d_ax[s0:s1]
+        use = ((d > 0) & near_in) | ((d < 0) & near_out)   # [slots, *shape]
+        sel = torch.where(use, kit.neighbors(fl_p, s0=s0, s1=s1), 0.0)
+        tot += (kit.neighbors(C_p, s0=s0, s1=s1) * sel).sum(0)
+        cnt += sel.sum(0)
 
     C_sm = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1.0), state.C)
     C = torch.where((near_in | near_out) & (cnt > 0), C_sm, state.C)

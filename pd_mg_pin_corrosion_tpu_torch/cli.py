@@ -19,18 +19,16 @@ import time
 
 import torch
 
-# configurations this slice does not run, with the ROADMAP item that adds them
+# configurations the port does not run yet, with the ROADMAP item that adds them
 _UNSUPPORTED = (
-    (lambda c: c.dim != 2, "dim = 3", "3D flagship slice"),
     (lambda c: c.use_amr, "use_amr = 1", "block AMR"),
     (lambda c: not c.use_implicit, "use_implicit = 0", "explicit transport"),
-    (lambda c: c.gs_parity, "gs_parity = 1",
-     "gs_parity and checkpoint/resume"),
+    (lambda c: c.gs_parity, "gs_parity = 1", "gs_parity"),
     (lambda c: c.flow_warm_start > 0, "flow_warm_start > 0", "block AMR"),
     (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
      "left out: implicit_extrapolate_x0"),
-    (lambda c: c.checkpoint_every > 0 or c.resume_from,
-     "checkpoint_every > 0 / resume_from", "gs_parity and checkpoint/resume"),
+    (lambda c: c.dim == 3 and c.wall_mirror_subcell,
+     "wall_mirror_subcell = 1", "wall_mirror_subcell"),
 )
 
 

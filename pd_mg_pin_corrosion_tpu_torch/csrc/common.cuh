@@ -18,8 +18,9 @@ constexpr uint8_t kFluid = 0;
 constexpr uint8_t kOutside = 5;
 
 // upper bound on stencil slots a launch may carry in shared memory
-// (2D: m_ratio = 3 gives 36 slots, m_ratio = 5 gives 88)
-constexpr int kMaxSlots = 128;
+// (2D: m_ratio = 3 gives 36 slots, m_ratio = 5 gives 88; 3D: m_ratio = 3
+// gives 178)
+constexpr int kMaxSlots = 256;
 
 constexpr int kThreads = 256;
 

@@ -12,6 +12,8 @@ uint8 array.
 from __future__ import annotations
 
 import io
+import os
+import re
 import sys
 
 import numpy as np
@@ -170,6 +172,31 @@ class VTKWriter:
     # ------------------------------------------------------------------
     def set_pvd_path(self, path: str) -> None:
         self._pvd_path = path
+
+    def load_pvd(self, filename: str, t_max: float | None = None) -> int:
+        """Reload the collection of an existing PVD (resume): entries after
+        ``t_max`` (written past the checkpoint being resumed) and entries
+        whose file is missing are dropped. Returns the number kept."""
+        if not os.path.exists(filename):
+            return 0
+        pvd_dir = filename[: filename.rfind("/") + 1] if "/" in filename else ""
+        pat = re.compile(r'<DataSet timestep="([^"]+)" file="([^"]+)"/>')
+        entries = []
+        with open(filename) as f:
+            for line in f:
+                m = pat.search(line)
+                if m and (t_max is None or float(m.group(1)) <= t_max + 1e-9):
+                    entries.append((float(m.group(1)), pvd_dir + m.group(2)))
+        # a crash between the PVD rewrite and the (asynchronous) VTI write
+        # can leave a trailing entry without its file
+        kept = [(t, f) for t, f in entries if os.path.exists(f)]
+        if len(kept) != len(entries):
+            n = len(entries) - len(kept)
+            print(f"WARNING: {n} PVD entr{'y' if n == 1 else 'ies'} in "
+                  f"{filename} reference missing files; dropped",
+                  file=sys.stderr)
+        self._entries = kept
+        return len(kept)
 
     def add_timestep(self, time: float, vti_file: str) -> None:
         self._entries.append((time, vti_file))

@@ -13,7 +13,9 @@ from dataclasses import dataclass
 
 from .basis import basis_axpy, basis_axpy_plain, basis_dots, basis_dots_plain
 from .matvec2d import matvec2d, matvec2d_plain
+from .matvec3d import matvec3d, matvec3d_plain, slots3d_f64, slots3d_f64_plain
 from .ns2d import ns2d, ns2d_plain
+from .ns3d import ns3d, ns3d_plain
 
 
 @dataclass(frozen=True)
@@ -37,6 +39,15 @@ KERNELS = (
     KernelInfo("basis_axpy", basis_axpy,
                "pd_mg_pin_corrosion_tpu_torch/csrc/basis.cu",
                "pd_mg_pin_corrosion_tpu/pallas_kernels.py:1368"),
+    KernelInfo("ns3d", ns3d,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/ns3d.cu",
+               "pd_mg_pin_corrosion_tpu/pallas_kernels.py:413"),
+    KernelInfo("matvec3d", matvec3d,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/matvec3d.cu",
+               "pd_mg_pin_corrosion_tpu/pallas_kernels.py:804"),
+    KernelInfo("slots3d_f64", slots3d_f64,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/matvec3d.cu",
+               "pd_mg_pin_corrosion_tpu/pallas_kernels.py:982"),
 )
 
 

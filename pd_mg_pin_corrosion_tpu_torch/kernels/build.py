@@ -71,6 +71,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_matvec2d.restype = i32
     lib.pd_matvec2d.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, i32,
                                 vp]
+    lib.pd_ns3d.restype = i32
+    lib.pd_ns3d.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                            i32, f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    for name in ("pd_matvec3d_f32", "pd_matvec3d_bf16"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                       i32, vp, i32, vp]
+    lib.pd_slots3d_f64.restype = i32
+    lib.pd_slots3d_f64.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp,
+                                   i32, vp]
     lib.pd_basis_dots.restype = i32
     lib.pd_basis_dots.argtypes = [vp, vp, i32, i64, i32, vp, vp, i32, vp]
     lib.pd_basis_axpy.restype = i32

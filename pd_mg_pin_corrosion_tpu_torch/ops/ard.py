@@ -22,9 +22,13 @@ def compute_salt_blocked(state: State, kit: Kit) -> torch.Tensor:
     """Salt-layer blocking (pd_ard.cpp:58-73 / pd_ard_implicit.cpp:68-87):
     a SOLID node with ANY FLUID neighbour at C >= C_sat has all its
     interface bonds disabled."""
-    NT = kit.neighbors(kit.pad(state.node_type, OUTSIDE))
-    CJ = kit.neighbors(kit.pad(state.C, 0.0))
-    blocked = ((NT == FLUID) & (CJ >= kit.cfg.C_sat)).any(0)
+    nt_p = kit.pad(state.node_type, OUTSIDE)
+    C_p = kit.pad(state.C, 0.0)
+    blocked = torch.zeros(kit.shape, dtype=torch.bool, device=kit.device)
+    for s0, s1 in kit.slot_chunks():
+        NT = kit.neighbors(nt_p, s0=s0, s1=s1)
+        CJ = kit.neighbors(C_p, s0=s0, s1=s1)
+        blocked |= ((NT == FLUID) & (CJ >= kit.cfg.C_sat)).any(0)
     return blocked & (state.node_type == SOLID_MG)
 
 

@@ -1,8 +1,8 @@
 """PD Navier-Stokes: Tait EOS, CFL dt, and the weakly compressible step.
 
 Port of ``pd_mg_pin_corrosion_tpu/ops/ns.py`` (reference src/pd_ns.cpp).
-The bond loop itself is ``kernels.ns2d``: the CUDA kernel for float32 on
-the card, its plain twin on the CPU and for float64.
+The bond loop itself is ``kernels.ns2d`` / ``kernels.ns3d``: the CUDA
+kernel for float32 on the card, its plain twin on the CPU and for float64.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 
 from ..fields import State
 from ..grid import FLUID
-from ..kernels import ns2d, ns2d_plain
+from ..kernels import ns2d, ns2d_plain, ns3d, ns3d_plain
 from ..kit import Kit
 
 
@@ -61,6 +61,9 @@ def ns_step(state: State, kit: Kit, dt) -> State:
     """
     pressure = tait_pressure(state.rho, kit)
     dt = torch.as_tensor(dt, dtype=kit.dtype, device=kit.device)
-    step = ns2d if kit.dtype == torch.float32 else ns2d_plain
+    if kit.dim == 2:
+        step = ns2d if kit.dtype == torch.float32 else ns2d_plain
+    else:
+        step = ns3d if kit.dtype == torch.float32 else ns3d_plain
     rho, vel = step(state.rho, state.vel, pressure, state.node_type, dt, kit)
     return replace(state, rho=rho, vel=vel, pressure=pressure)

@@ -28,15 +28,18 @@ from .ops.ns import compute_dt, ns_step, tait_pressure, vel_magnitude
 
 def _channel_flow_corrections(state: State, kit: Kit) -> State:
     """Poiseuille-validation-only corrections (pd_ns.cpp:209-270): zero
-    transverse velocity and cross-sectionally averaged density on FLUID."""
+    transverse velocity and cross-sectionally averaged density on FLUID
+    (averaged over all non-axial array axes: per row in 2D, per z-plane in
+    3D)."""
     fluid = state.node_type == FLUID
     vel = state.vel.clone()
     for d in range(kit.dim):
         if d != kit.axial_comp:
             vel[..., d] = torch.where(fluid, 0.0, state.vel[..., d])
     fl = fluid.to(kit.dtype)
-    rho_sum = (state.rho * fl).sum(dim=1, keepdim=True)
-    cnt = fl.sum(dim=1, keepdim=True)
+    rest = tuple(range(1, kit.dim))
+    rho_sum = (state.rho * fl).sum(dim=rest, keepdim=True)
+    cnt = fl.sum(dim=rest, keepdim=True)
     rho_avg = torch.where(cnt > 0, rho_sum / torch.clamp(cnt, min=1.0), 0.0)
     rho = torch.where(fluid & (cnt > 0), rho_avg, state.rho)
     return replace(state, vel=vel, rho=rho)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card
+(2D kernels on tests/golden/parity.cfg, 3D kernels on a small 3D grid).
 
 Marked ``cuda``: every test here needs an NVIDIA GPU and skips without
 one (this decision is taken inside the fixture, never at import). Run on
@@ -98,3 +99,98 @@ def test_f64_on_cuda_is_refused(setup):
     x = torch.zeros(kit.shape, dtype=torch.float64, device="cuda")
     with pytest.raises(TypeError):
         kernels.basis_dots(x.reshape(1, -1), x.reshape(-1))
+
+
+def _cfg3d():
+    """The small 3D grid of tests/test_pallas_interpret.py (8,303 nodes,
+    S = 178), f32."""
+    cfg = Config()
+    cfg.apply_overrides(["dim=3", "dx=8e-6", "R_wire=16e-6", "L_wire=64e-6",
+                         "R_tube=48e-6", "L_upstream=32e-6",
+                         "L_downstream=32e-6", "precision=f32"])
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def setup3d():
+    """_cfg3d()'s kit on the card, with a seeded State."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    cfg = _cfg3d()
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    state = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(3)
+    fluid = state.node_type == 0
+    noise = torch.tensor(rng.normal(0, 0.05, state.vel.shape),
+                         dtype=torch.float32, device="cuda")
+    state.vel = torch.where(fluid[..., None], state.vel + noise, state.vel)
+    state.C = torch.where(state.node_type == 1, 1.0, torch.tensor(
+        0.3 * rng.random(kit.shape), dtype=torch.float32, device="cuda"))
+    return kit, state
+
+
+def test_ns3d_equals_plain(setup3d):
+    kit, st = setup3d
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    n0 = kernels.ns3d.launches
+    r1, v1 = kernels.ns3d(*args)
+    r2, v2 = kernels.ns3d(*args)
+    rp, vp = kernels.ns3d_plain(*args)
+    assert kernels.ns3d.launches == n0 + 2
+    assert torch.equal(r1, r2) and torch.equal(v1, v2)
+    torch.testing.assert_close(r1, rp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(v1, vp, rtol=1e-4, atol=1e-9)
+    assert torch.equal(r1, rp) and torch.equal(v1, vp)
+
+
+@pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
+def test_matvec3d_equals_plain(setup3d, weights):
+    kit, st = setup3d
+    op = ai.assemble(st, kit)
+    assert op.W16.dtype == torch.bfloat16
+    W = op.W if weights == torch.float32 else op.W16
+    x = torch.tensor(np.random.default_rng(5).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
+    y = kernels.matvec3d(x, W, op.diag, op.unknown, kit)
+    yp = kernels.matvec3d_plain(x, W, op.diag, op.unknown, kit)
+    assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
+    assert torch.equal(y, yp)
+    assert torch.equal(y, kernels.matvec3d(x, W, op.diag, op.unknown, kit))
+
+
+def test_slots3d_f64_equals_plain(setup3d):
+    kit, st = setup3d
+    op = ai.assemble(st, kit)
+    x = torch.tensor(np.random.default_rng(6).random(kit.shape),
+                     dtype=torch.float64, device="cuda")
+    y = kernels.slots3d_f64(x, op.W, kit)
+    yp = kernels.slots3d_f64_plain(x, op.W, kit)
+    assert y.dtype == torch.float64
+    assert (y - yp).abs().max() <= 1e-14 * yp.abs().max()
+    assert torch.equal(y, yp)
+    with pytest.raises(TypeError):
+        kernels.slots3d_f64(x.float(), op.W, kit)
+    with pytest.raises(TypeError):
+        kernels.matvec3d(x.float(), op.W.double(), op.diag, op.unknown, kit)
+
+
+def test_implicit_step_3d_on_the_card(setup3d):
+    """The 3D f32 implicit step on CUDA (kernels) against the same step on
+    the CPU (plain twins): both solve to the f32 tolerance."""
+    kit, st = setup3d
+    op = ai.assemble(st, kit)
+    n0 = {k: getattr(kernels, k).launches
+          for k in ("matvec3d", "slots3d_f64", "basis_dots")}
+    s_gpu, res = ai.implicit_step(st, op, kit, 60.0)
+    assert res < 1e-6
+    assert all(getattr(kernels, k).launches > n for k, n in n0.items())
+    cfg = _cfg3d()
+    cpu_kit = build_kit(build_grid(cfg), cfg)
+    cpu_st = type(st)(*(t.cpu() for t in st.tensors()))
+    s_cpu, res_cpu = ai.implicit_step(cpu_st, ai.assemble(cpu_st, cpu_kit),
+                                      cpu_kit, 60.0)
+    assert res_cpu < 1e-6
+    torch.testing.assert_close(s_gpu.C.cpu(), s_cpu.C, rtol=5e-6, atol=5e-8)

@@ -181,6 +181,7 @@ def test_wrapper_device_rule():
     with pytest.raises(ValueError):
         use_plain("k", cpu, torch.zeros(4, device="meta"))
     counts = kernels.launch_counts()
-    assert set(counts) == {"ns2d", "matvec2d", "basis_dots", "basis_axpy"}
+    assert set(counts) == {"ns2d", "matvec2d", "basis_dots", "basis_axpy",
+                           "ns3d", "matvec3d", "slots3d_f64"}
     kernels.reset_launch_counts()
     assert all(v == 0 for v in kernels.launch_counts().values())
