@@ -6,9 +6,10 @@ with the same module names so each counterpart is easy to find. It imports
 Hopper (``csrc/``, bound in ``kernels/``), each with a plain PyTorch twin
 that runs on the CPU.
 
-It runs the structured implicit-transport path in 2D and 3D
-(``cli.main`` -> ``CoupledSolver.run``), with checkpoint/resume; see
-``cli._UNSUPPORTED`` for the configurations it refuses.
+It runs the structured implicit-transport path in 2D and 3D and the
+explicit-transport path in 2D (``cli.main`` -> ``CoupledSolver.run``), with
+checkpoint/resume; see ``cli._UNSUPPORTED`` for the configurations it
+refuses.
 """
 
 import torch

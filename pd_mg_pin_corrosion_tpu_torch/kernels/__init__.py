@@ -4,18 +4,23 @@
 Every wrapper follows one rule (``build.use_plain``): CPU tensors take the
 plain version, CUDA float32 tensors launch the kernel or raise — there is no
 fallback that hides a failed build or launch. Each wrapper counts its own
-launches in a plain integer attribute, ``wrapper.launches``.
+launches in a plain integer attribute, ``wrapper.launches`` (per weight
+type or form where one wrapper launches several instantiations of its
+kernel: ``KernelInfo.counter``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from .ard2d import ard2d, ard2d_plain
 from .basis import basis_axpy, basis_axpy_plain, basis_dots, basis_dots_plain
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import matvec3d, matvec3d_plain, slots3d_f64, slots3d_f64_plain
 from .ns2d import ns2d, ns2d_plain
 from .ns3d import ns3d, ns3d_plain
+from .ns3d_chunked import (compute_actconv, group_chunks, ns3d_chunked,
+                           ns3d_chunked_plain, ns3d_jstat, ns3d_jstat_plain)
 
 
 @dataclass(frozen=True)
@@ -24,6 +29,7 @@ class KernelInfo:
     wrapper: object
     source: str     # CUDA source, relative to the repo root
     replaces: str   # file:line of the TPU (Pallas) kernel body it replaces
+    counter: str = "launches"   # the wrapper attribute counting its launches
 
 
 KERNELS = (
@@ -45,16 +51,30 @@ KERNELS = (
     KernelInfo("matvec3d", matvec3d,
                "pd_mg_pin_corrosion_tpu_torch/csrc/matvec3d.cu",
                "pd_mg_pin_corrosion_tpu/pallas_kernels.py:804"),
+    KernelInfo("matvec3d_bf16", matvec3d,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/matvec3d.cu",
+               "pd_mg_pin_corrosion_tpu/pallas_kernels.py:804",
+               "launches_bf16"),
     KernelInfo("slots3d_f64", slots3d_f64,
                "pd_mg_pin_corrosion_tpu_torch/csrc/matvec3d.cu",
                "pd_mg_pin_corrosion_tpu/pallas_kernels.py:982"),
+    KernelInfo("ard2d", ard2d,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/ard2d.cu",
+               "pd_mg_pin_corrosion_tpu/pallas_kernels.py:1130"),
+    *(KernelInfo(f"ns3d_chunked_{form}", ns3d_chunked,
+                 "pd_mg_pin_corrosion_tpu_torch/csrc/ns3d_chunked.cu",
+                 "scripts/exp_ns3d_chunked.py:81", f"launches_{form}")
+      for form in ("xla", "factored", "jconv")),
+    KernelInfo("ns3d_jstat", ns3d_jstat,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/ns3d_chunked.cu",
+               "scripts/exp_ns3d_chunked.py:392"),
 )
 
 
 def launch_counts() -> dict:
-    return {k.name: k.wrapper.launches for k in KERNELS}
+    return {k.name: getattr(k.wrapper, k.counter) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
-        k.wrapper.launches = 0
+        setattr(k.wrapper, k.counter, 0)

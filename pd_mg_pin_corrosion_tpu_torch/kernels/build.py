@@ -1,11 +1,12 @@
 """Build, load and launch helpers for the port's CUDA kernels.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into ONE shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds) and
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them started together, and the objects are linked into ONE shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``. The build happens at first use, into
 ``build/torch_kernels/`` beside the package, under a file name keyed on a
-hash of the sources and flags, so an edited source always rebuilds and an unchanged one is reused. Nothing is built
-when this module is imported.
+hash of the sources and flags, so an edited source always rebuilds and an
+unchanged one is reused. Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -28,8 +29,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 # -fmad=false: no a*b+c contraction, so each kernel reproduces its plain
 # PyTorch twin's roundings exactly (the twins are separate mul/add ops).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 
 @dataclass(frozen=True)
@@ -85,6 +85,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_basis_dots.argtypes = [vp, vp, i32, i64, i32, vp, vp, i32, vp]
     lib.pd_basis_axpy.restype = i32
     lib.pd_basis_axpy.argtypes = [vp, vp, vp, i32, i64, i32, vp, i32, vp]
+    lib.pd_ard2d.restype = i32
+    lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp, vp, i32, i32,
+                             i32, f32, f32, f32, f32, f32, f32, vp, i32, vp]
+    lib.pd_ns3d_chunked.restype = i32
+    lib.pd_ns3d_chunked.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                    i32, i32, i32, i32, i32, i32, f32, f32,
+                                    f32, f32, f32, vp, vp, i32, vp]
     lib.pd_cuda_error_string.restype = ctypes.c_char_p
     lib.pd_cuda_error_string.argtypes = [i32]
 
@@ -103,21 +110,44 @@ def load() -> KernelLibrary:
     t0 = time.time()
     built, log = False, ""
     if not so.exists():
-        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+        log = _compile_and_link(sources, out_dir, so)
         (out_dir / f"build_{key}.log").write_text(log)
-        os.replace(tmp, so)
         built = True
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _LIBRARY = KernelLibrary(lib, so, time.time() - t0, built, log)
     return _LIBRARY
+
+
+def _run(cmds) -> str:
+    """Run the commands all at once; their joined output, or raise with it
+    if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(sources, out_dir: Path, so: Path) -> str:
+    """One nvcc per .cu source, in parallel, then one link into ``so``."""
+    nvcc = find_nvcc()
+    cu = [s for s in sources if s.suffix == ".cu"]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [out_dir / f".{tag}.{s.stem}.o" for s in cu]
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(cu, objs)])
+    tmp = out_dir / f".{tag}.so.tmp"
+    log += _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                  "-o", str(tmp), *(str(o) for o in objs)]])
+    os.replace(tmp, so)
+    for o in objs:
+        o.unlink()
+    return log
 
 
 def check(rc: int, name: str) -> None:

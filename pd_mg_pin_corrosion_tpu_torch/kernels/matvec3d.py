@@ -66,7 +66,8 @@ def _check_weights(name, W, x, kit: Kit, dtypes):
 
 def matvec3d(x, W, diag, unknown, kit: Kit):
     """matvec3d_plain's contract: the kernel on CUDA float32 tensors (W
-    float32 or bfloat16), the plain version on CPU tensors."""
+    float32 or bfloat16), the plain version on CPU tensors. Launches are
+    counted per weight type: ``launches`` (float32), ``launches_bf16``."""
     if use_plain("matvec3d", x, diag, unknown):
         return matvec3d_plain(x, W, diag, unknown, kit)
     _check_weights("matvec3d", W, x, kit, (torch.float32, torch.bfloat16))
@@ -79,7 +80,10 @@ def matvec3d(x, W, diag, unknown, kit: Kit):
     rc = entry(ptr(xp), ptr(W), ptr(diag), ptr(unknown), ptr(kit.slot_flat),
                kit.S, *kit.shape, kit.mext, ptr(y), x.device.index, stream(x))
     check(rc, "matvec3d")
-    matvec3d.launches += 1
+    if W.dtype == torch.float32:
+        matvec3d.launches += 1
+    else:
+        matvec3d.launches_bf16 += 1
     return y
 
 
@@ -104,4 +108,5 @@ def slots3d_f64(x, W, kit: Kit):
 
 
 matvec3d.launches = 0
+matvec3d.launches_bf16 = 0
 slots3d_f64.launches = 0

@@ -1,10 +1,12 @@
-"""Bi-material transport helpers shared by the implicit solver, and phase
-change.
+"""Explicit PD advection-reaction-diffusion transport (bi-material bonds),
+the helpers it shares with the implicit solver, and phase change.
 
-Port of ``compute_salt_blocked``, ``micro_d_factor`` and
-``apply_phase_change`` of ``pd_mg_pin_corrosion_tpu/ops/ard.py``
-(reference src/pd_ard.cpp). The explicit ``ard_step`` is not part of this
-slice (ROADMAP: explicit transport).
+Port of ``pd_mg_pin_corrosion_tpu/ops/ard.py`` (reference
+src/pd_ard.cpp): ``compute_salt_blocked``, ``micro_d_factor``,
+``compute_dt``, ``ard_step`` and ``apply_phase_change``. The explicit step
+runs in 2D, through the ``ard2d`` kernel on CUDA float32 tensors and its
+plain twin on the CPU and in float64; 3D explicit transport is not ported
+(ROADMAP: "3D explicit transport (no kernel)").
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 
 from ..fields import State
 from ..grid import FLUID, OUTSIDE, SOLID_MG
+from ..kernels import ard2d, ard2d_plain
 from ..kit import Kit
+from .ns import fluid_vmax, vel_magnitude
 
 
 def compute_salt_blocked(state: State, kit: Kit) -> torch.Tensor:
@@ -52,6 +56,39 @@ def solid_diffusivity(is_gb, is_precip, cfg, factor) -> torch.Tensor:
     D_grain = factor.new_tensor(cfg.D_grain)
     return torch.where(is_gb, cfg.D_gb,
                        torch.where(is_precip, cfg.D_precip, D_grain)) * factor
+
+
+def compute_dt(state: State, kit: Kit) -> torch.Tensor:
+    """Explicit transport CFL (pd_ard.cpp:34-53), a 0-d tensor of the run
+    dtype on the device."""
+    cfg = kit.cfg
+    v_max = fluid_vmax(state, kit)
+    D_max = max(cfg.D_liquid, cfg.D_grain, cfg.D_gb)
+    D_eff_max = D_max + cfg.alpha_art_diff * v_max * cfg.dx
+    # tensor numerators: torch turns scalar / tensor into a reciprocal
+    # times the scalar, one rounding more than the reference's division
+    dt_diff = v_max.new_tensor(0.25 * cfg.dx * cfg.dx) / (D_eff_max + 1e-30)
+    dt_adv = v_max.new_tensor(cfg.dx) / (v_max + 1e-30)
+    return cfg.cfl_factor_corr * torch.minimum(dt_diff, dt_adv)
+
+
+def ard_step(state: State, kit: Kit, dt, volume_loss_fraction=0.0) -> State:
+    """One explicit forward-Euler transport step (pd_ard.cpp:55-191). The
+    salt-blocking pass, the volume-loss factor, the solid-side
+    micro-diffusivity and |v| are formed here, as the JAX package's Pallas
+    wrapper forms them in XLA; the bond sums are ``ard2d``'s."""
+    if kit.dim != 2:
+        raise NotImplementedError(
+            "3D explicit transport is not ported (ROADMAP.md, port order: "
+            "'3D explicit transport (no kernel)')")
+    salt = compute_salt_blocked(state, kit)
+    decay = micro_d_factor(kit.cfg, volume_loss_fraction, kit.dtype,
+                           kit.device)
+    Ds = solid_diffusivity(state.is_gb, state.is_precip, kit.cfg, decay)
+    step = ard2d if kit.dtype == torch.float32 else ard2d_plain
+    C = step(state.C, state.vel, vel_magnitude(state.vel), state.node_type,
+             Ds, salt, dt, kit)
+    return replace(state, C=C)
 
 
 def apply_phase_change(state: State, kit: Kit):

@@ -12,6 +12,7 @@ its plain twin on the same inputs bit for bit; the tolerance checks below
 are the ones chip_smoke.py states, the exact checks are this file's own.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -20,6 +21,7 @@ import torch
 
 from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
                                            initialize_state, kernels)
+from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
 from pd_mg_pin_corrosion_tpu_torch.ops import ns
 
@@ -92,6 +94,26 @@ def test_basis_kernels_equal_plain(setup, k):
     assert torch.equal(a, kernels.basis_axpy_plain(c, V, w))
     assert torch.equal(kernels.basis_axpy(c, V),
                        kernels.basis_axpy_plain(c, V))
+
+
+def test_ard2d_equals_plain(setup):
+    kit, st = setup
+    # FLUID C uniform in [0, 1): some FLUID neighbours of the wire reach
+    # C_sat and salt-block their solid neighbours
+    C = torch.where(st.node_type == 1, 1.0, st.C)
+    salt = ard_ops.compute_salt_blocked(dataclasses.replace(st, C=C), kit)
+    assert bool(salt.any())
+    Ds = ard_ops.solid_diffusivity(st.is_gb, st.is_precip, kit.cfg,
+                                   ard_ops.micro_d_factor(kit.cfg, 0.1,
+                                                          kit.dtype, "cuda"))
+    args = (C, st.vel, ns.vel_magnitude(st.vel), st.node_type, Ds, salt,
+            2e-6, kit)
+    n0 = kernels.ard2d.launches
+    c1, c2 = kernels.ard2d(*args), kernels.ard2d(*args)
+    cp = kernels.ard2d_plain(*args)
+    assert kernels.ard2d.launches == n0 + 2
+    assert torch.equal(c1, c2)
+    assert torch.equal(c1, cp)
 
 
 def test_f64_on_cuda_is_refused(setup):
@@ -194,3 +216,29 @@ def test_implicit_step_3d_on_the_card(setup3d):
                                       cpu_kit, 60.0)
     assert res_cpu < 1e-6
     torch.testing.assert_close(s_gpu.C.cpu(), s_cpu.C, rtol=5e-6, atol=5e-8)
+
+
+@pytest.mark.parametrize("form", ["xla", "factored", "jconv", "jstat"])
+def test_ns3d_chunked_equals_plain(setup3d, form):
+    """Each form of csrc/ns3d_chunked.cu against its twin, bit for bit, at
+    two launch shapes (the block's z extent does not change the numbers),
+    and against ns3d at the script's gate (rel 1e-4)."""
+    kit, st = setup3d
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    if form == "jstat":
+        actconv = kernels.compute_actconv(kit, st.node_type)
+        outs = [kernels.ns3d_jstat(*args, actconv, nchunk=6, bz=bz)
+                for bz in (8, 16, 16)]
+        twin = kernels.ns3d_jstat_plain(*args, actconv, nchunk=6)
+    else:
+        f = {"xla": False, "factored": True, "jconv": "jconv"}[form]
+        outs = [kernels.ns3d_chunked(*args, nchunk=6, bz=bz, factored=f)
+                for bz in (8, 16, 16)]
+        twin = kernels.ns3d_chunked_plain(*args, nchunk=6, factored=f)
+    for r, v in outs:
+        assert torch.equal(r, twin[0]) and torch.equal(v, twin[1])
+    r0, v0 = kernels.ns3d(*args)
+    assert (outs[0][0] - r0).abs().max() <= 1e-4 * r0.abs().max()
+    assert (outs[0][1] - v0).abs().max() <= 1e-4 * v0.abs().max()

@@ -182,6 +182,9 @@ def test_wrapper_device_rule():
         use_plain("k", cpu, torch.zeros(4, device="meta"))
     counts = kernels.launch_counts()
     assert set(counts) == {"ns2d", "matvec2d", "basis_dots", "basis_axpy",
-                           "ns3d", "matvec3d", "slots3d_f64"}
+                           "ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64",
+                           "ard2d", "ns3d_chunked_xla",
+                           "ns3d_chunked_factored", "ns3d_chunked_jconv",
+                           "ns3d_jstat"}
     kernels.reset_launch_counts()
     assert all(v == 0 for v in kernels.launch_counts().values())

@@ -85,7 +85,7 @@ def test_slice_f32_first_cycle_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "use_amr=1", "use_implicit=0", "gs_parity=1", "flow_warm_start=2",
+    "use_amr=1", "gs_parity=1", "flow_warm_start=2",
     "implicit_extrapolate_x0=1", "dim=3 wall_mirror_subcell=1",
     "dim=3 use_implicit=0", "dim=3 gs_parity=1"])
 def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
