@@ -12,13 +12,17 @@ argument all of them run, in this order):
 2. ``kernels``, 2D kernel vs plain: ns2d, matvec2d, basis_dots,
    basis_axpy and ard2d against their plain PyTorch twins at the 2D
    slices' shapes (the 567 x 347 = 196,749-node fine-calibration grid with
-   a real Kit and seeded State; a 26-row basis of 196,749-long vectors),
-   twice for identical bits, with median times of both, the bound (bytes
+   a real Kit and seeded State; a 26-row basis of 196,749-long vectors
+   with GMRES's row pitch, basis_axpy also over its first 13 rows), twice
+   for identical bits, with median times of both, the bound (bytes
    over the HBM rate or flops over the peak rate, whichever is larger) and
    the time of one PyTorch library call that computes the same function,
    where there is one (LIBRARY).
 3. ``kernels3d``, 3D kernel vs plain at the flagship shape: ns3d, matvec3d
-   (f32 and bf16 weights), slots3d_f64 and the four forms of
+   (packed f32 and bf16 weights against the dense twin; the packing's
+   nonzero count, padding, bytes and time on a line of its own),
+   slots3d_f64, basis_axpy on a 26-row basis of that length and the four
+   forms of
    ns3d_chunked.cu (chunked XLA / factored / jconv, and j-static; NCHUNK 6,
    BZ 16), each also against ns3d at the script's gate, on
    config/params_3d.cfg's 157 x 82 x 82 = 1,055,668-node grid (S = 178)
@@ -117,6 +121,7 @@ CHUNKED_FORMS = (("ns3d_chunked_xla", False), ("ns3d_chunked_factored", True),
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s,
 # float32 and float64 (outside the tensor cores) flop/s
 HBM_RATE, F32_RATE, F64_RATE = 3.35e12, 67e12, 34e12
+L2_BYTES = 50e6
 
 
 def fail(msg):
@@ -151,6 +156,26 @@ def median_ms(fn, calls, reps=7):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def apart_ms(fn, other, reps=30):
+    """Median device time of single fn() calls, each right behind a call
+    of ``other`` (a kernel on other data): on a main path other work runs
+    between two calls of a kernel, and what back-to-back calls of one
+    kernel leave in the caches for each other is gone."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        other()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -271,6 +296,31 @@ def csr_of(W, diag, unknown, kit):
     return torch.sparse_csr_tensor(crow, col, val, size=(n, n))
 
 
+def record_basis_axpy(record, name, c, V, w):
+    """basis_axpy at the shape of (c, V, w) against its twin, bit for bit,
+    beside torch.addmv on the same V with c already in float32. Bytes: the
+    basis, w and out, and the f64 coefficients."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    k, n = V.shape
+    a, ap = kernels.basis_axpy(c, V, w), kernels.basis_axpy_plain(c, V, w)
+    err = float((a - ap).abs().max())
+    same = torch.equal(a, ap) and torch.equal(
+        kernels.basis_axpy(c, V), kernels.basis_axpy_plain(c, V))
+    print(f"[basis_axpy] {name} ({k}, {n}) bit-equal to its plain twin, with "
+          f"and without w: {same}")
+    del a, ap
+    c32 = c.float()
+    record(name, err, same, lambda: (kernels.basis_axpy(c, V, w),),
+           lambda: kernels.basis_axpy_plain(c, V, w), "bit-equal",
+           4 * k * n + 8 * n + 8 * k, 2.0 * k * n,
+           library=lambda: torch.addmv(w, V.T, c32, alpha=-1))
+    if 4 * k * n < L2_BYTES:
+        print(f"[basis_axpy] {name}: the {4 * k * n / 1e6:.1f} MB basis stays "
+              f"in the {L2_BYTES / 1e6:.0f} MB L2 across back-to-back calls, "
+              f"so its time may lie under the bound, which counts HBM bytes")
+
+
 def phase_kernels(pkg):
     """Phase 2; returns {name: JSON row fields}."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
@@ -341,11 +391,15 @@ def phase_kernels(pkg):
            library=lambda: torch.mv(A, xf).view(kit.shape))
     del A
 
-    # basis kernels: a 26-row basis (restart 25) of 196,749-long vectors
+    # basis kernels: a 26-row basis (restart 25) of 196,749-long vectors,
+    # rows on 128-byte lines as ops.gmres allocates them. The 20.5 MB basis
+    # stays in the 50 MB L2 across back-to-back calls.
     k = 26
-    V = seeded(rng, (k, n))
+    V = kernels.pitched_basis(k, n, torch.float32, "cuda")
+    V.copy_(seeded(rng, (k, n)))
     w = seeded(rng, (n,))
     c = seeded(rng, (k,), dtype=torch.float64)
+    print(f"[kernels] basis: {k} rows of {n} floats, {V.stride(0)} apart")
     d, dp = kernels.basis_dots(V, w), kernels.basis_dots_plain(V, w)
     err = float((d - dp).abs().max())
     record("basis_dots", err, torch.allclose(d, dp, rtol=2e-6, atol=0.0),
@@ -353,14 +407,8 @@ def phase_kernels(pkg):
            lambda: kernels.basis_dots_plain(V, w), "rtol 2e-6 vs f64 plain sum",
            4 * k * n + 4 * n + 8 * k, 2.0 * k * n,
            library=lambda: torch.mv(V, w))
-    a, ap = kernels.basis_axpy(c, V, w), kernels.basis_axpy_plain(c, V, w)
-    err = float((a - ap).abs().max())
-    c32 = c.float()
-    record("basis_axpy", err, torch.allclose(a, ap, rtol=1e-5, atol=1e-5),
-           lambda: (kernels.basis_axpy(c, V, w),),
-           lambda: kernels.basis_axpy_plain(c, V, w), "rtol 1e-5 atol 1e-5",
-           4 * k * n + 8 * n + 8 * k, 2.0 * k * n,
-           library=lambda: torch.addmv(w, V.T, c32, alpha=-1))
+    record_basis_axpy(record, "basis_axpy", c, V, w)
+    record_basis_axpy(record, "basis_axpy_k13", c[:13], V[:13], w)
     del V, w
 
     # ard2d: 26 B/node (C, vel[2], |v|, Ds, node_type, salt in; C out). C
@@ -403,6 +451,31 @@ def phase_kernels(pkg):
            "rtol 1e-6", 26 * n, flops)
     print(f"[kernels] ard2d bit-equal to its plain twin: {torch.equal(cn, cp)}")
     return results
+
+
+def packed_traffic(packed, itemsize):
+    """Bytes of the packed value and slot streams a matvec3d launch asks
+    memory for, counted in whole 32-byte sectors: a thread loads a group's
+    16-byte pieces only while its row has entries left in them, and lanes
+    whose pieces share a sector share the fetch."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import (SLICE,
+                                                                lane_chunk)
+
+    count = packed.count.to(torch.int64)
+    count = torch.nn.functional.pad(count, (0, -count.numel() % SLICE)).view(
+        -1, SLICE)
+    groups = -(-count // packed.group)           # groups a lane walks
+    total = 0
+    for size, chunk in ((itemsize, lane_chunk(packed.dtype, packed.group)),
+                        (1, packed.group)):
+        run = chunk * size                       # bytes side by side a lane
+        if run >= 32:
+            total += int(groups.sum()) * packed.group * size
+        else:
+            share = 32 // run                    # lanes to a sector
+            per = groups.view(-1, SLICE // share, share).max(2).values
+            total += int(per.sum()) * 32 * (packed.group // chunk)
+    return total
 
 
 def phase_kernels3d(pkg):
@@ -509,37 +582,99 @@ def phase_kernels3d(pkg):
                per_bond * act + (per_node + 6 * n_acc) * n_fluid)
     del r0, v0, actconv
 
-    # matvec3d on the operator of this state, f32 and bf16 weights: W of
-    # the unknown rows, plus x, diag, unknown and y; 2 flops per in-grid
-    # bond and 1 per unknown row. Library call (f32 only): the same
+    # matvec3d on the operator of this state, packed f32 and bf16 weights
+    # against the dense twin. The least the card must move, whatever the
+    # encoding: the nonzero weights, one bit per slot of every unknown row
+    # (which slots they belong to, in whole 32-bit words), and x, diag,
+    # unknown and y (13 B/node); 2 flops per nonzero weight and 1 per
+    # unknown row. The
+    # dense stream's count (every weight of the unknown rows, 2 flops per
+    # in-grid bond) is printed beside it. Library call (f32 only): the same
     # operator as one CSR matrix, torch.mv; PyTorch has no CSR product of
     # bf16 weights with a float32 vector, so bf16 has no single call
+    torch.cuda.synchronize()
+    t_a = time.time()
     op = ai.assemble(st, kit)
+    torch.cuda.synchronize()
+    t_assemble = time.time() - t_a
+    pack_s = []
+    for _ in range(3):
+        t_a = time.time()
+        again = kernels.pack_stencil(op.W, op.unknown, kit)
+        again16 = again.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        pack_s.append(time.time() - t_a)
+    same_pack = all(torch.equal(getattr(again, f), getattr(op.packed, f))
+                    for f in ("count", "slice_ptr", "slots", "values")
+                    ) and torch.equal(
+                        again16.values, op.W16.values)
+    del again, again16
     n_unk = int(op.unknown.sum())
+    nnz, words = op.packed.nnz, -(-S // 32)
+    stored = op.packed.values.numel()
     x = torch.tensor(rng.random(kit.shape), dtype=torch.float32, device="cuda")
     inside = float(bond_counts(kit, op.unknown, {"one": kit.pad(
         torch.ones_like(x), 0.0)}, {"in": lambda nb: nb["one"] != 0}
                                )["in"].sum())
     print(f"[kernels3d] operator: {n_unk} unknown rows, {int(inside)} "
-          f"in-grid bonds; W {op.W.numel() * 4 / 1e6:.1f} MB f32, "
-          f"{op.W16.numel() * 2 / 1e6:.1f} MB bf16")
+          f"in-grid bonds, {nnz} nonzero weights; dense W "
+          f"{op.W.numel() * 4 / 1e6:.1f} MB f32")
+    print(f"[kernels3d] packed: {stored} stored values (slice padding "
+          f"{stored / max(nnz, 1):.4f} stored per nonzero), a slot byte "
+          f"beside each; {op.packed.nbytes() / 1e6:.1f} MB with f32 "
+          f"values, {op.W16.nbytes() / 1e6:.1f} MB with bf16 values (slot "
+          f"bytes, counts and slice_ptr shared, "
+          f"{(op.packed.nbytes() - 4 * stored) / 1e6:.1f} MB); pack_stencil "
+          f"+ bf16 copy "
+          f"{1e3 * statistics.median(pack_s):.2f} ms per cycle (median of "
+          f"3, host clock), assemble with it {1e3 * t_assemble:.2f} ms; "
+          f"repacking gives the same bits: {same_pack}")
+    if not same_pack:
+        fail("pack_stencil: two packings of one operator differ")
     A = csr_of(op.W, op.diag, op.unknown, kit)
     xf = x.reshape(-1)
     print(f"[kernels3d] CSR operator: {A.values().numel()} nonzeros")
-    for name, W, wbytes, lib in (
-            ("matvec3d", op.W, 4, lambda: torch.mv(A, xf).view(kit.shape)),
+    for name, packed, wbytes, lib in (
+            ("matvec3d", op.packed, 4,
+             lambda: torch.mv(A, xf).view(kit.shape)),
             ("matvec3d_bf16", op.W16, 2, None)):
-        mv = (x, W, op.diag, op.unknown, kit)
-        y, yp = kernels.matvec3d(*mv), kernels.matvec3d_plain(*mv)
+        mv = (x, packed, op.diag, op.unknown, kit)
+        W_dense = op.W if wbytes == 4 else op.W.to(torch.bfloat16)
+        twin = (x, W_dense, op.diag, op.unknown, kit)
+        y, yp = kernels.matvec3d(*mv), kernels.matvec3d_plain(*twin)
         err = float((y - yp).abs().max())
-        print(f"[kernels3d] {name} bit-equal to its plain twin: "
-              f"{torch.equal(y, yp)}")
-        record(name, err, err <= 1e-5 * float(yp.abs().max()),
+        same = torch.equal(y, yp)
+        print(f"[kernels3d] {name} bit-equal to its dense twin: {same}")
+        del y, yp
+        dense_ms, _ = bound(n_unk * S * wbytes + 13 * n, 2 * inside + n_unk)
+        print(f"[kernels3d] {name} bound of the dense stream "
+              f"({(n_unk * S * wbytes + 13 * n) / 1e6:.1f} MB): "
+              f"{dense_ms:.4f} ms")
+        record(name, err, same,
                lambda mv=mv: (kernels.matvec3d(*mv),),
-               lambda mv=mv: kernels.matvec3d_plain(*mv),
-               "max|dy| <= 1e-5 max|y|", n_unk * S * wbytes + 13 * n,
-               2 * inside + n_unk, library=lib)
+               lambda twin=twin: kernels.matvec3d_plain(*twin),
+               "bit-equal", nnz * wbytes + 4 * words * n_unk + 13 * n,
+               2.0 * nnz + n_unk, library=lib)
+        other = torch.empty_like(x)
+        apart = apart_ms(lambda: kernels.matvec3d(*mv),
+                         lambda: torch.add(x, x, out=other))
+        moved = packed_traffic(packed, wbytes) + 15 * n
+        print(f"[kernels3d] {name} behind another kernel (an elementwise "
+              f"add), one call at a time: {apart:.4f} ms; its streams ask "
+              f"for {moved / 1e6:.1f} MB in whole sectors (slot bytes, "
+              f"counts and vectors included): "
+              f"{moved / (results[name]['ms'] * 1e-3) / 1e12:.3f} TB/s")
+        del W_dense, twin, other
     del A
+
+    # basis_axpy on a 26-row basis of flagship-long vectors (110 MB: from
+    # HBM, not the L2)
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(seeded(rng, (26, n)))
+    record_basis_axpy(record, "basis_axpy_3d",
+                      seeded(rng, (26,), dtype=torch.float64), V,
+                      seeded(rng, (n,)))
+    del V
 
     # slots3d_f64: all of W (no mask) plus x and y in f64; 2 f64 flops per
     # in-grid bond of every node
@@ -654,6 +789,11 @@ def phase_main3d(tmp):
           f"{step_ms:.3f} ({solver.total_implicit_steps} steps in "
           f"{solver.implicit_seconds:.3f} s); peak device memory "
           f"{peak / 2**30:.2f} GiB")
+    print(f"[main3d] assemble (packing included) "
+          f"{1e3 * solver.assemble_seconds / max(solver.cycles, 1):.2f} ms "
+          f"per cycle; with it "
+          f"{1e3 * (solver.implicit_seconds + solver.assemble_seconds) / max(solver.total_implicit_steps, 1):.3f}"
+          f" ms per implicit step")
     print(f"[main3d] launches {json.dumps(counts)}")
 
     ck, t_ck, _ = load_checkpoint(f"{out_dir}/out/checkpoint.npz", st)

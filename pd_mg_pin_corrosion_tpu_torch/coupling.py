@@ -114,6 +114,7 @@ class CoupledSolver:
         self.flow_iters = 0
         self.flow_seconds = 0.0
         self.implicit_seconds = 0.0
+        self.assemble_seconds = 0.0   # operator assembly (and packing)
         self.explicit_steps = 0
         self.explicit_seconds = 0.0
         self.cycle_steps = []     # implicit steps of each coupling cycle
@@ -207,6 +208,7 @@ class CoupledSolver:
         Returns (state, t_corr)."""
         t_ph = time.time()
         op = assemble(state, kit, volume_loss_fraction(state, kit))
+        self.assemble_seconds += time.time() - t_ph
         self._phase("assemble", t_ph, fence=True)
 
         implicit_step_n = 0

@@ -14,9 +14,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from .ard2d import ard2d, ard2d_plain
-from .basis import basis_axpy, basis_axpy_plain, basis_dots, basis_dots_plain
+from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
+                    basis_dots_plain, pitched_basis)
 from .matvec2d import matvec2d, matvec2d_plain
-from .matvec3d import matvec3d, matvec3d_plain, slots3d_f64, slots3d_f64_plain
+from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
+                       matvec3d_plain, pack_stencil, slots3d_f64,
+                       slots3d_f64_plain, unpack_stencil)
 from .ns2d import ns2d, ns2d_plain
 from .ns3d import ns3d, ns3d_plain
 from .ns3d_chunked import (compute_actconv, group_chunks, ns3d_chunked,

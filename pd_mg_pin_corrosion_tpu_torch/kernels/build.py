@@ -54,8 +54,8 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _source_key(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_key(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sources:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -76,15 +76,17 @@ def _declare(lib: ctypes.CDLL) -> None:
                             i32, f32, f32, f32, f32, f32, vp, vp, i32, vp]
     for name in ("pd_matvec3d_f32", "pd_matvec3d_bf16"):
         getattr(lib, name).restype = i32
-        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                       i32, vp, i32, vp]
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                       i32, i32, i32, i32, vp, i32, vp]
     lib.pd_slots3d_f64.restype = i32
     lib.pd_slots3d_f64.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp,
                                    i32, vp]
     lib.pd_basis_dots.restype = i32
-    lib.pd_basis_dots.argtypes = [vp, vp, i32, i64, i32, vp, vp, i32, vp]
+    lib.pd_basis_dots.argtypes = [vp, i64, vp, i32, i64, i32, vp, vp, i32,
+                                  vp]
     lib.pd_basis_axpy.restype = i32
-    lib.pd_basis_axpy.argtypes = [vp, vp, vp, i32, i64, i32, vp, i32, vp]
+    lib.pd_basis_axpy.argtypes = [vp, vp, i64, vp, i32, i64, i32, i32, vp,
+                                  i32, vp]
     lib.pd_ard2d.restype = i32
     lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp, vp, i32, i32,
                              i32, f32, f32, f32, f32, f32, f32, vp, i32, vp]
@@ -100,23 +102,31 @@ def load() -> KernelLibrary:
     """The kernel library, building it first if needed. Raises on any
     build or load failure — there is no fallback."""
     global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = build_library()
+    return _LIBRARY
+
+
+def build_library(defines=()) -> KernelLibrary:
+    """Build (or reuse) and load the library compiled with the extra
+    ``-D`` macros ``defines`` (``"NAME=value"`` strings). The port's
+    wrappers use the one without any (``load``); a tuning sweep builds
+    variants of the sources' ``#ifndef`` constants beside it."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
-    key = _source_key(sources)
+    key = _source_key(sources, flags)
     out_dir = BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libpd_torch_kernels_{key}.so"
     t0 = time.time()
     built, log = False, ""
     if not so.exists():
-        log = _compile_and_link(sources, out_dir, so)
+        log = _compile_and_link(sources, flags, out_dir, so)
         (out_dir / f"build_{key}.log").write_text(log)
         built = True
     lib = ctypes.CDLL(str(so))
     _declare(lib)
-    _LIBRARY = KernelLibrary(lib, so, time.time() - t0, built, log)
-    return _LIBRARY
+    return KernelLibrary(lib, so, time.time() - t0, built, log)
 
 
 def _run(cmds) -> str:
@@ -133,13 +143,13 @@ def _run(cmds) -> str:
     return "".join(outs)
 
 
-def _compile_and_link(sources, out_dir: Path, so: Path) -> str:
+def _compile_and_link(sources, flags, out_dir: Path, so: Path) -> str:
     """One nvcc per .cu source, in parallel, then one link into ``so``."""
     nvcc = find_nvcc()
     cu = [s for s in sources if s.suffix == ".cu"]
     tag = f"{so.stem}.{os.getpid()}"
     objs = [out_dir / f".{tag}.{s.stem}.o" for s in cu]
-    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+    log = _run([[nvcc, *flags, "-c", "-o", str(o), str(s)]
                 for s, o in zip(cu, objs)])
     tmp = out_dir / f".{tag}.so.tmp"
     log += _run([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",

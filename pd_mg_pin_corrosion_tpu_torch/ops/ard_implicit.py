@@ -19,7 +19,10 @@ Numerics kept from the JAX package's CLI, which always enables x64:
   (ard_implicit.py:274-364): four Neumann sweeps whose inner operator
   streams a bfloat16 copy of W, the outer operator in f32, and the
   refinement residual from the f64 slot sum of the f32 W
-  (``kernels.slots3d_f64``). The same algorithm runs on every device.
+  (``kernels.slots3d_f64``). The same algorithm runs on every device. On
+  the card both weight types are streamed packed (nonzero weights and a
+  slot bitmask per row, ``kernels.pack_stencil``), which gives the dense
+  sums' bits.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 from ..fields import State
 from ..grid import (FICTITIOUS, FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG,
                     WALL)
-from ..kernels import (matvec2d, matvec2d_plain, matvec3d, matvec3d_plain,
-                       slots3d_f64)
+from ..kernels import (PackedStencil, matvec2d, matvec2d_plain, matvec3d,
+                       matvec3d_plain, pack_stencil, slots3d_f64)
 from ..kit import Kit
 from .ard import compute_salt_blocked, micro_d_factor, solid_diffusivity
 from .gmres import gmres, vector_norm
@@ -47,8 +50,12 @@ class ImplicitOperator:
     unknown: torch.Tensor  # [*shape] bool — FLUID | SOLID rows
     # 3D float32: a bfloat16 copy of W that only the preconditioner
     # streams (half the bytes; a right preconditioner's accuracy moves the
-    # convergence speed, never the converged answer)
-    W16: torch.Tensor | None = None
+    # convergence speed, never the converged answer): dense on the CPU,
+    # packed on the card
+    W16: torch.Tensor | PackedStencil | None = None
+    # 3D float32 on the card: W's nonzero weights, packed for the matvec3d
+    # kernel (W16 shares its slot numbers and counts)
+    packed: PackedStencil | None = None
 
 
 def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperator:
@@ -56,9 +63,25 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
 
     Velocity, node types, GB/precipitate flags and the salt-blocking mask
     are frozen for the cycle, exactly as the reference's once-per-cycle
-    assemble. The weights are formed over slot chunks, written into one
-    [S, *shape] tensor, and the diagonal accumulates in stencil order, so
-    the result does not depend on the chunking."""
+    assemble. 3D float32 operators also get the weights the
+    preconditioner streams in bfloat16 and, on the card, the packed forms
+    of both (made after the dense pass has released its temporaries)."""
+    W, diag, unknown = _dense_operator(state, kit, volume_loss_fraction)
+    packed = W16 = None
+    if kit.dim == 3 and kit.dtype == torch.float32:
+        if W.is_cuda:
+            packed = pack_stencil(W, unknown, kit)
+            W16 = packed.to(torch.bfloat16)
+        else:
+            W16 = W.to(torch.bfloat16)
+    return ImplicitOperator(W=W, diag=diag, unknown=unknown, W16=W16,
+                            packed=packed)
+
+
+def _dense_operator(state: State, kit: Kit, volume_loss_fraction):
+    """(W, diag, unknown) of M. The weights are formed over slot chunks,
+    written into one [S, *shape] tensor, and the diagonal accumulates in
+    stencil order, so the result does not depend on the chunking."""
     cfg = kit.cfg
     nt = state.node_type
     i_fluid = nt == FLUID
@@ -117,21 +140,22 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
         W[s0:s1] = w
         for s in range(s1 - s0):
             diag = diag - w[s]     # diag -= w per bond (symmetric)
-    W16 = (W.to(torch.bfloat16)
-           if kit.dim == 3 and kit.dtype == torch.float32 else None)
-    return ImplicitOperator(W=W, diag=diag, unknown=unknown, W16=W16)
+    return W, diag, unknown
 
 
 def matvec_M(op: ImplicitOperator, kit: Kit, x: torch.Tensor,
-             W: torch.Tensor | None = None) -> torch.Tensor:
+             W: torch.Tensor | PackedStencil | None = None) -> torch.Tensor:
     """y = M x over unknown rows (zero elsewhere): GMRES's hot op, the
     matvec2d / matvec3d kernel for float32 on the card. ``W`` replaces the
-    operator's weights (the preconditioner passes ``op.W16``)."""
-    W = op.W if W is None else W
+    operator's weights (the preconditioner passes ``op.W16``); by default
+    they are the packed ones where the operator has them."""
+    f32 = x.dtype == torch.float32
+    if W is None:
+        W = op.packed if f32 and op.packed is not None else op.W
     if kit.dim == 2:
-        step = matvec2d if x.dtype == torch.float32 else matvec2d_plain
+        step = matvec2d if f32 else matvec2d_plain
     else:
-        step = matvec3d if x.dtype == torch.float32 else matvec3d_plain
+        step = matvec3d if f32 else matvec3d_plain
     return step(x, W, op.diag, op.unknown, kit)
 
 

@@ -14,8 +14,10 @@ package's associative-scan Givens update was a TPU latency device; the
 sequential rotation here is the same algebra). One host sync per Arnoldi
 step reads the new Hessenberg column.
 
-Storage: the Krylov basis is one contiguous [m+1, N] tensor. With
-``flat_kernels`` the whole-basis contractions (CGS2 dots and
+Storage: the Krylov basis is one [m+1, N] tensor whose rows are contiguous
+and start on 128-byte lines (``kernels.pitched_basis``: N is odd on the
+fine-calibration grid, and the axpy kernel reads rows 16 bytes a thread).
+With ``flat_kernels`` the whole-basis contractions (CGS2 dots and
 recombinations, norms, the solution update) go through the CUDA kernel
 wrappers ``kernels.basis_dots`` / ``kernels.basis_axpy`` (plain twins on
 the CPU); without it they use the plain versions directly, as float64 runs
@@ -29,7 +31,8 @@ import math
 import numpy as np
 import torch
 
-from ..kernels import basis_axpy, basis_axpy_plain, basis_dots, basis_dots_plain
+from ..kernels import (basis_axpy, basis_axpy_plain, basis_dots,
+                       basis_dots_plain, pitched_basis)
 
 
 def vector_norm(x: torch.Tensor) -> float:
@@ -87,7 +90,7 @@ def gmres(A, b, x0, *, tol: float, restart: int, maxiter: int, M=None,
 
     b_norm = fnorm(b)
     safe_b = max(b_norm, 1e-300)
-    V = torch.empty((m + 1, N), dtype=b.dtype, device=b.device)
+    V = pitched_basis(m + 1, N, b.dtype, b.device)
 
     def arnoldi_cycle(x):
         r = (b - A(x)).reshape(-1)

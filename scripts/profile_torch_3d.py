@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's 3D flagship path.
+"""Where the time goes in the PyTorch/CUDA port's main paths.
 
-    python3 scripts/profile_torch_3d.py [out.txt]
+    python3 scripts/profile_torch_3d.py [out.txt] [config.cfg]
 
-Builds config/params_3d.cfg at full size (157 x 82 x 82 = 1,055,668 nodes)
-on one CUDA device, then times and profiles (``torch.profiler``) two
-windows of the main path:
+Builds config/params_3d.cfg at full size (157 x 82 x 82 = 1,055,668 nodes;
+or the given configuration, e.g. config/params_fine_calibration.cfg for the
+2D path) on one CUDA device, then times and profiles (``torch.profiler``)
+two windows of the main path:
 
 * flow: 200 iterations of ``solvers.solve_steady`` after a 1,000-iteration
   warm-up from the initial state;
@@ -86,7 +87,8 @@ def main():
     path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         ROOT, "build", "profile_3d.txt")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    cfg = pkg.Config.load(os.path.join(ROOT, "config", "params_3d.cfg"))
+    cfg = pkg.Config.load(sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        ROOT, "config", "params_3d.cfg"))
     grid = pkg.build_grid(cfg)
     kit = pkg.build_kit(grid, cfg, device="cuda")
     st = pkg.initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
@@ -98,7 +100,12 @@ def main():
         window("flow", lambda: solvers.solve_steady(st, kit,
                                                     max_iters=FLOW_WINDOW),
                FLOW_WINDOW, out)
+        torch.cuda.synchronize()
+        t0 = time.time()
         op = ai.assemble(st, kit, volume_loss_fraction(st, kit))
+        torch.cuda.synchronize()
+        print(f"[assemble] {1e3 * (time.time() - t0):.2f} ms (first call; "
+              f"packing included where the operator is packed)")
         s = st
         for _ in range(STEP_WARM):
             s = implicit_inner_step(s, op, kit)[0]

@@ -96,6 +96,47 @@ def test_basis_kernels_equal_plain(setup, k):
                        kernels.basis_axpy_plain(c, V))
 
 
+@pytest.mark.parametrize("layout", ["pitched", "contiguous"])
+@pytest.mark.parametrize("n", [196_749, 196_748, 1_055_668, 3])
+@pytest.mark.parametrize("k", [1, 2, 13, 26])
+def test_basis_axpy_equals_plain(setup, k, n, layout):
+    """Bit for bit for N odd and N a multiple of 4, rows on 128-byte lines
+    (16-byte loads) and back to back (scalar loads when N is odd), with and
+    without w, float64 c rounded inside the kernel; dots on the same
+    views."""
+    rng = np.random.default_rng(k + n)
+    flat = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32,
+                        device="cuda")
+    if layout == "pitched":
+        V = kernels.pitched_basis(k + 1, n, torch.float32, "cuda")[:k]
+        V.copy_(flat)
+        assert V.stride(0) % 32 == 0
+    else:
+        V = flat
+    w = torch.tensor(rng.normal(size=n), dtype=torch.float32, device="cuda")
+    c = torch.tensor(rng.normal(size=k), dtype=torch.float64, device="cuda")
+    n0 = kernels.basis_axpy.launches
+    a1, a2 = kernels.basis_axpy(c, V, w), kernels.basis_axpy(c, V, w)
+    assert kernels.basis_axpy.launches == n0 + 2
+    assert torch.equal(a1, a2)
+    assert torch.equal(a1, kernels.basis_axpy_plain(c, flat, w))
+    assert torch.equal(kernels.basis_axpy(c, V),
+                       kernels.basis_axpy_plain(c, flat))
+    # a float32 c widens exactly, so it gives the bits of its float64 copy
+    assert torch.equal(kernels.basis_axpy(c.float(), V, w),
+                       kernels.basis_axpy_plain(c.float(), flat, w))
+    # an unaligned w takes the scalar form
+    w1 = torch.cat([w[:1], w])[1:]
+    assert torch.equal(kernels.basis_axpy(c, V, w1), a1)
+    d = kernels.basis_dots(V, w)
+    assert torch.equal(d, kernels.basis_dots(flat, w))
+    torch.testing.assert_close(d, kernels.basis_dots_plain(flat, w),
+                               rtol=2e-6, atol=1e-9)
+    if k > 1:   # rows that are not contiguous are refused
+        with pytest.raises(ValueError):
+            kernels.basis_axpy(c, flat.T.contiguous().T, w)
+
+
 def test_ard2d_equals_plain(setup):
     kit, st = setup
     # FLUID C uniform in [0, 1): some FLUID neighbours of the wire reach
@@ -168,19 +209,59 @@ def test_ns3d_equals_plain(setup3d):
     assert torch.equal(r1, rp) and torch.equal(v1, vp)
 
 
+def _matvec3d_against_twin(kit, op, weights, seed):
+    """The packed kernel against the dense twin (whose bf16 weights are a
+    copy made here; the operator keeps none on the card)."""
+    assert op.packed.dtype == torch.float32
+    assert op.W16.dtype == torch.bfloat16
+    assert op.W16.slots is op.packed.slots
+    packed = op.packed if weights == torch.float32 else op.W16
+    x = torch.tensor(np.random.default_rng(seed).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
+    counter = "launches" if weights == torch.float32 else "launches_bf16"
+    n0 = getattr(kernels.matvec3d, counter)
+    y = kernels.matvec3d(x, packed, op.diag, op.unknown, kit)
+    assert getattr(kernels.matvec3d, counter) == n0 + 1
+    yp = kernels.matvec3d_plain(x, op.W.to(weights), op.diag, op.unknown, kit)
+    assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
+    assert torch.equal(y, yp)
+    assert torch.equal(y, kernels.matvec3d(x, packed, op.diag, op.unknown,
+                                           kit))
+    assert torch.equal(y, ai.matvec_M(op, kit, x, None if weights
+                                      == torch.float32 else op.W16))
+
+
 @pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
 def test_matvec3d_equals_plain(setup3d, weights):
     kit, st = setup3d
     op = ai.assemble(st, kit)
-    assert op.W16.dtype == torch.bfloat16
-    W = op.W if weights == torch.float32 else op.W16
-    x = torch.tensor(np.random.default_rng(5).random(kit.shape),
-                     dtype=torch.float32, device="cuda")
-    y = kernels.matvec3d(x, W, op.diag, op.unknown, kit)
-    yp = kernels.matvec3d_plain(x, W, op.diag, op.unknown, kit)
-    assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
-    assert torch.equal(y, yp)
-    assert torch.equal(y, kernels.matvec3d(x, W, op.diag, op.unknown, kit))
+    _matvec3d_against_twin(kit, op, weights, 5)
+    # (assemble gives bonds that leave the grid a zero weight)
+    assert torch.equal(kernels.unpack_stencil(op.packed, kit),
+                       torch.where(op.unknown, op.W, 0.0))
+    # dense weights are refused on the card
+    x = torch.zeros(kit.shape, device="cuda")
+    with pytest.raises(TypeError):
+        kernels.matvec3d(x, op.W, op.diag, op.unknown, kit)
+
+
+@pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
+def test_matvec3d_equals_plain_at_the_flagship_shape(weights):
+    """config/params_3d.cfg (1,055,668 nodes, S = 178), seeded velocity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                   "config", "params_3d.cfg"))
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    st = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(7)
+    st.vel = torch.where((st.node_type == 0)[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.02 * cfg.U_in, st.vel.shape), dtype=torch.float32,
+        device="cuda"), st.vel)
+    op = ai.assemble(st, kit)
+    assert 0.3 < op.packed.nnz / float(op.unknown.sum() * kit.S) < 0.9
+    _matvec3d_against_twin(kit, op, weights, 8)
 
 
 def test_slots3d_f64_equals_plain(setup3d):
@@ -196,7 +277,8 @@ def test_slots3d_f64_equals_plain(setup3d):
     with pytest.raises(TypeError):
         kernels.slots3d_f64(x.float(), op.W, kit)
     with pytest.raises(TypeError):
-        kernels.matvec3d(x.float(), op.W.double(), op.diag, op.unknown, kit)
+        kernels.matvec3d(x.float(), op.packed.to(torch.float64), op.diag,
+                         op.unknown, kit)
 
 
 def test_implicit_step_3d_on_the_card(setup3d):

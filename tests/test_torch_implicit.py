@@ -193,6 +193,30 @@ def test_gmres_f32_matches_jax(flat):
     np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=5e-4, atol=5e-4)
 
 
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_implicit_step_bits_do_not_depend_on_the_basis_pitch(precision,
+                                                             monkeypatch):
+    """GMRES keeps its Krylov basis in rows that start on 128-byte lines;
+    the same step over a basis stored back to back gives the same bits."""
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres as gmres_mod
+
+    _, _, tk, ts = _states(precision, seed=1)
+    top = t_ai.assemble(ts, tk)
+    n = ts.C.numel()
+    assert n % 32 != 0
+    pitched, res = t_ai.implicit_step(ts, top, tk, 60.0)
+    made = []
+
+    def back_to_back(rows, m, dtype, device):
+        made.append((rows, m))
+        return torch.empty((rows, m), dtype=dtype, device=device)
+
+    monkeypatch.setattr(gmres_mod, "pitched_basis", back_to_back)
+    flat, res_flat = t_ai.implicit_step(ts, top, tk, 60.0)
+    assert made and all(m == n for _, m in made)
+    assert res == res_flat and torch.equal(pitched.C, flat.C)
+
+
 def test_gmres_f32_stiff_dt_reaches_tol():
     """tests/test_gmres.py's stiff-dt regression on the port: the real 2D
     transport operator at dt = implicit_dt_max = 60 s in f32 must reach the

@@ -173,6 +173,34 @@ def test_basis_kernels_match_pallas_interpret():
                                   kernels.basis_axpy(ct, V, torch.zeros_like(w)).numpy())
 
 
+@pytest.mark.parametrize("cdtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1000, 1001])
+def test_basis_wrappers_take_pitched_rows(n, cdtype):
+    """Rows of a pitched allocation (contiguous rows, any row stride) give
+    the bits of the same rows stored back to back; a basis whose rows are
+    not contiguous is refused on every device."""
+    rng = np.random.default_rng(n)
+    k = 7
+    flat = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32)
+    V = kernels.pitched_basis(k + 1, n, torch.float32, "cpu")[:k]
+    V.copy_(flat)
+    assert V.stride() == (1024, 1)
+    w = torch.tensor(rng.normal(size=n), dtype=torch.float32)
+    c = torch.tensor(rng.normal(size=k), dtype=cdtype)
+    assert torch.equal(kernels.basis_dots(V, w), kernels.basis_dots(flat, w))
+    assert torch.equal(kernels.basis_axpy(c, V, w),
+                       kernels.basis_axpy(c, flat, w))
+    assert torch.equal(kernels.basis_axpy(c, V),
+                       kernels.basis_axpy_plain(c.float(), flat))
+    from pd_mg_pin_corrosion_tpu_torch.kernels.basis import _check_basis
+    assert _check_basis("k", V) == (k, n, 1024)
+    assert _check_basis("k", flat[:1]) == (1, n, n)
+    with pytest.raises(ValueError):
+        _check_basis("k", flat.T)
+    with pytest.raises(ValueError):
+        _check_basis("k", flat[:, ::2])
+
+
 def test_wrapper_device_rule():
     cpu = torch.zeros(4)
     assert use_plain("k", cpu, cpu)
