@@ -17,12 +17,14 @@ argument all of them run, in this order):
    for identical bits, with median times of both, the bound (bytes
    over the HBM rate or flops over the peak rate, whichever is larger) and
    the time of one PyTorch library call that computes the same function,
-   where there is one (LIBRARY).
+   where there is one (LIBRARY); basis_dots must be one device kernel a
+   call (counted in a torch.profiler window).
 3. ``kernels3d``, 3D kernel vs plain at the flagship shape: ns3d, matvec3d
    (packed f32 and bf16 weights against the dense twin; the packing's
    nonzero count, padding, bytes and time on a line of its own),
-   slots3d_f64, basis_axpy on a 26-row basis of that length and the four
-   forms of
+   slots3d_f64, basis_axpy and basis_dots on a 26-row basis of that length
+   (basis_dots also on its first 13 rows and as the k = 1 self-dot), ns3d's
+   staged bytes and halo factor, and the four forms of
    ns3d_chunked.cu (chunked XLA / factored / jconv, and j-static; NCHUNK 6,
    BZ 16), each also against ns3d at the script's gate, on
    config/params_3d.cfg's 157 x 82 x 82 = 1,055,668-node grid (S = 178)
@@ -179,6 +181,18 @@ def apart_ms(fn, other, reps=30):
     return statistics.median(times)
 
 
+def device_launches(fn):
+    """Kernels the device ran for one fn() (a torch.profiler window)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
 def seeded(rng, shape, scale=1.0, dtype=torch.float32):
     return torch.tensor(rng.normal(0.0, scale, shape), dtype=dtype,
                         device="cuda")
@@ -321,6 +335,32 @@ def record_basis_axpy(record, name, c, V, w):
               f"so its time may lie under the bound, which counts HBM bytes")
 
 
+def record_basis_dots(record, name, V, w):
+    """basis_dots at the shape of (V, w) against its twin (rtol 2e-6: f64
+    sums in another order) and against the kernel's own order in PyTorch
+    (basis_dots_walk_plain, printed), beside torch.mv on the same tensors.
+    Bytes: the basis, w and the f64 result; for the self-dot (V is w[None])
+    the vector once."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    k, n = V.shape
+    self_dot = k == 1 and V.data_ptr() == w.data_ptr()
+    d, dp = kernels.basis_dots(V, w), kernels.basis_dots_plain(V, w)
+    err = float((d - dp).abs().max())
+    walk = kernels.basis_dots_walk_plain(
+        V, w, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"[basis_dots] {name} ({k}, {n}): max rel diff vs the plain f64 sum "
+          f"{float(((d - dp) / dp).abs().max()):.2e}; equal to the kernel's "
+          f"order of sums taken in PyTorch: {torch.equal(d, walk)}")
+    del walk
+    record(name, err, torch.allclose(d, dp, rtol=2e-6, atol=0.0),
+           lambda: (kernels.basis_dots(V, w),),
+           lambda: kernels.basis_dots_plain(V, w),
+           "rtol 2e-6 vs f64 plain sum",
+           4 * n * (1 if self_dot else k + 1) + 8 * k, 2.0 * k * n,
+           library=lambda: torch.mv(V, w))
+
+
 def phase_kernels(pkg):
     """Phase 2; returns {name: JSON row fields}."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
@@ -400,13 +440,11 @@ def phase_kernels(pkg):
     w = seeded(rng, (n,))
     c = seeded(rng, (k,), dtype=torch.float64)
     print(f"[kernels] basis: {k} rows of {n} floats, {V.stride(0)} apart")
-    d, dp = kernels.basis_dots(V, w), kernels.basis_dots_plain(V, w)
-    err = float((d - dp).abs().max())
-    record("basis_dots", err, torch.allclose(d, dp, rtol=2e-6, atol=0.0),
-           lambda: (kernels.basis_dots(V, w),),
-           lambda: kernels.basis_dots_plain(V, w), "rtol 2e-6 vs f64 plain sum",
-           4 * k * n + 4 * n + 8 * k, 2.0 * k * n,
-           library=lambda: torch.mv(V, w))
+    record_basis_dots(record, "basis_dots", V, w)
+    n_dev = device_launches(lambda: kernels.basis_dots(V, w))
+    print(f"[kernels] basis_dots: {n_dev} device kernel(s) a call")
+    if n_dev != 1:
+        fail("basis_dots is not one launch a call")
     record_basis_axpy(record, "basis_axpy", c, V, w)
     record_basis_axpy(record, "basis_axpy_k13", c[:13], V[:13], w)
     del V, w
@@ -533,6 +571,23 @@ def phase_kernels3d(pkg):
            lambda: kernels.ns3d_plain(*args),
            "rho rtol 1e-6, v rtol 1e-4 atol 1e-9", 53 * n,
            29 * act + 54 * n_fluid)
+    geo = kernels.ns3d_geometry()
+    tiles, busy, staged, halo = kernels.ns3d_staging(kit, st.node_type, geo)
+    issue_ms = 1e3 * 29 * S * n_fluid / (
+        128 * torch.cuda.get_device_properties(0).multi_processor_count
+        * 1e6 * torch.cuda.clock_rate())
+    print(f"[kernels3d] ns3d tile {geo.tx} x {geo.ty} x {geo.tz} (x, y, z), "
+          f"{geo.r} z nodes a thread, {geo.threads} threads, "
+          f"{geo.tile_bytes / 1e3:.1f} KB of staged fields a block: {busy} of "
+          f"{tiles} tiles hold a FLUID node and stage {geo.staged} positions "
+          f"each ({halo:.2f} per node of the tile, 5 floats and a node_type "
+          f"byte): {staged / 1e6:.1f} MB a launch from L2 / HBM, "
+          f"{staged / (results['ns3d']['ms'] * 1e-3) / 1e12:.3f} TB/s; 29 "
+          f"unfused instructions a bond on every slot of every FLUID node "
+          f"would take {issue_ms:.4f} ms of issue slots at "
+          f"{torch.cuda.clock_rate()} MHz "
+          f"({100 * issue_ms / results['ns3d']['ms']:.1f} % of the kernel's "
+          f"time)")
 
     # the four forms of csrc/ns3d_chunked.cu at the script's defaults
     # (NCHUNK 6, BZ 16), each against its twin and against ns3d at the
@@ -671,10 +726,15 @@ def phase_kernels3d(pkg):
     # HBM, not the L2)
     V = kernels.pitched_basis(26, n, torch.float32, "cuda")
     V.copy_(seeded(rng, (26, n)))
+    w = seeded(rng, (n,))
     record_basis_axpy(record, "basis_axpy_3d",
-                      seeded(rng, (26,), dtype=torch.float64), V,
-                      seeded(rng, (n,)))
-    del V
+                      seeded(rng, (26,), dtype=torch.float64), V, w)
+    # basis_dots on the same basis (from HBM), on its first 13 rows, and the
+    # k = 1 self-dot that is every GMRES norm
+    record_basis_dots(record, "basis_dots_3d", V, w)
+    record_basis_dots(record, "basis_dots_3d_k13", V[:13], w)
+    record_basis_dots(record, "basis_norm_3d", w[None], w)
+    del V, w
 
     # slots3d_f64: all of W (no mask) plus x and y in f64; 2 f64 flops per
     # in-grid bond of every node
@@ -816,6 +876,10 @@ def phase_main3d(tmp):
     checks = {
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
+        "it stopped where the banked run's did (6,500 iterations, eps "
+        "4.735e-6)": bool(solver.flow_results)
+            and solver.flow_results[0][0] == 6500
+            and f"{solver.flow_results[0][1]:.3e}" == "4.735e-06",
         "20 rows, all finite": len(rows) == 20 and all(
             np.isfinite(rows[c]).all() for c in rows.dtype.names),
         "no GMRES non-convergence warning": solver.gmres_warnings == 0,

@@ -15,13 +15,15 @@ from dataclasses import dataclass
 
 from .ard2d import ard2d, ard2d_plain
 from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
-                    basis_dots_plain, pitched_basis)
+                    basis_dots_plain, basis_dots_walk_plain, dots_grid,
+                    pitched_basis)
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
                        matvec3d_plain, pack_stencil, slots3d_f64,
                        slots3d_f64_plain, unpack_stencil)
 from .ns2d import ns2d, ns2d_plain
-from .ns3d import ns3d, ns3d_plain
+from .ns3d import (Ns3dTables, ns3d, ns3d_geometry, ns3d_plain,
+                   ns3d_staged_plain, ns3d_staging, ns3d_tables)
 from .ns3d_chunked import (compute_actconv, group_chunks, ns3d_chunked,
                            ns3d_chunked_plain, ns3d_jstat, ns3d_jstat_plain)
 

@@ -7,7 +7,7 @@ Kernels: ``csrc/basis.cu`` (replace ``pallas_kernels._basis_dots_kernel``
 basis is a [k, N] tensor (rows 0..j of the Krylov basis) whose rows are
 contiguous and may lie any number of floats apart (``V.stride(0)``, the
 pitch): ``ops.gmres`` allocates it with a pitch that is a multiple of 32
-floats, so the axpy kernel reads every row in 16-byte pieces. The flat
+floats, so both kernels read every row in 16-byte pieces. The flat
 (R, 128) padding of the JAX package existed for the TPU's tiling and is not
 needed here.
 """
@@ -17,10 +17,15 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .build import check, load, ptr, stream, use_plain
 
-_THREADS = 256       # csrc/common.cuh kThreads
+_DOTS_THREADS = 512  # basis_dots' block: 16 warps
+_DOTS_WAVES = 2      # blocks of basis_dots an SM gets at most
+_DOTS_ITEMS = 1      # (row, part) items a warp of basis_dots gets, about
+_DOTS_MIN_PIECES = 64   # a block of basis_dots owns at least this many
+_FINAL_LANES = 16    # csrc/basis.cu kFinalLanes: threads a row of the last sum
 _AXPY_THREADS = 128  # basis_axpy's block; each thread owns 4 elements a turn
 PITCH_ALIGN = 32     # floats: rows of a pitched basis start on 128 bytes
 
@@ -32,10 +37,17 @@ def pitched_basis(rows: int, n: int, dtype, device) -> torch.Tensor:
     return torch.empty((rows, pitch), dtype=dtype, device=device)[:, :n]
 
 
-def _dots_blocks(n: int) -> int:
-    """basis_dots' grid: 4 elements per thread, at most 1,024 blocks (the
-    second pass adds one f64 partial per block and row)."""
-    return max(1, min(-(-n // (_THREADS * 4)), 1024))
+def dots_grid(k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """basis_dots' launch on a card of ``sms`` SMs: (blocks, share, parts).
+    The vector is cut into pieces of four elements (the last may be short);
+    block b owns the pieces [b * share, (b + 1) * share), and cuts them
+    into ``parts`` parts so that each of its warps has about _DOTS_ITEMS
+    (row, part) items. _DOTS_WAVES blocks an SM, fewer while a block would
+    own less than _DOTS_MIN_PIECES pieces."""
+    pieces = -(-n // 4)
+    blocks = max(1, min(sms * _DOTS_WAVES, pieces // _DOTS_MIN_PIECES))
+    parts = max(1, -(-_DOTS_ITEMS * (_DOTS_THREADS // 32) // k))
+    return blocks, -(-pieces // blocks), parts
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,20 +89,85 @@ def basis_axpy_plain(c, V, w=None):
     return acc
 
 
+def basis_dots_walk_plain(V, w, sms: int = 132):
+    """basis_dots_plain's sums taken in the CUDA kernel's order on a card
+    of ``sms`` SMs (csrc/basis.cu dots_kernel): a warp owns one row over
+    one part of its block's pieces; lane l adds the four products of the
+    part's pieces l, l + 32, ... in order, the warp its lanes by a shuffle
+    tree, the block a row's parts in order, and the last block the blocks'
+    partials: of the _FINAL_LANES threads that share a row, thread q those
+    of blocks q, q + _FINAL_LANES, ... in order, then the tree again. The
+    16-byte and the scalar form of the kernel both take this order."""
+    k, n = V.shape
+    blocks, share, parts = dots_grid(k, n, sms)
+    sub = -(-share // parts)
+    turns = -(-sub // 32)
+
+    def tree(v):   # [..., 2^m] -> [...]: v += shfl_down(v, off), lane 0
+        off = v.shape[-1] // 2
+        while off:
+            v = v[..., :off] + v[..., off:2 * off]
+            off //= 2
+        return v[..., 0]
+
+    def in_turn(v):   # [..., m, lanes] -> [..., lanes]: added in order
+        acc = torch.zeros_like(v[..., 0, :])
+        for t in range(v.shape[-2]):
+            acc = acc + v[..., t, :]
+        return acc
+
+    prod = (V * w).to(torch.float64)
+    # pieces beyond the vector's end, beyond a block's share or a part's
+    # end, and a short piece's missing elements, add exact zeros
+    prod = F.pad(prod, (0, 4 * blocks * share - n)).view(k, blocks, share, 4)
+    prod = F.pad(prod, (0, 0, 0, parts * sub - share)).view(
+        k, blocks, parts, sub, 4)
+    prod = F.pad(prod, (0, 0, 0, turns * 32 - sub)).view(
+        k, blocks, parts, turns, 32, 4)
+    # [k, blocks, parts, turns * 4, 32]: a lane's elements in its order
+    lane = in_turn(prod.permute(0, 1, 2, 3, 5, 4).reshape(
+        k, blocks, parts, turns * 4, 32))
+    block = in_turn(tree(lane)[..., None])[..., 0]
+    final = F.pad(block, (0, -blocks % _FINAL_LANES)).view(
+        k, -1, _FINAL_LANES)
+    return tree(in_turn(final))
+
+
+# (partial, ticket) of basis_dots, one pair per (device, stream): calls on
+# one stream run one after the other, so they can share it
+_dots_scratch: dict = {}
+
+
+def _scratch(device, stream_ptr: int, rows: int, blocks: int):
+    key = (device.index, stream_ptr)
+    pair = _dots_scratch.get(key)
+    if pair is None or pair[0].numel() < rows * blocks:
+        ticket = (torch.zeros(1, dtype=torch.int32, device=device)
+                  if pair is None else pair[1])
+        pair = (torch.empty(max(rows, 32) * blocks, dtype=torch.float64,
+                            device=device), ticket)
+        _dots_scratch[key] = pair
+    return pair
+
+
 def basis_dots(V, w):
     """basis_dots_plain's contract: the kernel on CUDA float32 tensors, the
-    plain version on CPU tensors. Deterministic (no atomics)."""
+    plain version on CPU tensors. One launch; deterministic (no float
+    atomics), and the bits depend on neither the pitch nor the pointers'
+    alignment."""
     if use_plain("basis_dots", V[0], w):
         return basis_dots_plain(V, w)
     k, n, pitch = _check_basis("basis_dots", V)
     if w.shape != (n,):
         raise ValueError(f"basis_dots: w {tuple(w.shape)} vs V {tuple(V.shape)}")
-    nblocks = _dots_blocks(n)
-    partial = torch.empty(k * nblocks, dtype=torch.float64, device=V.device)
+    blocks, _, parts = dots_grid(k, n, _sm_count(V.device.index))
+    st = stream(V)
+    partial, ticket = _scratch(V.device, st.value or 0, k, blocks)
     out = torch.empty(k, dtype=torch.float64, device=V.device)
-    rc = load().lib.pd_basis_dots(ptr(V), pitch, ptr(w), k, n, nblocks,
-                                  ptr(partial), ptr(out), V.device.index,
-                                  stream(V))
+    rc = load().lib.pd_basis_dots(ptr(V), pitch, ptr(w), k, n, blocks,
+                                  _DOTS_THREADS, parts, ptr(partial),
+                                  ptr(ticket),
+                                  ptr(out), V.device.index, st)
     check(rc, "basis_dots")
     basis_dots.launches += 1
     return out

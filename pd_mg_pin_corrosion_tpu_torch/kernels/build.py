@@ -72,8 +72,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_matvec2d.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, i32,
                                 vp]
     lib.pd_ns3d.restype = i32
-    lib.pd_ns3d.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                            i32, f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    lib.pd_ns3d.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                            i32, i32, f32, f32, f32, f32, f32, vp, vp, i32,
+                            vp]
+    lib.pd_ns3d_geometry.restype = None
+    lib.pd_ns3d_geometry.argtypes = [ctypes.POINTER(ctypes.c_int * 10)]
     for name in ("pd_matvec3d_f32", "pd_matvec3d_bf16"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
@@ -82,8 +85,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_slots3d_f64.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp,
                                    i32, vp]
     lib.pd_basis_dots.restype = i32
-    lib.pd_basis_dots.argtypes = [vp, i64, vp, i32, i64, i32, vp, vp, i32,
-                                  vp]
+    lib.pd_basis_dots.argtypes = [vp, i64, vp, i32, i64, i32, i32, i32, vp,
+                                  vp, vp, i32, vp]
     lib.pd_basis_axpy.restype = i32
     lib.pd_basis_axpy.argtypes = [vp, vp, i64, vp, i32, i64, i32, i32, vp,
                                   i32, vp]

@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
-"""Sweep the free parameters of the port's basis_axpy and matvec3d kernels
-on one CUDA device.
+"""Sweep the free parameters of the port's basis_axpy, basis_dots, matvec3d
+and ns3d kernels on one CUDA device.
 
-    python3 scripts/sweep_kernels_torch.py [axpy] [matvec3d]
+    python3 scripts/sweep_kernels_torch.py [axpy] [dots] [matvec3d] [ns3d]
 
 The kernels' compile-time constants (``PD_AXPY_ROWS``: rows per register
-group of basis_axpy; ``PD_MATVEC3D_GROUP``: weights of a row stored side by
-side in matvec3d's packed layout; ``PD_MATVEC3D_TURN_BYTES``: bytes of
-weights a thread loads per full turn of its row walk) are ``#ifndef``
-macros in csrc/; this script builds one library per value (``kernels.build.build_library``), calls the C entry
-points directly, holds every variant to the plain twin bit for bit, and
-prints median times (chip_smoke.py's protocol: CUDA events around
-back-to-back calls behind a spin kernel; for matvec3d also one call at a
-time behind another kernel):
+group of basis_axpy; ``PD_DOTS_UNROLL``, ``PD_DOTS_STREAM``: pieces a lane
+of basis_dots loads ahead, and whether it reads the basis with evict-first
+loads; ``PD_MATVEC3D_GROUP``:
+weights of a row stored side by side in matvec3d's packed layout;
+``PD_MATVEC3D_TURN_BYTES``: bytes of weights a thread loads per full turn
+of its row walk; ``PD_NS3D_R``, ``_TX``, ``_TY``, ``_ZT``, ``_WX``,
+``_PAD``, ``_BLOCKS``: ns3d's z nodes a thread, tile, warp shape, row
+padding and blocks an SM) are ``#ifndef`` macros in csrc/; this script
+builds one library per value (``kernels.build.build_library``), calls the C
+entry points directly, holds every variant to the plain twin (bit for bit;
+basis_dots to rtol 2e-6), and prints median times (chip_smoke.py's
+protocol: CUDA events around back-to-back calls behind a spin kernel; for
+matvec3d and ns3d also one call at a time behind another kernel):
 
 * axpy: rows per group x threads per block x 4-element pieces per thread,
   at (26, 196,749), (13, 196,749) and (26, 1,055,668), rows 128-byte
   aligned, beside ``torch.addmv`` on the same tensors;
+* dots: pieces ahead x evict-first x threads per block x blocks an SM x
+  items a warp, at
+  (26, 196,749), (26, 1,055,668), (13, 1,055,668) and the k = 1 self-dot of
+  1,055,668 floats, beside ``torch.mv``;
+* ns3d: tile shape x z nodes a thread x blocks an SM (``NS3D_VARIANTS``) on
+  the seeded state of config/params_3d.cfg;
 * matvec3d: group size x bytes per turn, packed f32 and bf16 weights, on
   the assembled operator of config/params_3d.cfg (1,055,668 nodes,
   S = 178), each group size with its own packing.
@@ -25,6 +36,7 @@ The port's wrappers use the values the sources default to. Needs a CUDA
 device; imports nothing of JAX.
 """
 
+import itertools
 import os
 import sys
 
@@ -46,6 +58,21 @@ AXPY_ROWS = (4, 8, 13)
 AXPY_THREADS = (64, 128, 256)
 AXPY_PIECES = (1, 2)
 AXPY_SHAPES = ((26, 196_749), (13, 196_749), (26, 1_055_668))
+# (pieces a lane loads ahead, evict-first loads of the basis: 0 never, 1
+# always)
+DOTS_BUILDS = ((2, 0), (4, 0), (8, 0), (2, 1), (4, 1))
+DOTS_THREADS = (256, 512, 1024)
+DOTS_BLOCKS_PER_SM = (1, 2, 4)
+DOTS_ITEMS = (1, 2)   # (row, part) items a warp, about
+DOTS_SHAPES = ((26, 196_749), (26, 1_055_668), (13, 1_055_668),
+               (1, 1_055_668), (1, 196_749))   # k = 1: the self-dot
+# (R, TX, TY, ZT, WX, PAD, BLOCKS); the first is the source's default
+NS3D_VARIANTS = ((4, 16, 8, 2, 8, 2, 2), (2, 16, 8, 2, 8, 2, 3),
+                 (2, 16, 8, 4, 8, 2, 2), (3, 16, 8, 2, 8, 2, 2),
+                 (4, 16, 8, 2, 16, 2, 2), (4, 32, 4, 2, 32, 0, 2),
+                 (4, 16, 8, 4, 8, 2, 1), (8, 16, 8, 1, 8, 2, 2),
+                 (4, 8, 8, 2, 8, 2, 4), (4, 16, 4, 2, 8, 2, 3))
+NS3D_KEYS = ("R", "TX", "TY", "ZT", "WX", "PAD", "BLOCKS")
 MATVEC_GROUP = (4, 8, 16)
 MATVEC_TURN_BYTES = (32, 64, 128)
 
@@ -87,21 +114,128 @@ def sweep_axpy(libs):
     return good
 
 
-def sweep_matvec3d(libs):
-    """libs: {(group, turn bytes): library}."""
+def sweep_dots(libs):
+    """libs: {(pieces ahead, evict-first): library}."""
+    rng = np.random.default_rng(SEED + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    good = True
+    for k, n in DOTS_SHAPES:
+        w = seeded(rng, (n,))
+        if k == 1:
+            V = w[None]
+        else:
+            V = kernels.pitched_basis(k, n, torch.float32, "cuda")
+            V.copy_(seeded(rng, (k, n)))
+        twin = kernels.basis_dots_plain(V, w)
+        out = torch.empty(k, dtype=torch.float64, device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        nbytes = 4 * n * (1 if k == 1 else k + 1) + 8 * k
+        print(f"[dots] ({k}, {n}){' self-dot' if k == 1 else ''}: torch.mv "
+              f"{median_ms(lambda: torch.mv(V, w), 20):.4f} ms; the port's "
+              f"wrapper {median_ms(lambda: kernels.basis_dots(V, w), 20):.4f}"
+              f" ms; bytes bound {1e3 * nbytes / 3.35e12:.4f} ms")
+        for (ahead, evict), lib in libs.items():
+            for threads, per_sm, items in itertools.product(
+                    DOTS_THREADS, DOTS_BLOCKS_PER_SM, DOTS_ITEMS):
+                if threads * per_sm > 2048:
+                    continue
+                parts = max(1, -(-items * (threads // 32) // k))
+                nblocks = min(sms * per_sm, -(-n // 4))
+                partial = torch.empty(k * nblocks, dtype=torch.float64,
+                                      device="cuda")
+
+                def fn():
+                    rc = lib.pd_basis_dots(
+                        ptr(V), V.stride(0) if k > 1 else n, ptr(w), k, n,
+                        nblocks, threads, parts, ptr(partial), ptr(ticket),
+                        ptr(out), 0, stream(V))
+                    assert rc == 0, rc
+                fn()
+                torch.cuda.synchronize()
+                ok = torch.allclose(out, twin, rtol=2e-6, atol=0.0)
+                print(f"[dots]   ahead {ahead} evict-first {evict} threads "
+                      f"{threads:4d} blocks {nblocks:4d} parts {parts:2d}: "
+                      f"{median_ms(fn, 20, reps=5):.4f} ms, "
+                      f"within rtol 2e-6 {ok}")
+                good &= ok
+        del V, w
+    return good
+
+
+def flagship_state(seed):
+    """(cfg, grid, kit, state) of config/params_3d.cfg on the card, the
+    FLUID nodes' rho and vel perturbed from ``seed``."""
     cfg = pkg.Config.load(FLAGSHIP)
     grid = pkg.build_grid(cfg)
     kit = pkg.build_kit(grid, cfg, device="cuda")
     st = pkg.initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
                               device="cuda")
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(seed)
     fluid = st.node_type == 0
+    st.rho = torch.where(fluid, st.rho + seeded(rng, kit.shape, 0.01), st.rho)
     st.vel = torch.where(fluid[..., None],
                          st.vel + seeded(rng, st.vel.shape, 0.02 * cfg.U_in),
                          st.vel)
+    return cfg, grid, kit, st
+
+
+def sweep_ns3d(libs):
+    """libs: {variant tuple: library}."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels.ns3d import _constants
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    _, grid, kit, st = flagship_state(SEED + 3)
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    twin = kernels.ns3d_plain(*args)
+    consts = _constants(kit)
+    rho_out, vel_out = torch.empty_like(st.rho), torch.empty_like(st.vel)
+    z = torch.empty_like(st.vel)
+
+    def other():
+        torch.add(st.vel, st.vel, out=z)
+
+    def wrapper():
+        return kernels.ns3d(*args)
+    print(f"[ns3d] {grid.N_total} nodes, S={kit.S}; the port's wrapper (the "
+          f"sources' defaults): {median_ms(wrapper, 10):.4f} ms back to back, "
+          f"{apart_ms(wrapper, other):.4f} ms behind another kernel")
+    good = True
+    for variant, lib in libs.items():
+        geo = kernels.ns3d_geometry(lib)
+        tab = kernels.ns3d_tables(kit, geo.pitch, geo.plane)
+        _, busy, staged, halo = kernels.ns3d_staging(kit, st.node_type, geo)
+
+        def fn():
+            rc = lib.pd_ns3d(
+                ptr(st.rho), ptr(st.vel), ptr(p), ptr(st.node_type), ptr(dt),
+                ptr(tab.offsets), ptr(tab.coefs), ptr(tab.runs),
+                ptr(kit.actconv3d), kit.S, tab.runs.shape[0], *kit.shape,
+                *consts, ptr(rho_out), ptr(vel_out), 0, stream(st.rho))
+            assert rc == 0, rc
+        rho_out.zero_()
+        vel_out.zero_()
+        fn()
+        torch.cuda.synchronize()
+        same = torch.equal(rho_out, twin[0]) and torch.equal(vel_out, twin[1])
+        good &= same
+        print(f"[ns3d]   {dict(zip(NS3D_KEYS, variant))}: tile {geo.tx} x "
+              f"{geo.ty} x {geo.tz}, {geo.threads} threads, "
+              f"{geo.tile_bytes / 1e3:.1f} KB, {busy} busy tiles, halo factor "
+              f"{halo:.2f}, {staged / 1e6:.1f} MB staged: "
+              f"{median_ms(fn, 10):.4f} ms back to back, "
+              f"{apart_ms(fn, other):.4f} ms behind another kernel, "
+              f"bit-equal {same}")
+    return good
+
+
+def sweep_matvec3d(libs):
+    """libs: {(group, turn bytes): library}."""
+    _, grid, kit, st = flagship_state(SEED + 3)
     op = ai.assemble(st, kit)
-    x = torch.tensor(rng.random(kit.shape), dtype=torch.float32,
-                     device="cuda")
+    x = torch.tensor(np.random.default_rng(SEED + 4).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
     y = torch.empty_like(x)
     twins = {dtype: kernels.matvec3d_plain(x, op.W.to(dtype), op.diag,
                                            op.unknown, kit)
@@ -164,7 +298,7 @@ def main():
     if not torch.cuda.is_available():
         print("sweep_kernels_torch: needs a CUDA device", file=sys.stderr)
         return 1
-    what = sys.argv[1:] or ["axpy", "matvec3d"]
+    what = sys.argv[1:] or ["axpy", "dots", "matvec3d", "ns3d"]
     print(f"[sweep] {torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{nvidia_smi()}")
     ok = True
@@ -173,6 +307,21 @@ def main():
         for r, lib in libs.items():
             print_registers(f"rows {r}", lib.log, "axpy_kernel")
         ok &= sweep_axpy({r: lib.lib for r, lib in libs.items()})
+    if "dots" in what:
+        libs = {(a, e): build_library([f"PD_DOTS_UNROLL={a}",
+                                       f"PD_DOTS_STREAM={e}"])
+                for a, e in DOTS_BUILDS}
+        for (a, e), lib in libs.items():
+            print_registers(f"ahead {a} evict-first {e}", lib.log,
+                            "dots_kernel")
+        ok &= sweep_dots({v: lib.lib for v, lib in libs.items()})
+    if "ns3d" in what:
+        libs = {v: build_library([f"PD_NS3D_{k}={x}"
+                                  for k, x in zip(NS3D_KEYS, v)])
+                for v in NS3D_VARIANTS}
+        for v, lib in libs.items():
+            print_registers(" ".join(map(str, v)), lib.log, "ns3d_kernel")
+        ok &= sweep_ns3d({v: lib.lib for v, lib in libs.items()})
     if "matvec3d" in what:
         libs = {(g, t): build_library([f"PD_MATVEC3D_GROUP={g}",
                                        f"PD_MATVEC3D_TURN_BYTES={t}"])

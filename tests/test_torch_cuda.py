@@ -137,6 +137,40 @@ def test_basis_axpy_equals_plain(setup, k, n, layout):
             kernels.basis_axpy(c, flat.T.contiguous().T, w)
 
 
+@pytest.mark.parametrize("n", [196_749, 1_055_668, 1027, 8, 3])
+def test_basis_dots_is_one_deterministic_launch(setup, n):
+    """k = 1 ... 26 one after the other on one scratch and ticket (the last
+    block sets the ticket back): each call is one counted launch, equals
+    the kernel's order of sums taken in PyTorch bit for bit and the plain
+    f64 sum to rtol 2e-6; a basis whose rows are back to back (odd pitch:
+    the scalar form) and an unaligned w give the bits of the 16-byte form;
+    the self-dot equals the dot of a vector with its copy."""
+    rng = np.random.default_rng(n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flat = torch.tensor(rng.normal(size=(26, n)), dtype=torch.float32,
+                        device="cuda")
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(flat)
+    w = torch.tensor(rng.normal(size=n), dtype=torch.float32, device="cuda")
+    w1 = torch.cat([w[:1], w])[1:]
+    assert w1.data_ptr() % 16 != 0
+    for k in range(1, 27):
+        n0 = kernels.basis_dots.launches
+        d = kernels.basis_dots(V[:k], w)
+        assert kernels.basis_dots.launches == n0 + 1
+        assert torch.equal(d, kernels.basis_dots(V[:k], w))
+        assert torch.equal(d, kernels.basis_dots_walk_plain(V[:k], w, sms))
+        torch.testing.assert_close(d, kernels.basis_dots_plain(flat[:k], w),
+                                   rtol=2e-6, atol=1e-9)
+        assert torch.equal(d, kernels.basis_dots(flat[:k], w))
+        assert torch.equal(d, kernels.basis_dots(V[:k], w1))
+    norm = kernels.basis_dots(w[None], w)
+    assert torch.equal(norm, kernels.basis_dots(w.clone()[None], w))
+    assert torch.equal(norm, kernels.basis_dots(w1[None], w1))
+    torch.testing.assert_close(norm, kernels.basis_dots_plain(w[None], w),
+                               rtol=2e-6, atol=0.0)
+
+
 def test_ard2d_equals_plain(setup):
     kit, st = setup
     # FLUID C uniform in [0, 1): some FLUID neighbours of the wire reach
@@ -207,6 +241,53 @@ def test_ns3d_equals_plain(setup3d):
     torch.testing.assert_close(r1, rp, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(v1, vp, rtol=1e-4, atol=1e-9)
     assert torch.equal(r1, rp) and torch.equal(v1, vp)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("extra", [(), ("R_tube=56e-6", "L_upstream=40e-6")],
+                         ids=["23x19x19", "24x21x21"])
+def test_ns3d_on_grids_that_are_no_multiple_of_its_tile(extra):
+    """Bit-equality with the twin on grids whose sides are not multiples of
+    the kernel's tile, with a nan in every OUTSIDE node's fields: it is
+    dropped from the neighbours' sums and copied through in its own node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    cfg = _cfg3d()
+    cfg.apply_overrides(list(extra))
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    geo = kernels.ns3d_geometry()
+    assert any(n % t for n, t in zip(kit.shape, (geo.tz, geo.ty, geo.tx)))
+    st = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(11)
+    fluid = st.node_type == 0
+    outside = st.node_type == 5
+    assert bool(outside.any())
+    rho = torch.where(fluid, st.rho + torch.tensor(
+        rng.normal(0, 0.1, kit.shape), dtype=torch.float32, device="cuda"),
+        st.rho)
+    vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.05, st.vel.shape), dtype=torch.float32,
+        device="cuda"), st.vel)
+    p = ns.tait_pressure(rho, kit)
+    dt = ns.compute_dt(dataclasses.replace(st, rho=rho, vel=vel), kit)
+    nan = float("nan")
+    rho = torch.where(outside, nan, rho)
+    vel = torch.where(outside[..., None], nan, vel)
+    p = torch.where(outside, nan, p)
+    args = (rho, vel, p, st.node_type, dt, kit)
+    r1, v1 = kernels.ns3d(*args)
+    r2, v2 = kernels.ns3d(*args)
+    rp, vp = kernels.ns3d_plain(*args)
+    rs, vs = kernels.ns3d_staged_plain(*args, R=geo.r)
+    assert bool(torch.isfinite(r1[~outside]).all())
+    assert bool(torch.isfinite(v1[~outside]).all())
+    assert bool(torch.isnan(r1[outside]).all())
+    for a, b in ((r1, r2), (v1, v2), (r1, rp), (v1, vp), (r1, rs), (v1, vs)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def _matvec3d_against_twin(kit, op, weights, seed):
