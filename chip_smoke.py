@@ -18,17 +18,21 @@ argument all of them run, in this order):
    over the HBM rate or flops over the peak rate, whichever is larger) and
    the time of one PyTorch library call that computes the same function,
    where there is one (LIBRARY); basis_dots must be one device kernel a
-   call (counted in a torch.profiler window).
+   call (counted in a torch.profiler window); ns2d's tile, staged bytes,
+   halo factor, unfused issue floor and time behind another kernel.
 3. ``kernels3d``, 3D kernel vs plain at the flagship shape: ns3d, matvec3d
    (packed f32 and bf16 weights against the dense twin; the packing's
    nonzero count, padding, bytes and time on a line of its own),
-   slots3d_f64, basis_axpy and basis_dots on a 26-row basis of that length
+   slots3d_f64 (packed f32 weights against the dense twin, one device
+   kernel a call, beside an f64 CSR torch.mv), basis_axpy and basis_dots
+   on a 26-row basis of that length
    (basis_dots also on its first 13 rows and as the k = 1 self-dot), ns3d's
    staged bytes and halo factor, and the four forms of
    ns3d_chunked.cu (chunked XLA / factored / jconv, and j-static; NCHUNK 6,
    BZ 16), each also against ns3d at the script's gate, on
    config/params_3d.cfg's 157 x 82 x 82 = 1,055,668-node grid (S = 178)
-   with a real Kit, seeded State and its assembled operator; the same
+   with a real Kit, seeded State and its assembled operator (which keeps
+   no dense W on the card: the twins get one built for them); the same
    checks and numbers.
 4. ``ladder``, the chunked / j-static kernels' main path:
    scripts/exp_ns3d_chunked_torch.py's ladder (every rung checked against
@@ -44,7 +48,9 @@ argument all of them run, in this order):
    CUDA, capped by MAIN3D_CAPS (one cycle of 20 implicit steps at the 30 s
    dt ceiling, one checkpoint); checks the run and the 3D path's kernels,
    reloads the checkpoint, and holds the 20 rows against the banked
-   docs/runs/3d_1M/diagnostics.csv within BANKED_GATES.
+   docs/runs/3d_1M/diagnostics.csv within BANKED_GATES; prints the peak
+   device memory, whether assembly or the steps set it, and whether the
+   operator held a dense W.
 8. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
    implicit and the explicit path, on CUDA (kernels) and on the CPU (plain
    twins); diagnostics.csv must agree.
@@ -181,16 +187,24 @@ def apart_ms(fn, other, reps=30):
     return statistics.median(times)
 
 
-def device_launches(fn):
-    """Kernels the device ran for one fn() (a torch.profiler window)."""
+def device_launches(fn, calls=20):
+    """Kernels the device ran per fn() call, in a torch.profiler window
+    (CPU and CUDA activities) of ``calls`` calls queued behind a ~10 ms
+    spin kernel, rounded: a window of one call alone saw no kernel when it
+    was not the process's first (the activity tracing had not started when
+    the kernel ran)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events())
+    return round(sum(e.device_type == torch.autograd.DeviceType.CUDA
+                     and "spin_kernel" not in e.name
+                     for e in prof.events()) / calls)
 
 
 def seeded(rng, shape, scale=1.0, dtype=torch.float32):
@@ -274,14 +288,15 @@ def bond_counts(kit, centre, pads, classes):
 def csr_of(W, diag, unknown, kit):
     """The implicit operator y = diag x + sum_s W_s shift_s(x) on the
     unknown rows as one CSR matrix (int32 indices, W's exact zeros and
-    out-of-grid neighbours dropped, columns sorted), for the library call
-    ``torch.mv``."""
+    out-of-grid neighbours dropped, columns sorted; no diagonal when
+    ``diag`` is None), for the library call ``torch.mv``."""
     n = unknown.numel()
     rows = unknown.reshape(-1).nonzero().squeeze(1)
     strides = [math.prod(kit.shape[a + 1:]) for a in range(kit.dim)]
     flat = [sum(o * st for o, st in zip(off, strides)) for off in kit.offsets]
-    order = sorted(range(kit.S + 1), key=lambda c: 0 if c == kit.S
-                   else flat[c])   # column kit.S is the diagonal
+    # column kit.S is the diagonal
+    order = sorted(range(kit.S + (diag is not None)),
+                   key=lambda c: 0 if c == kit.S else flat[c])
     coord, rem = [], rows
     for st, ext in zip(strides, kit.shape):
         coord.append(rem // st)
@@ -407,9 +422,33 @@ def phase_kernels(pkg):
                         device="cuda")
     flops = float((act * torch.where(diag, 52.0, 37.0)).sum()
                   + 26 * fluid.sum())
+    print(f"[kernels] ns2d bit-equal to its plain twin: "
+          f"{torch.equal(r, rp) and torch.equal(v, vp)}")
     record("ns2d", err, ok, lambda: kernels.ns2d(*args),
            lambda: kernels.ns2d_plain(*args), "rho rtol 1e-6, v rtol 1e-5 atol 1e-9",
            29 * n, flops)
+    geo = kernels.ns2d_geometry()
+    tiles, busy, staged, halo = kernels.ns2d_staging(kit, st.node_type, geo)
+    clock = torch.cuda.clock_rate()
+    issue_ms = 1e3 * flops / (
+        128 * torch.cuda.get_device_properties(0).multi_processor_count
+        * 1e6 * clock)
+    other = torch.empty_like(st.vel)
+    apart = apart_ms(lambda: kernels.ns2d(*args),
+                     lambda: torch.add(st.vel, st.vel, out=other))
+    print(f"[kernels] ns2d tile {geo.tx} x {geo.ty} (x, y), {geo.r} x nodes a "
+          f"thread, {geo.threads} threads, {geo.tile_bytes / 1e3:.1f} KB of "
+          f"staged fields a block: {busy} of {tiles} tiles hold a FLUID node "
+          f"and stage {geo.staged} positions each ({halo:.2f} per node of "
+          f"the tile, 4 floats and a node_type byte): "
+          f"{staged / 1e6:.2f} MB a launch from L2 / HBM; behind another "
+          f"kernel (an elementwise add), one call at a time: {apart:.4f} ms; "
+          f"its flops as unfused instructions would take {issue_ms:.4f} ms "
+          f"of issue slots at {clock} MHz ("
+          f"{100 * issue_ms / results['ns2d']['ms']:.1f} % of the kernel's "
+          f"time back to back, {100 * issue_ms / apart:.1f} % behind "
+          f"another kernel)")
+    del other
 
     # matvec2d, on the operator of this state: W of the unknown rows, plus
     # x, diag, unknown and y (13 B/node); 2 flops per in-grid bond and 1
@@ -652,10 +691,15 @@ def phase_kernels3d(pkg):
     op = ai.assemble(st, kit)
     torch.cuda.synchronize()
     t_assemble = time.time() - t_a
+    if op.W is not None:
+        fail("the card's 3D f32 operator kept its dense W after packing")
+    # the dense weights of the same operator, for the twins and the CSR
+    # library calls only
+    W = ai._dense_operator(st, kit, 0.0)[0]
     pack_s = []
     for _ in range(3):
         t_a = time.time()
-        again = kernels.pack_stencil(op.W, op.unknown, kit)
+        again = kernels.pack_stencil(W, op.unknown, kit)
         again16 = again.to(torch.bfloat16)
         torch.cuda.synchronize()
         pack_s.append(time.time() - t_a)
@@ -673,7 +717,8 @@ def phase_kernels3d(pkg):
                                )["in"].sum())
     print(f"[kernels3d] operator: {n_unk} unknown rows, {int(inside)} "
           f"in-grid bonds, {nnz} nonzero weights; dense W "
-          f"{op.W.numel() * 4 / 1e6:.1f} MB f32")
+          f"{W.numel() * 4 / 1e6:.1f} MB f32 (built for the twins: the "
+          f"operator holds none)")
     print(f"[kernels3d] packed: {stored} stored values (slice padding "
           f"{stored / max(nnz, 1):.4f} stored per nonzero), a slot byte "
           f"beside each; {op.packed.nbytes() / 1e6:.1f} MB with f32 "
@@ -686,7 +731,7 @@ def phase_kernels3d(pkg):
           f"repacking gives the same bits: {same_pack}")
     if not same_pack:
         fail("pack_stencil: two packings of one operator differ")
-    A = csr_of(op.W, op.diag, op.unknown, kit)
+    A = csr_of(W, op.diag, op.unknown, kit)
     xf = x.reshape(-1)
     print(f"[kernels3d] CSR operator: {A.values().numel()} nonzeros")
     for name, packed, wbytes, lib in (
@@ -694,7 +739,7 @@ def phase_kernels3d(pkg):
              lambda: torch.mv(A, xf).view(kit.shape)),
             ("matvec3d_bf16", op.W16, 2, None)):
         mv = (x, packed, op.diag, op.unknown, kit)
-        W_dense = op.W if wbytes == 4 else op.W.to(torch.bfloat16)
+        W_dense = W if wbytes == 4 else W.to(torch.bfloat16)
         twin = (x, W_dense, op.diag, op.unknown, kit)
         y, yp = kernels.matvec3d(*mv), kernels.matvec3d_plain(*twin)
         err = float((y - yp).abs().max())
@@ -720,7 +765,13 @@ def phase_kernels3d(pkg):
               f"counts and vectors included): "
               f"{moved / (results[name]['ms'] * 1e-3) / 1e12:.3f} TB/s")
         del W_dense, twin, other
-    del A
+    # the f64 slot sum's library call: the same nonzeros (no diagonal) as
+    # one float64 CSR matrix, the f32 weights widened exactly
+    A_slots = csr_of(W, None, op.unknown, kit)
+    A64 = torch.sparse_csr_tensor(A_slots.crow_indices(),
+                                  A_slots.col_indices(),
+                                  A_slots.values().double(), size=A.shape)
+    del A, A_slots
 
     # basis_axpy on a 26-row basis of flagship-long vectors (110 MB: from
     # HBM, not the L2)
@@ -736,23 +787,46 @@ def phase_kernels3d(pkg):
     record_basis_dots(record, "basis_norm_3d", w[None], w)
     del V, w
 
-    # slots3d_f64: all of W (no mask) plus x and y in f64; 2 f64 flops per
-    # in-grid bond of every node
-    x64 = torch.tensor(rng.random(kit.shape), dtype=torch.float64,
-                       device="cuda")
-    y, yp = kernels.slots3d_f64(x64, op.W, kit), kernels.slots3d_f64_plain(
-        x64, op.W, kit)
+    # slots3d_f64 over the packed f32 weights against the dense twin, x of
+    # both signs with exact zeros. The least it must move, on matvec3d's
+    # count: the nonzero weights, a bit per slot of every unknown row (whole
+    # 32-bit words), x and y in f64 and the unknown mask (17 B/node); 2 f64
+    # flops per nonzero weight
+    x64 = torch.tensor(rng.normal(size=kit.shape) * (rng.random(kit.shape)
+                                                     > 0.1),
+                       dtype=torch.float64, device="cuda")
+    y = kernels.slots3d_f64(x64, op.packed, kit)
+    yp = kernels.slots3d_f64_plain(x64, W, kit)
     err = float((y - yp).abs().max())
-    every = float(bond_counts(kit, torch.ones_like(op.unknown), {
-        "one": kit.pad(torch.ones_like(x), 0.0)},
-        {"in": lambda nb: nb["one"] != 0})["in"].sum())
-    print(f"[kernels3d] slots3d_f64 bit-equal to its plain twin: "
-          f"{torch.equal(y, yp)}")
-    record("slots3d_f64", err, err <= 1e-14 * float(yp.abs().max()),
-           lambda: (kernels.slots3d_f64(x64, op.W, kit),),
-           lambda: kernels.slots3d_f64_plain(x64, op.W, kit),
-           "max|dy| <= 1e-14 max|y|", n * S * 4 + 16 * n, 2 * every,
-           rate=F64_RATE)
+    same = torch.equal(y, yp)
+    print(f"[kernels3d] slots3d_f64 (packed f32 weights) bit-equal to its "
+          f"dense plain twin: {same}")
+    del y, yp
+    n_dev = device_launches(lambda: kernels.slots3d_f64(x64, op.packed, kit))
+    print(f"[kernels3d] slots3d_f64: {n_dev} device kernel(s) a call")
+    if n_dev != 1:
+        fail("slots3d_f64 is not one launch a call")
+    nbytes = nnz * 4 + 4 * words * n_unk + 17 * n
+    dense_ms, _ = bound(n * S * 4 + 16 * n, 2.0 * nnz, F64_RATE)
+    print(f"[kernels3d] slots3d_f64: {nbytes / 1e6:.1f} MB on the nonzeros "
+          f"(the dense W and its vectors, {(n * S * 4 + 16 * n) / 1e6:.1f} "
+          f"MB, would bound it at {dense_ms:.4f} ms)")
+    x64f = x64.reshape(-1)
+    record("slots3d_f64", err, same,
+           lambda: (kernels.slots3d_f64(x64, op.packed, kit),),
+           lambda: kernels.slots3d_f64_plain(x64, W, kit), "bit-equal",
+           nbytes, 2.0 * nnz, rate=F64_RATE,
+           library=lambda: torch.mv(A64, x64f).view(kit.shape))
+    other = torch.empty_like(x64)
+    apart = apart_ms(lambda: kernels.slots3d_f64(x64, op.packed, kit),
+                     lambda: torch.add(x64, x64, out=other))
+    moved = packed_traffic(op.packed, 4) + 19 * n
+    print(f"[kernels3d] slots3d_f64 behind another kernel (an elementwise "
+          f"add), one call at a time: {apart:.4f} ms "
+          f"({100 * results['slots3d_f64']['bound_ms'] / apart:.1f} % of the "
+          f"bound); its streams ask for {moved / 1e6:.1f} MB in whole "
+          f"sectors (slot bytes, counts and vectors included)")
+    del A64, other, W
     print(f"[kernels3d] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return results
@@ -823,16 +897,35 @@ def phase_main3d(tmp):
     from pd_mg_pin_corrosion_tpu_torch import kernels
     from pd_mg_pin_corrosion_tpu_torch.checkpoint import load_checkpoint
 
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+
     out_dir = os.path.join(tmp, "flagship")
+    # per operator assembled: whether it kept a dense W, and the peak
+    # device memory right after its assembly
+    assembled = []
+    real_assemble = coupling.assemble
+
+    def assemble(*a, **k):
+        op = real_assemble(*a, **k)
+        torch.cuda.synchronize()
+        assembled.append((op.W is not None, torch.cuda.max_memory_allocated()))
+        return op
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t0 = time.time()
-    solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS, "--device", "cuda"])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    coupling.assemble = assemble
+    try:
+        t0 = time.time()
+        solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS, "--device",
+                                         "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        coupling.assemble = real_assemble
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    dense_w = any(d for d, _ in assembled)
+    at_assembly = max((m for _, m in assembled), default=0)
     with open(os.path.join(out_dir, "run.log")) as f:
         for line in f:
             if any(k in line for k in ("Grid:", "Flow:", "Implicit cycle",
@@ -849,6 +942,11 @@ def phase_main3d(tmp):
           f"{step_ms:.3f} ({solver.total_implicit_steps} steps in "
           f"{solver.implicit_seconds:.3f} s); peak device memory "
           f"{peak / 2**30:.2f} GiB")
+    print(f"[main3d] {len(assembled)} operator(s) assembled, "
+          f"{'one holding' if dense_w else 'none holding'} a dense W; peak "
+          f"device memory {peak / 2**30:.2f} GiB, set by "
+          f"{'assembly' if peak == at_assembly else 'the steps'} (peak right "
+          f"after the last assembly {at_assembly / 2**30:.2f} GiB)")
     print(f"[main3d] assemble (packing included) "
           f"{1e3 * solver.assemble_seconds / max(solver.cycles, 1):.2f} ms "
           f"per cycle; with it "
@@ -885,6 +983,7 @@ def phase_main3d(tmp):
         "no GMRES non-convergence warning": solver.gmres_warnings == 0,
         "every kernel of the 3D path launched":
             all(counts[k] > 0 for k in PATH_3D),
+        "no operator kept a dense W": bool(assembled) and not dense_w,
         "all state tensors on cuda": all(t.is_cuda for t in st.tensors()),
         "the checkpoint reloads equal to final_state": same_ckpt,
         "solid_nodes 31,600 on every row":

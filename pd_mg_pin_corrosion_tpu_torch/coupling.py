@@ -125,6 +125,10 @@ class CoupledSolver:
     def _filename(self, cfg, prefix, time_s):
         return f"{cfg.output_dir}/{prefix}_{self.frame_count:06d}_t{time_s:.1f}s.vti"
 
+    def _flush_writers(self):
+        self.writer.flush()
+        self.flow_writer.flush()
+
     def _write_state(self, cfg, grid, state, prefix, t, pvd_writer):
         t_ph = time.time()
         fname = self._filename(cfg, prefix, t)
@@ -398,7 +402,7 @@ class CoupledSolver:
 
             if cfg.checkpoint_every and cycle % cfg.checkpoint_every == 0:
                 t_ph = time.time()
-                self.writer.flush()  # async VTI writes land before the save
+                self._flush_writers()  # async VTI writes land before the save
                 save_checkpoint(
                     f"{cfg.output_dir}/checkpoint.npz", state, t_corr,
                     {"cycle": cycle,
@@ -416,7 +420,7 @@ class CoupledSolver:
 
         self._write_state(cfg, grid, state, "final", t_corr, self.writer)
         t_ph = time.time()
-        self.writer.flush()  # join the last async VTI write before exit
+        self._flush_writers()  # join the last async VTI write before exit
         self._phase("io_vtk", t_ph)
         print("\n=== Simulation complete ===")
         print(f"  Final time: {t_corr:.1f} s ({t_corr / 3600.0:.2f} h)")

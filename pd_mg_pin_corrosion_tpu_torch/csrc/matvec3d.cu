@@ -1,6 +1,6 @@
 // matvec3d: y = diag*x + sum_s W_s * shift_s(x) on unknown rows, 0 elsewhere
 // (f32 x, W packed in f32 or bf16), and slots3d_f64: the float64 slot sum
-// sum_s W_s * shift_s(x) (dense f32 W, f64 x), both on the 3D grid.
+// sum_s W_s * shift_s(x) (packed f32 W, f64 x), both on the 3D grid.
 //
 // Replaces: pd_mg_pin_corrosion_tpu/pallas_kernels.py
 //   * _matvec_kernel_3d (body) / matvec_M_pallas_3d_core (entry): the
@@ -13,52 +13,66 @@
 //     (double)W * x64 and the sum runs in native f64.
 //
 // Contract (plain twins on the dense [S, Nz, Ny, Nx] weights:
-// kernels/matvec3d.py matvec3d_plain, slots3d_f64_plain): a neighbour
+// kernels/matvec3d.py matvec3d_plain, slots3d_f64_plain; on the packed
+// weights: matvec3d_packed_plain, slots3d_f64_packed_plain): a neighbour
 // outside the grid reads an exact 0; slots are accumulated in reference
 // stencil order, acc = acc + W_s * x_j (bf16 W widened to f32 first, f32 W
 // widened to f64 in the f64 sum), matvec3d starting from diag*x and
-// slots3d_f64 from 0, with -fmad=false. slots3d_f64 takes x zero-padded by
-// mext on every side (the twins' layout), visits every slot and equals its
-// twin bit for bit; it applies no diagonal and no mask (the caller does
-// both in f64). matvec3d's rows that are not unknown write an exact 0 and
-// read no weights.
+// slots3d_f64 from +0, with -fmad=false. matvec3d's rows that are not
+// unknown write an exact 0 and read no weights. slots3d_f64 applies no
+// diagonal and no mask (the caller does both in f64); a row the packing
+// holds no weight of (every row that is not unknown) writes +0.
 //
-// matvec3d visits only the bonds whose weight is not zero and whose
-// neighbour lies inside the grid. A skipped term is acc + 0 * x_j or
-// acc + w * 0 = acc for every finite x_j and w, so its result equals the
-// dense twin's bit for bit for finite inputs, with one exception that
-// torch.equal does not see: a -0.0 accumulator stays -0.0 where the twin's
-// acc + (+0.0) gives +0.0. An inf or nan in x no longer spreads through a
-// zero weight (0 * inf = nan in the twin).
+// Both kernels visit only the bonds whose weight is not zero and whose
+// neighbour lies inside the grid (the packed form holds no other). A
+// skipped term is acc + 0 * x_j or acc + w * 0, an exact +-0, so for finite
+// x_j and w it leaves acc as it was, and the result equals the dense twin's
+// bit for bit: an accumulator that starts at +0 is never -0 (+0 + -0 is
+// +0, and a sum of two nonzero values that cancels is +0 under
+// round-to-nearest), and x + (+-0) is x for every other x. matvec3d's
+// accumulator starts at diag*x, which may be -0.0: there a skipped term
+// leaves -0.0 where the twin's acc + (+0.0) gives +0.0, a difference
+// torch.equal does not see. An inf or nan in x no longer spreads through a
+// zero weight (0 * inf = nan in the twin). slots3d_f64 equals its dense
+// twin only where the dense W is zero off the unknown rows, as assemble
+// makes it (ops/ard_implicit.py masks W to unknown rows; the caller masks
+// the result to them too).
 //
 // What bounds them on an H100: the weight stream. At the flagship grid
 // (1,055,668 nodes, S = 178) the dense W is 751.6 MB in f32, far beyond the
-// 50 MB L2, against ~13 MB of x, diag, unknown and y (x in f64 for
-// slots3d_f64: ~17 MB); slots3d_f64 reads all of it (~224 us at
-// 3.35 TB/s). About half of the weights of the 660,600 unknown rows are
+// 50 MB L2. About half of the weights of the 660,600 unknown rows are
 // exact zeros by construction (the upwind clamp cancels the liquid-liquid
 // bonds whose advective weight exceeds the diffusive one; wall, outside
-// and solid-solid bonds are masked), so the least matvec3d must move is the
+// and solid-solid bonds are masked), so the least either must move is the
 // ~56 M nonzero weights (4 or 2 bytes each), which slots they belong to
-// (178 bits per unknown row would do), and the vectors: ~0.25 GB in f32,
-// ~0.14 GB in bf16, against 0.48 / 0.25 GB for the dense rows. The f32
-// multiply-add rate (67 TFLOP/s) is no limit at 2 flops per weight.
+// (178 bits per unknown row would do), and the vectors: matvec3d ~0.25 GB
+// in f32 and ~0.14 GB in bf16 (x, diag, unknown, y: 13 B/node);
+// slots3d_f64 ~0.26 GB (x and y in f64: 16 B/node), 0.077 ms at 3.35 TB/s.
+// The multiply-add rates (67 TFLOP/s f32, 34 f64) are no limit at 2 flops
+// per weight. slots3d_f64 walked the dense W before (0.77 GB with its
+// vectors, 0.29 ms); over the packed weights it takes 0.13 ms back to back
+// and 0.14 ms behind another kernel (H100 80GB HBM3, 700 W; PERF.md), about
+// matvec3d's f32 time: the f64 x is gathered from the L2 as the f32 one is.
 //
-// Design, matvec3d: the weights arrive packed (kernels/matvec3d.py
-// pack_stencil, once per coupling cycle): per row its nonzero weights in
-// ascending slot order, each with its slot number in one byte, and the
-// row's count. Rows are cut into slices of 32 consecutive flat nodes, one
-// warp each; a slice stores as many value rows as its fullest row has
-// nonzeros. A row's nonzeros are taken in groups of kGroup = 16, and a
-// group of the slice's 32 rows is one block of 512 entries: one thread per
-// row reads per group 16 slot numbers (one 16-byte load) and 16 weights in
-// 16-byte loads, laid out so that a warp's load covers a contiguous run of
-// whole 32-byte sectors (f32: four loads of 512 B, the rows' chunks of 4
-// side by side; bf16: two loads over 1 KB, 32 bytes per row); every load
-// of a turn is issued before its adds. x is read from the grid itself at
-// one flat offset per slot (staged in shared memory) and comes from L1/L2,
-// as neighbouring rows read neighbouring x; the packed streams are loaded
-// evict-first so they do not push it out.
+// Design: the weights arrive packed (kernels/matvec3d.py pack_stencil,
+// once per coupling cycle): per row its nonzero weights in ascending slot
+// order, each with its slot number in one byte, and the row's count. Rows
+// are cut into slices of 32 consecutive flat nodes, one warp each; a slice
+// stores as many value rows as its fullest row has nonzeros. A row's
+// nonzeros are taken in groups of kGroup = 16, and a group of the slice's
+// 32 rows is one block of 512 entries: one thread per row reads per group
+// 16 slot numbers (one 16-byte load) and 16 weights in 16-byte loads, laid
+// out so that a warp's load covers a contiguous run of whole 32-byte
+// sectors (f32: four loads of 512 B, the rows' chunks of 4 side by side;
+// bf16: two loads over 1 KB, 32 bytes per row); every load of a turn is
+// issued before its adds. x is read from the grid itself at one flat
+// offset per slot (staged in shared memory) and comes from L1/L2, as
+// neighbouring rows read neighbouring x (8.45 MB in f64, 4.2 MB in f32: both
+// stay in the L2); the packed streams are loaded evict-first so they do
+// not push it out. One template walks all three: the accumulator and x
+// type (f32, or f64 for slots3d_f64, which reads the f32 weights that
+// matvec3d's f32 launch streams), the weight type, and whether a diagonal
+// and the unknown mask come in.
 //
 // Why this layout (H100 80GB HBM3 at 700 W, scripts/sweep_kernels_torch.py
 // and PERF.md): a bitmask per row (178 bits) would say which slots a row
@@ -70,20 +84,12 @@
 // load) leaves the kernel bound by bytes. And with a row's 16 f32 weights
 // side by side (64 bytes) each 32-byte sector is asked for by two loads:
 // as fast in back-to-back calls, 1.4x slower behind any other kernel.
-//
-// Design, slots3d_f64: one thread per node over the flat index; W is laid
-// out [S, Nz, Ny, Nx], so each slot's weight read is one coalesced segment
-// per warp; the slot loop is branch-free and unrolled by kUnroll with every
-// load of a group issued before its products. W's offsets s * N are formed
-// in 64 bits.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kUnroll = 4;   // slots per group of the dense f64 slot sum
 
 // matvec3d: nonzeros of a row per group of the packed layout
 // (kernels/matvec3d.py GROUP), and the bytes of weights a thread loads per
@@ -105,54 +111,9 @@ constexpr int kTurnGroups =
         : 1;
 static_assert(pd::kMaxSlots <= 256, "a slot number is one byte");
 
-__device__ __forceinline__ float widen(float w) { return w; }
-__device__ __forceinline__ float widen(__nv_bfloat16 w) {
-  return __bfloat162float(w);
-}
-
 struct Geometry {
-  int S, nz, ny, nx, mext;
+  int S, nz, ny, nx;
 };
-
-// flat slot offsets of the padded layout into shared memory; returns the
-// padded flat index of node n
-__device__ __forceinline__ int stage(const long long* __restrict__ slot_flat,
-                                     const Geometry& g, int* s_off,
-                                     long long n) {
-  for (int s = threadIdx.x; s < g.S; s += blockDim.x)
-    s_off[s] = static_cast<int>(slot_flat[s]);
-  __syncthreads();
-  const int plane = g.ny * g.nx;
-  const int k = static_cast<int>(n / plane);
-  const int r = static_cast<int>(n - static_cast<long long>(k) * plane);
-  const int j = r / g.nx;
-  const int i = r - j * g.nx;
-  const int py = g.ny + 2 * g.mext, px = g.nx + 2 * g.mext;
-  return ((k + g.mext) * py + (j + g.mext)) * px + (i + g.mext);
-}
-
-// acc + sum_s W[s*N + n] * xp[p + off_s] in slot order, each weight
-// widened to the accumulator's type AT (= x's type)
-template <typename AT, typename WT>
-__device__ __forceinline__ AT slot_sum(AT acc, const WT* __restrict__ Wn,
-                                       const AT* __restrict__ xp, int p,
-                                       const int* s_off, int S, long long N) {
-  int s = 0;
-  for (; s + kUnroll <= S; s += kUnroll) {
-    AT w[kUnroll], xv[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      w[u] = static_cast<AT>(widen(__ldg(Wn + (s + u) * N)));
-      xv[u] = __ldg(xp + p + s_off[s + u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) acc = acc + w[u] * xv[u];
-  }
-  for (; s < S; ++s)
-    acc = acc + static_cast<AT>(widen(__ldg(Wn + s * N))) *
-                    __ldg(xp + p + s_off[s]);
-  return acc;
-}
 
 // The kGroup packed weights of one row's group, widened to f32, in 16-byte
 // loads. f32 weights lie in chunks of 4 per row, the chunks of a slice's
@@ -206,15 +167,16 @@ __device__ __forceinline__ void load_slots(const uint8_t* p,
 }
 
 // acc + the next kGroups groups of a row's nonzeros, of which the first
-// `live` entries exist (all of them unless kTail): every load of the turn
-// is issued before its adds
-template <int kGroups, bool kTail, typename WT>
-__device__ __forceinline__ float add_groups(float acc,
-                                            const WT* __restrict__ v,
-                                            const uint8_t* __restrict__ sl,
-                                            const float* __restrict__ xn,
-                                            const int* s_off, int live) {
-  float w[kGroups][kGroup], xv[kGroups][kGroup];
+// `live` entries exist (all of them unless kTail), each weight widened to
+// the accumulator's type AT (= x's type): every load of the turn is issued
+// before its adds
+template <int kGroups, bool kTail, typename AT, typename WT>
+__device__ __forceinline__ AT add_groups(AT acc, const WT* __restrict__ v,
+                                         const uint8_t* __restrict__ sl,
+                                         const AT* __restrict__ xn,
+                                         const int* s_off, int live) {
+  float w[kGroups][kGroup];
+  AT xv[kGroups][kGroup];
   uint32_t sb[kGroups][kGroup / 4];
 #pragma unroll
   for (int u = 0; u < kGroups; ++u) {
@@ -231,24 +193,28 @@ __device__ __forceinline__ float add_groups(float acc,
   for (int u = 0; u < kGroups; ++u)
 #pragma unroll
     for (int i = 0; i < kGroup; ++i)
-      if (!kTail || u * kGroup + i < live) acc = acc + w[u][i] * xv[u][i];
+      if (!kTail || u * kGroup + i < live)
+        acc = acc + static_cast<AT>(w[u][i]) * xv[u][i];
   return acc;
 }
 
 // One thread per row. vals / slots: the packed weights and their slot
 // numbers, count: nonzeros per row, slice_ptr: [ceil(N / 32) + 1] value
 // rows before each slice (kernels/matvec3d.py PackedStencil). x is the
-// grid itself: no packed weight belongs to a neighbour outside it.
-template <typename WT>
+// grid itself: no packed weight belongs to a neighbour outside it. With
+// kDiag (matvec3d) a row starts from diag*x and rows that are not unknown
+// write 0; without (slots3d_f64) every row starts from +0 and a row with
+// no stored weight writes it.
+template <typename AT, typename WT, bool kDiag>
 __global__ void __launch_bounds__(pd::kThreads)
-matvec3d_kernel(const float* __restrict__ x, const WT* __restrict__ vals,
-                const uint8_t* __restrict__ slots,
-                const int16_t* __restrict__ count,
-                const int* __restrict__ slice_ptr,
-                const float* __restrict__ diag,
-                const uint8_t* __restrict__ unknown,
-                const int* __restrict__ slot_offsets, Geometry g,
-                float* __restrict__ y) {
+stencil_kernel(const AT* __restrict__ x, const WT* __restrict__ vals,
+               const uint8_t* __restrict__ slots,
+               const int16_t* __restrict__ count,
+               const int* __restrict__ slice_ptr,
+               const float* __restrict__ diag,
+               const uint8_t* __restrict__ unknown,
+               const int* __restrict__ slot_offsets, Geometry g,
+               AT* __restrict__ y) {
   __shared__ int s_off[pd::kMaxSlots];
   for (int s = threadIdx.x; s < g.S; s += blockDim.x)
     s_off[s] = (slot_offsets[3 * s] * g.ny + slot_offsets[3 * s + 1]) * g.nx
@@ -258,8 +224,8 @@ matvec3d_kernel(const float* __restrict__ x, const WT* __restrict__ vals,
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (n >= N) return;
-  if (!unknown[n]) {
-    y[n] = 0.0f;
+  if (kDiag && !unknown[n]) {
+    y[n] = AT(0);
     return;
   }
   const int cnt = __ldg(count + n);
@@ -267,8 +233,9 @@ matvec3d_kernel(const float* __restrict__ x, const WT* __restrict__ vals,
                           * 32;
   const WT* v = vals + first + (n & 31) * kLaneChunk<WT>;
   const uint8_t* sl = slots + first + (n & 31) * kGroup;
-  const float* xn = x + n;
-  float acc = diag[n] * xn[0];
+  const AT* xn = x + n;
+  AT acc = AT(0);
+  if constexpr (kDiag) acc = diag[n] * xn[0];
   constexpr int kStep = kGroup * kTurnGroups<WT>;   // nonzeros per full turn
   int q = 0;
   for (; q + kStep <= cnt; q += kStep) {
@@ -283,41 +250,19 @@ matvec3d_kernel(const float* __restrict__ x, const WT* __restrict__ vals,
   y[n] = acc;
 }
 
-__global__ void __launch_bounds__(pd::kThreads)
-slots3d_f64_kernel(const double* __restrict__ xp, const float* __restrict__ W,
-                   const long long* __restrict__ slot_flat, Geometry g,
-                   double* __restrict__ y) {
-  __shared__ int s_off[pd::kMaxSlots];
-  const long long N = static_cast<long long>(g.nz) * g.ny * g.nx;
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  const int p = stage(slot_flat, g, s_off, n < N ? n : 0);
-  if (n >= N) return;
-  y[n] = slot_sum(0.0, W + n, xp, p, s_off, g.S, N);
-}
-
-int check_geometry(const Geometry& g) {
-  const long long padded = static_cast<long long>(g.nz + 2 * g.mext) *
-                           (g.ny + 2 * g.mext) * (g.nx + 2 * g.mext);
-  if (g.S < 1 || g.S > pd::kMaxSlots || g.nz < 1 || g.mext < 0 ||
-      padded > (1LL << 31) - 1)
+template <typename AT, typename WT, bool kDiag>
+int launch(const AT* x, const WT* vals, const uint8_t* slots,
+           const int16_t* count, const int* slice_ptr, const float* diag,
+           const uint8_t* unknown, const int* slot_offsets, Geometry g,
+           int group, AT* y, int device, void* stream) {
+  const long long n = static_cast<long long>(g.nz) * g.ny * g.nx;
+  if (g.S < 1 || g.S > pd::kMaxSlots || g.nz < 1 || g.ny < 1 || g.nx < 1 ||
+      n > (1LL << 31) - 1 || group != kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
-}
-
-template <typename WT>
-int launch_matvec3d(const float* x, const WT* vals, const uint8_t* slots,
-                    const int16_t* count, const int* slice_ptr,
-                    const float* diag, const uint8_t* unknown,
-                    const int* slot_offsets, Geometry g, int group, float* y,
-                    int device, void* stream) {
-  if (int bad = check_geometry(g)) return bad;
-  if (group != kGroup) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(g.nz) * g.ny * g.nx;
-  matvec3d_kernel<WT><<<pd::blocks_for(n), pd::kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  stencil_kernel<AT, WT, kDiag><<<pd::blocks_for(n), pd::kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       x, vals, slots, count, slice_ptr, diag, unknown, slot_offsets, g, y);
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,9 +279,10 @@ PD_EXPORT int pd_matvec3d_f32(const float* x, const float* vals,
                               const uint8_t* unknown, const int* slot_offsets,
                               int S, int nz, int ny, int nx, int group,
                               float* y, int device, void* stream) {
-  return launch_matvec3d(x, vals, slots, count, slice_ptr, diag, unknown,
-                         slot_offsets, Geometry{S, nz, ny, nx, 0}, group, y,
-                         device, stream);
+  return launch<float, float, true>(x, vals, slots, count, slice_ptr, diag,
+                                    unknown, slot_offsets,
+                                    Geometry{S, nz, ny, nx}, group, y, device,
+                                    stream);
 }
 
 // the same with the packed values in bf16
@@ -347,22 +293,21 @@ PD_EXPORT int pd_matvec3d_bf16(const float* x, const void* vals,
                                const int* slot_offsets, int S, int nz, int ny,
                                int nx, int group, float* y, int device,
                                void* stream) {
-  return launch_matvec3d(x, static_cast<const __nv_bfloat16*>(vals), slots,
-                         count, slice_ptr, diag, unknown, slot_offsets,
-                         Geometry{S, nz, ny, nx, 0}, group, y, device, stream);
+  return launch<float, __nv_bfloat16, true>(
+      x, static_cast<const __nv_bfloat16*>(vals), slots, count, slice_ptr,
+      diag, unknown, slot_offsets, Geometry{S, nz, ny, nx}, group, y, device,
+      stream);
 }
 
-PD_EXPORT int pd_slots3d_f64(const double* xp, const float* W,
-                             const long long* slot_flat, int S, int nz,
-                             int ny, int nx, int mext, double* y, int device,
-                             void* stream) {
-  const Geometry g{S, nz, ny, nx, mext};
-  if (int bad = check_geometry(g)) return bad;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(nz) * ny * nx;
-  slots3d_f64_kernel<<<pd::blocks_for(n), pd::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(xp, W, slot_flat,
-                                                            g, y);
-  return static_cast<int>(cudaGetLastError());
+// the f64 slot sum over the packed f32 weights (the arrays of
+// pd_matvec3d_f32, no diag, no unknown); x and y: [nz, ny, nx] float64
+PD_EXPORT int pd_slots3d_f64(const double* x, const float* vals,
+                             const uint8_t* slots, const int16_t* count,
+                             const int* slice_ptr, const int* slot_offsets,
+                             int S, int nz, int ny, int nx, int group,
+                             double* y, int device, void* stream) {
+  return launch<double, float, false>(x, vals, slots, count, slice_ptr,
+                                      nullptr, nullptr, slot_offsets,
+                                      Geometry{S, nz, ny, nx}, group, y,
+                                      device, stream);
 }

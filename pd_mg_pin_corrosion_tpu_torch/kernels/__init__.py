@@ -20,8 +20,10 @@ from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
                        matvec3d_plain, pack_stencil, slots3d_f64,
-                       slots3d_f64_plain, unpack_stencil)
-from .ns2d import ns2d, ns2d_plain
+                       slots3d_f64_packed_plain, slots3d_f64_plain,
+                       unpack_stencil)
+from .ns2d import (Ns2dTables, ns2d, ns2d_geometry, ns2d_plain,
+                   ns2d_staged_plain, ns2d_staging, ns2d_tables)
 from .ns3d import (Ns3dTables, ns3d, ns3d_geometry, ns3d_plain,
                    ns3d_staged_plain, ns3d_staging, ns3d_tables)
 from .ns3d_chunked import (compute_actconv, group_chunks, ns3d_chunked,

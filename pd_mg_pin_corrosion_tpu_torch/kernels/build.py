@@ -66,8 +66,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
     lib.pd_ns2d.restype = i32
-    lib.pd_ns2d.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                            f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    lib.pd_ns2d.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                            i32, f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    lib.pd_ns2d_geometry.restype = None
+    lib.pd_ns2d_geometry.argtypes = [ctypes.POINTER(ctypes.c_int * 8)]
     lib.pd_matvec2d.restype = i32
     lib.pd_matvec2d.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, i32,
                                 vp]
@@ -82,8 +84,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                        i32, i32, i32, i32, vp, i32, vp]
     lib.pd_slots3d_f64.restype = i32
-    lib.pd_slots3d_f64.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp,
-                                   i32, vp]
+    lib.pd_slots3d_f64.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                   i32, vp, i32, vp]
     lib.pd_basis_dots.restype = i32
     lib.pd_basis_dots.argtypes = [vp, i64, vp, i32, i64, i32, i32, i32, vp,
                                   vp, vp, i32, vp]

@@ -15,13 +15,17 @@ Kernels: ``csrc/matvec3d.cu``.
   as it was.
 * ``slots3d_f64`` replaces ``_matvec_kernel_3d_ds`` /
   ``matvec_slots_pallas_3d_ds``: the slot sum sum_s W_s*shift_s(x) alone (no
-  diag, no mask) of a float64 x over the dense float32 W, accumulated in
+  diag, no mask) of a float64 x over the float32 W, accumulated in
   float64, for the residual of the f64 refinement. The TPU kernel emulated
   that accuracy with double-single f32 pairs (x as hi/lo); Hopper has
-  native f64, so x arrives as one float64 tensor.
+  native f64, so x arrives as one float64 tensor. ``slots3d_f64_plain`` on
+  the dense weights is the twin; the kernel walks the same packed f32
+  weights as matvec3d (``slots3d_f64_packed_plain`` is that walk), which
+  gives the dense twin's bits wherever the dense W is zero off the unknown
+  rows, as an assembled operator's is.
 
-The twins evaluate the rows they write (matvec3d: the unknown rows) and
-accumulate in stencil order over slot chunks (``kit.slot_chunks``).
+The dense twins evaluate the rows they write (matvec3d: the unknown rows)
+and accumulate in stencil order over slot chunks (``kit.slot_chunks``).
 """
 
 from __future__ import annotations
@@ -242,33 +246,52 @@ def unpack_stencil(packed: PackedStencil, kit: Kit):
     return dense.view((kit.S,) + kit.shape)
 
 
-def matvec3d_packed_plain(x, packed: PackedStencil, diag, unknown, kit: Kit):
-    """matvec3d_plain's function on the packed weights, walked as the
-    kernel walks them: per unknown row its stored nonzeros in order, each
-    with the slot stored beside it. Equal to ``matvec3d_plain`` on the
-    dense weights bit for bit for finite x."""
-    rows = unknown.reshape(-1).nonzero().squeeze(1)
+def _packed_walk(acc, x, packed: PackedStencil, rows, kit: Kit):
+    """acc + each row's stored nonzeros times x at their slots, in stored
+    (ascending slot) order, the weights widened to x's dtype: the kernels'
+    walk of ``rows`` (flat indices), one nonzero of every row at a time."""
     count = packed.count[rows]
     xf, offsets = x.reshape(-1), _flat_offsets(kit)
-    acc = diag.reshape(-1)[rows] * xf[rows]
     for q in range(int(count.max()) if rows.numel() else 0):
         r = (count > q).nonzero().squeeze(1)
         at = (packed.slice_ptr, rows[r], q, packed.group)
         slot = packed.slots[_value_index(*at, packed.group)].to(torch.int64)
         w = packed.values[_value_index(*at, packed.chunk)]
         acc[r] = acc[r] + w.to(x.dtype) * xf[rows[r] + offsets[slot]]
+    return acc
+
+
+def matvec3d_packed_plain(x, packed: PackedStencil, diag, unknown, kit: Kit):
+    """matvec3d_plain's function on the packed weights, walked as the
+    kernel walks them: per unknown row its stored nonzeros in order, each
+    with the slot stored beside it. Equal to ``matvec3d_plain`` on the
+    dense weights bit for bit for finite x."""
+    rows = unknown.reshape(-1).nonzero().squeeze(1)
+    acc = diag.reshape(-1)[rows] * x.reshape(-1)[rows]
     y = torch.zeros_like(x)
-    y.view(-1)[rows] = acc
+    y.view(-1)[rows] = _packed_walk(acc, x, packed, rows, kit)
     return y
 
 
-def _check_weights(name, W, x, kit: Kit, dtypes):
-    if W.device != x.device or W.dtype not in dtypes or not W.is_contiguous():
-        raise TypeError(f"{name}: W must be a contiguous {dtypes} tensor on "
-                        f"{x.device}, got {W.dtype} on {W.device}")
-    if W.shape != (kit.S,) + kit.shape or x.shape != kit.shape:
-        raise ValueError(f"{name}: W {tuple(W.shape)} / x {tuple(x.shape)} "
-                         f"do not match the grid {kit.shape} and S={kit.S}")
+def slots3d_f64_packed_plain(x, packed: PackedStencil, kit: Kit):
+    """slots3d_f64_plain's slot sum over the packed weights, as the kernel
+    walks it: every row from +0, its stored nonzeros in order; +0 on a row
+    with none (every row that is not unknown). Equal to
+    ``slots3d_f64_plain`` on a dense W that is zero off the packed rows,
+    bit for bit for finite x."""
+    rows = (packed.count > 0).nonzero().squeeze(1)
+    acc = torch.zeros(rows.numel(), dtype=x.dtype, device=x.device)
+    y = torch.zeros_like(x)
+    y.view(-1)[rows] = _packed_walk(acc, x, packed, rows, kit)
+    return y
+
+
+def _check_packed(name, W: PackedStencil, x, kit: Kit):
+    if (x.shape != kit.shape or W.count.shape != (x.numel(),)
+            or W.slots.shape != W.values.shape
+            or W.slice_ptr.shape != (-(-x.numel() // SLICE) + 1,)):
+        raise ValueError(f"{name}: x / packed weights do not match the grid "
+                         f"{kit.shape} and S={kit.S}")
 
 
 def matvec3d(x, W, diag, unknown, kit: Kit):
@@ -284,16 +307,13 @@ def matvec3d(x, W, diag, unknown, kit: Kit):
     if not is_packed:
         raise TypeError("matvec3d: the CUDA kernel takes packed weights "
                         "(pack_stencil), got a dense tensor")
-    n = x.numel()
     if W.device != x.device or W.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"matvec3d: packed values must be float32 or "
                         f"bfloat16 on {x.device}, got {W.dtype} on {W.device}")
-    if (x.shape != kit.shape or diag.shape != kit.shape
-            or unknown.dtype != torch.bool
-            or W.count.shape != (n,) or W.slots.shape != W.values.shape
-            or W.slice_ptr.shape != (-(-n // SLICE) + 1,)):
-        raise ValueError("matvec3d: x / diag / unknown / packed weights do "
-                         f"not match the grid {kit.shape} and S={kit.S}")
+    _check_packed("matvec3d", W, x, kit)
+    if diag.shape != kit.shape or unknown.dtype != torch.bool:
+        raise ValueError("matvec3d: diag / unknown do not match the grid "
+                         f"{kit.shape}")
     y = torch.empty_like(x)
     entry = (load().lib.pd_matvec3d_f32 if W.dtype == torch.float32
              else load().lib.pd_matvec3d_bf16)
@@ -310,20 +330,27 @@ def matvec3d(x, W, diag, unknown, kit: Kit):
 
 
 def slots3d_f64(x, W, kit: Kit):
-    """slots3d_f64_plain's contract: the kernel for a CUDA float32 W and
-    float64 x, the plain version on CPU tensors."""
+    """slots3d_f64_plain's contract. On CUDA tensors the kernel, which
+    takes a float64 x and the float32 weights as a ``PackedStencil`` (the
+    operator's ``packed``) and raises on dense weights; on CPU tensors the
+    plain version of whichever form W has."""
+    is_packed = isinstance(W, PackedStencil)
     if x.device != W.device:
         raise ValueError(f"slots3d_f64: x on {x.device}, W on {W.device}")
-    if use_plain("slots3d_f64", W):
-        return slots3d_f64_plain(x, W, kit)
-    _check_weights("slots3d_f64", W, x, kit, (torch.float32,))
+    if use_plain("slots3d_f64", W.values if is_packed else W):
+        plain = slots3d_f64_packed_plain if is_packed else slots3d_f64_plain
+        return plain(x, W, kit)
+    if not is_packed:
+        raise TypeError("slots3d_f64: the CUDA kernel takes packed weights "
+                        "(pack_stencil), got a dense tensor")
     if x.dtype != torch.float64 or not x.is_contiguous():
         raise TypeError("slots3d_f64: x must be a contiguous float64 tensor")
+    _check_packed("slots3d_f64", W, x, kit)
     y = torch.empty_like(x)
-    xp = kit.pad(x, 0.0)
-    rc = load().lib.pd_slots3d_f64(ptr(xp), ptr(W), ptr(kit.slot_flat),
-                                   kit.S, *kit.shape, kit.mext, ptr(y),
-                                   x.device.index, stream(x))
+    rc = load().lib.pd_slots3d_f64(
+        ptr(x), ptr(W.values), ptr(W.slots), ptr(W.count), ptr(W.slice_ptr),
+        ptr(kit.slot_offsets), kit.S, *kit.shape, W.group, ptr(y),
+        x.device.index, stream(x))
     check(rc, "slots3d_f64")
     slots3d_f64.launches += 1
     return y

@@ -20,9 +20,10 @@ Numerics kept from the JAX package's CLI, which always enables x64:
   streams a bfloat16 copy of W, the outer operator in f32, and the
   refinement residual from the f64 slot sum of the f32 W
   (``kernels.slots3d_f64``). The same algorithm runs on every device. On
-  the card both weight types are streamed packed (nonzero weights and a
-  slot bitmask per row, ``kernels.pack_stencil``), which gives the dense
-  sums' bits.
+  the card all three sums stream the weights packed (each row's nonzero
+  weights with a slot byte beside each, ``kernels.pack_stencil``), which
+  gives the dense sums' bits, and the operator keeps no dense W once they
+  are packed.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ from .gmres import gmres, vector_norm
 class ImplicitOperator:
     """Frozen PD transport operator M (one coupling cycle)."""
 
-    W: torch.Tensor        # [S, *shape] off-diagonal stencil weights
+    # [S, *shape] off-diagonal stencil weights; None on the card's 3D
+    # float32 operator, whose sums all read ``packed``
+    W: torch.Tensor | None
     diag: torch.Tensor     # [*shape] diagonal of M
     unknown: torch.Tensor  # [*shape] bool — FLUID | SOLID rows
     # 3D float32: a bfloat16 copy of W that only the preconditioner
@@ -54,7 +57,7 @@ class ImplicitOperator:
     # packed on the card
     W16: torch.Tensor | PackedStencil | None = None
     # 3D float32 on the card: W's nonzero weights, packed for the matvec3d
-    # kernel (W16 shares its slot numbers and counts)
+    # and slots3d_f64 kernels (W16 shares its slot numbers and counts)
     packed: PackedStencil | None = None
 
 
@@ -65,12 +68,14 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
     are frozen for the cycle, exactly as the reference's once-per-cycle
     assemble. 3D float32 operators also get the weights the
     preconditioner streams in bfloat16 and, on the card, the packed forms
-    of both (made after the dense pass has released its temporaries)."""
+    of both (made after the dense pass has released its temporaries; the
+    dense W goes before the bf16 copy is made, as nothing reads it)."""
     W, diag, unknown = _dense_operator(state, kit, volume_loss_fraction)
     packed = W16 = None
     if kit.dim == 3 and kit.dtype == torch.float32:
         if W.is_cuda:
             packed = pack_stencil(W, unknown, kit)
+            W = None
             W16 = packed.to(torch.bfloat16)
         else:
             W16 = W.to(torch.bfloat16)
@@ -219,9 +224,12 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
             def M64(x64):
                 return matvec2d_plain(x64, op.W, diag64, op.unknown, kit)
         else:
-            # the f64 slot sum (kernel on the card); diag and mask here
+            # the f64 slot sum (kernel on the card, over the packed f32
+            # weights); diag and mask here
+            W = op.W if op.packed is None else op.packed
+
             def M64(x64):
-                y = diag64 * x64 + slots3d_f64(x64, op.W, kit)
+                y = diag64 * x64 + slots3d_f64(x64, W, kit)
                 return torch.where(op.unknown, y, 0.0)
 
         def A64(x64):

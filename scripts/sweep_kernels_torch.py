@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Sweep the free parameters of the port's basis_axpy, basis_dots, matvec3d
-and ns3d kernels on one CUDA device.
+(with slots3d_f64, which walks its packed f32 layout), ns3d and ns2d kernels
+on one CUDA device.
 
     python3 scripts/sweep_kernels_torch.py [axpy] [dots] [matvec3d] [ns3d]
+                                           [ns2d]
 
 The kernels' compile-time constants (``PD_AXPY_ROWS``: rows per register
 group of basis_axpy; ``PD_DOTS_UNROLL``, ``PD_DOTS_STREAM``: pieces a lane
@@ -12,12 +14,15 @@ weights of a row stored side by side in matvec3d's packed layout;
 ``PD_MATVEC3D_TURN_BYTES``: bytes of weights a thread loads per full turn
 of its row walk; ``PD_NS3D_R``, ``_TX``, ``_TY``, ``_ZT``, ``_WX``,
 ``_PAD``, ``_BLOCKS``: ns3d's z nodes a thread, tile, warp shape, row
-padding and blocks an SM) are ``#ifndef`` macros in csrc/; this script
+padding and blocks an SM; ``PD_NS2D_R``, ``_TX``, ``_TY``, ``_WX``,
+``_PAD``, ``_BLOCKS``: the same of ns2d, x nodes a thread) are ``#ifndef``
+macros in csrc/; this script
 builds one library per value (``kernels.build.build_library``), calls the C
 entry points directly, holds every variant to the plain twin (bit for bit;
 basis_dots to rtol 2e-6), and prints median times (chip_smoke.py's
 protocol: CUDA events around back-to-back calls behind a spin kernel; for
-matvec3d and ns3d also one call at a time behind another kernel):
+matvec3d, slots3d_f64, ns3d and ns2d also one call at a time behind
+another kernel):
 
 * axpy: rows per group x threads per block x 4-element pieces per thread,
   at (26, 196,749), (13, 196,749) and (26, 1,055,668), rows 128-byte
@@ -28,9 +33,13 @@ matvec3d and ns3d also one call at a time behind another kernel):
   1,055,668 floats, beside ``torch.mv``;
 * ns3d: tile shape x z nodes a thread x blocks an SM (``NS3D_VARIANTS``) on
   the seeded state of config/params_3d.cfg;
-* matvec3d: group size x bytes per turn, packed f32 and bf16 weights, on
-  the assembled operator of config/params_3d.cfg (1,055,668 nodes,
-  S = 178), each group size with its own packing.
+* ns2d: tile shape x x nodes a thread x warp shape x row padding x blocks
+  an SM (``NS2D_VARIANTS``) on the seeded state of
+  config/params_fine_calibration.cfg (567 x 347 nodes, S = 36);
+* matvec3d: group size x bytes per turn, packed f32 and bf16 weights, and
+  slots3d_f64 over the packed f32 weights, on the assembled operator of
+  config/params_3d.cfg (1,055,668 nodes, S = 178), each group size with
+  its own packing.
 
 The port's wrappers use the values the sources default to. Needs a CUDA
 device; imports nothing of JAX.
@@ -47,8 +56,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import pd_mg_pin_corrosion_tpu_torch as pkg  # noqa: E402
-from chip_smoke import (FLAGSHIP, SEED, apart_ms, median_ms,  # noqa: E402
-                        nvidia_smi, seeded)
+from chip_smoke import (FINE, FLAGSHIP, SEED, apart_ms,  # noqa: E402
+                        median_ms, nvidia_smi, seeded)
 from pd_mg_pin_corrosion_tpu_torch import grains, kernels  # noqa: E402
 from pd_mg_pin_corrosion_tpu_torch.kernels.build import (  # noqa: E402
     build_library, ptr, stream)
@@ -73,6 +82,14 @@ NS3D_VARIANTS = ((4, 16, 8, 2, 8, 2, 2), (2, 16, 8, 2, 8, 2, 3),
                  (4, 16, 8, 4, 8, 2, 1), (8, 16, 8, 1, 8, 2, 2),
                  (4, 8, 8, 2, 8, 2, 4), (4, 16, 4, 2, 8, 2, 3))
 NS3D_KEYS = ("R", "TX", "TY", "ZT", "WX", "PAD", "BLOCKS")
+# (R, TX, TY, WX, PAD, BLOCKS); the first is the source's default
+NS2D_VARIANTS = ((2, 32, 16, 16, 1, 3), (2, 32, 16, 16, 0, 3),
+                 (2, 16, 16, 8, 1, 6), (2, 32, 8, 16, 1, 6),
+                 (4, 32, 16, 8, 1, 3), (4, 32, 16, 8, 0, 3),
+                 (4, 32, 16, 4, 1, 3), (4, 64, 16, 16, 1, 2),
+                 (3, 48, 16, 16, 1, 3), (1, 32, 8, 32, 1, 4),
+                 (1, 32, 16, 32, 1, 2))
+NS2D_KEYS = ("R", "TX", "TY", "WX", "PAD", "BLOCKS")
 MATVEC_GROUP = (4, 8, 16)
 MATVEC_TURN_BYTES = (32, 64, 128)
 
@@ -230,30 +247,102 @@ def sweep_ns3d(libs):
     return good
 
 
+def sweep_ns2d(libs):
+    """libs: {variant tuple: library}."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels.ns2d import _constants
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    cfg = pkg.Config.load(FINE)
+    grid = pkg.build_grid(cfg)
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    st = pkg.initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
+                              device="cuda")
+    rng = np.random.default_rng(SEED)
+    fluid = st.node_type == pkg.FLUID
+    st.rho = torch.where(fluid, st.rho + seeded(rng, kit.shape, 0.01), st.rho)
+    st.vel = torch.where(fluid[..., None],
+                         st.vel + seeded(rng, st.vel.shape, 0.02 * cfg.U_in),
+                         st.vel)
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    twin = kernels.ns2d_plain(*args)
+    consts = _constants(kit)
+    rho_out, vel_out = torch.empty_like(st.rho), torch.empty_like(st.vel)
+    z = torch.empty_like(st.vel)
+
+    def other():
+        torch.add(st.vel, st.vel, out=z)
+
+    def wrapper():
+        return kernels.ns2d(*args)
+    print(f"[ns2d] {grid.N_total} nodes, S={kit.S}; the port's wrapper (the "
+          f"sources' defaults): {median_ms(wrapper, 20):.4f} ms back to back, "
+          f"{apart_ms(wrapper, other):.4f} ms behind another kernel")
+    good = True
+    for variant, lib in libs.items():
+        geo = kernels.ns2d_geometry(lib)
+        tab = kernels.ns2d_tables(kit, geo.pitch)
+        tiles, busy, staged, halo = kernels.ns2d_staging(kit, st.node_type,
+                                                         geo)
+
+        def fn():
+            rc = lib.pd_ns2d(
+                ptr(st.rho), ptr(st.vel), ptr(p), ptr(st.node_type), ptr(dt),
+                ptr(tab.offsets), ptr(tab.coefs), ptr(tab.runs), kit.S,
+                tab.runs.shape[0], *kit.shape, *consts, ptr(rho_out),
+                ptr(vel_out), 0, stream(st.rho))
+            assert rc == 0, rc
+        rho_out.zero_()
+        vel_out.zero_()
+        fn()
+        torch.cuda.synchronize()
+        same = torch.equal(rho_out, twin[0]) and torch.equal(vel_out, twin[1])
+        good &= same
+        print(f"[ns2d]   {dict(zip(NS2D_KEYS, variant))}: tile {geo.tx} x "
+              f"{geo.ty}, {geo.threads} threads, "
+              f"{geo.tile_bytes / 1e3:.1f} KB, {busy} of {tiles} tiles busy, "
+              f"halo factor {halo:.2f}, {staged / 1e6:.2f} MB staged: "
+              f"{median_ms(fn, 20):.4f} ms back to back, "
+              f"{apart_ms(fn, other):.4f} ms behind another kernel, "
+              f"bit-equal {same}")
+    return good
+
+
 def sweep_matvec3d(libs):
     """libs: {(group, turn bytes): library}."""
     _, grid, kit, st = flagship_state(SEED + 3)
     op = ai.assemble(st, kit)
+    W = ai._dense_operator(st, kit, 0.0)[0]   # the card's op keeps none
     x = torch.tensor(np.random.default_rng(SEED + 4).random(kit.shape),
                      dtype=torch.float32, device="cuda")
+    x64 = x.double()
     y = torch.empty_like(x)
-    twins = {dtype: kernels.matvec3d_plain(x, op.W.to(dtype), op.diag,
+    y64 = torch.empty_like(x64)
+    twins = {dtype: kernels.matvec3d_plain(x, W.to(dtype), op.diag,
                                            op.unknown, kit)
              for dtype in (torch.float32, torch.bfloat16)}
+    twin64 = kernels.slots3d_f64_plain(x64, W, kit)
     ok = True
     z = torch.empty_like(x)
 
     def other():
         torch.add(x, x, out=z)
-    for W, name in ((op.packed, "f32"), (op.W16, "bf16")):
+    for packed, name in ((op.packed, "f32"), (op.W16, "bf16")):
         def wrapper():
-            return kernels.matvec3d(x, W, op.diag, op.unknown, kit)
+            return kernels.matvec3d(x, packed, op.diag, op.unknown, kit)
         print(f"[matvec3d] the port's wrapper (the sources' defaults, group "
-              f"{W.group}), {name}: {median_ms(wrapper, 10):.4f} ms back to "
-              f"back, {apart_ms(wrapper, other):.4f} ms behind another "
-              f"kernel")
+              f"{packed.group}), {name}: {median_ms(wrapper, 10):.4f} ms "
+              f"back to back, {apart_ms(wrapper, other):.4f} ms behind "
+              f"another kernel")
+
+    def slots_wrapper():
+        return kernels.slots3d_f64(x64, op.packed, kit)
+    print(f"[matvec3d] the port's slots3d_f64 wrapper: "
+          f"{median_ms(slots_wrapper, 10):.4f} ms back to back, "
+          f"{apart_ms(slots_wrapper, other):.4f} ms behind another kernel")
     for group in sorted({g for g, _ in libs}):
-        p32 = kernels.pack_stencil(op.W, op.unknown, kit, group)
+        p32 = kernels.pack_stencil(W, op.unknown, kit, group)
         print(f"[matvec3d] group {group}: {grid.N_total} nodes, S={kit.S}, "
               f"{p32.nnz} nonzero weights, {p32.values.numel()} stored")
         for packed, entry in ((p32, "pd_matvec3d_f32"),
@@ -278,6 +367,25 @@ def sweep_matvec3d(libs):
                       f"{turn:3d}: {median_ms(fn, 10):.4f} ms back to back, "
                       f"{apart_ms(fn, other):.4f} ms behind another kernel, "
                       f"bit-equal {same}")
+        for (g, turn), lib in libs.items():
+            if g != group:
+                continue
+
+            def fn():
+                rc = lib.pd_slots3d_f64(
+                    ptr(x64), ptr(p32.values), ptr(p32.slots),
+                    ptr(p32.count), ptr(p32.slice_ptr), ptr(kit.slot_offsets),
+                    kit.S, *kit.shape, group, ptr(y64), 0, stream(x64))
+                assert rc == 0, rc
+            y64.zero_()
+            fn()
+            torch.cuda.synchronize()
+            same = torch.equal(y64, twin64)
+            ok &= same
+            print(f"[matvec3d]   pd_slots3d_f64 group {group:2d} turn bytes "
+                  f"{turn:3d}: {median_ms(fn, 10):.4f} ms back to back, "
+                  f"{apart_ms(fn, other):.4f} ms behind another kernel, "
+                  f"bit-equal {same}")
     return ok
 
 
@@ -298,7 +406,7 @@ def main():
     if not torch.cuda.is_available():
         print("sweep_kernels_torch: needs a CUDA device", file=sys.stderr)
         return 1
-    what = sys.argv[1:] or ["axpy", "dots", "matvec3d", "ns3d"]
+    what = sys.argv[1:] or ["axpy", "dots", "matvec3d", "ns3d", "ns2d"]
     print(f"[sweep] {torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{nvidia_smi()}")
     ok = True
@@ -322,13 +430,20 @@ def main():
         for v, lib in libs.items():
             print_registers(" ".join(map(str, v)), lib.log, "ns3d_kernel")
         ok &= sweep_ns3d({v: lib.lib for v, lib in libs.items()})
+    if "ns2d" in what:
+        libs = {v: build_library([f"PD_NS2D_{k}={x}"
+                                  for k, x in zip(NS2D_KEYS, v)])
+                for v in NS2D_VARIANTS}
+        for v, lib in libs.items():
+            print_registers(" ".join(map(str, v)), lib.log, "ns2d_kernel")
+        ok &= sweep_ns2d({v: lib.lib for v, lib in libs.items()})
     if "matvec3d" in what:
         libs = {(g, t): build_library([f"PD_MATVEC3D_GROUP={g}",
                                        f"PD_MATVEC3D_TURN_BYTES={t}"])
                 for g in MATVEC_GROUP for t in MATVEC_TURN_BYTES}
         for (g, t), lib in libs.items():
             print_registers(f"group {g} turn bytes {t}", lib.log,
-                            "matvec3d_kernel")
+                            "stencil_kernel")
         ok &= sweep_matvec3d({k: lib.lib for k, lib in libs.items()})
     print(f"[sweep] {'ok' if ok else 'FAILED: a variant differs from its twin'}")
     return 0 if ok else 1

@@ -67,6 +67,58 @@ def test_ns2d_equals_plain(setup):
     assert torch.equal(r1, rp) and torch.equal(v1, vp)
 
 
+def _ns2d_case(cfg, seed, outside_patch):
+    """(args of ns2d, kit) on cfg's grid: FLUID rho and vel perturbed from
+    ``seed``; with ``outside_patch`` a block of nodes across the tube set
+    OUTSIDE (finite values: the twin multiplies them by 0)."""
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    st = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(seed)
+    fluid = st.node_type == 0
+    rho = torch.where(fluid, st.rho + torch.tensor(
+        rng.normal(0, 0.01, kit.shape), dtype=torch.float32, device="cuda"),
+        st.rho)
+    vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.02 * cfg.U_in, st.vel.shape), dtype=torch.float32,
+        device="cuda"), st.vel)
+    nt = st.node_type.clone()
+    if outside_patch:
+        ny, nx = kit.shape
+        nt[ny // 3:ny // 3 + 7, nx // 4:nx // 2] = 5
+    p = ns.tait_pressure(rho, kit)
+    dt = ns.compute_dt(dataclasses.replace(st, rho=rho, vel=vel), kit)
+    return (rho, vel, p, nt, dt, kit), kit
+
+
+@pytest.mark.parametrize("case", ["fine_calibration", "parity_outside"])
+def test_ns2d_bit_equal_on_grids_that_are_no_multiple_of_its_tile(case):
+    """The fine-calibration grid (567 x 347) and parity.cfg (51 x 39) with
+    a block of OUTSIDE nodes: neither is a multiple of the tile. Equal to
+    the twin and to the staged walk in PyTorch bit for bit, every node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    if case == "fine_calibration":
+        cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                       "config",
+                                       "params_fine_calibration.cfg"))
+    else:
+        cfg = Config.load(PARITY)
+        cfg.precision = "f32"
+        cfg.compute_derived()
+    args, kit = _ns2d_case(cfg, 13, case == "parity_outside")
+    geo = kernels.ns2d_geometry()
+    assert any(n % t for n, t in zip(kit.shape, (geo.ty, geo.tx)))
+    assert (case == "parity_outside") == bool((args[3] == 5).any())
+    r1, v1 = kernels.ns2d(*args)
+    r2, v2 = kernels.ns2d(*args)
+    rp, vp = kernels.ns2d_plain(*args)
+    rs, vs = kernels.ns2d_staged_plain(*args, R=geo.r)
+    assert bool(torch.isfinite(r1).all()) and bool(torch.isfinite(v1).all())
+    for a, b in ((r1, r2), (v1, v2), (r1, rp), (v1, vp), (r1, rs), (v1, vs)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
 def test_matvec2d_equals_plain(setup):
     kit, st = setup
     op = ai.assemble(st, kit)
@@ -290,10 +342,16 @@ def test_ns3d_on_grids_that_are_no_multiple_of_its_tile(extra):
         assert torch.equal(_bits(a), _bits(b))
 
 
-def _matvec3d_against_twin(kit, op, weights, seed):
-    """The packed kernel against the dense twin (whose bf16 weights are a
-    copy made here; the operator keeps none on the card)."""
-    assert op.packed.dtype == torch.float32
+def _dense_W(st, kit):
+    """The dense f32 weights of st's operator, for the twins: the card's
+    operator keeps only the packed ones."""
+    return ai._dense_operator(st, kit, 0.0)[0]
+
+
+def _matvec3d_against_twin(kit, op, W, weights, seed):
+    """The packed kernel against the dense twin on W (the operator's dense
+    weights, made for the check; its bf16 weights a copy made here)."""
+    assert op.W is None and op.packed.dtype == torch.float32
     assert op.W16.dtype == torch.bfloat16
     assert op.W16.slots is op.packed.slots
     packed = op.packed if weights == torch.float32 else op.W16
@@ -303,7 +361,7 @@ def _matvec3d_against_twin(kit, op, weights, seed):
     n0 = getattr(kernels.matvec3d, counter)
     y = kernels.matvec3d(x, packed, op.diag, op.unknown, kit)
     assert getattr(kernels.matvec3d, counter) == n0 + 1
-    yp = kernels.matvec3d_plain(x, op.W.to(weights), op.diag, op.unknown, kit)
+    yp = kernels.matvec3d_plain(x, W.to(weights), op.diag, op.unknown, kit)
     assert (y - yp).abs().max() <= 1e-5 * yp.abs().max()
     assert torch.equal(y, yp)
     assert torch.equal(y, kernels.matvec3d(x, packed, op.diag, op.unknown,
@@ -315,20 +373,21 @@ def _matvec3d_against_twin(kit, op, weights, seed):
 @pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
 def test_matvec3d_equals_plain(setup3d, weights):
     kit, st = setup3d
-    op = ai.assemble(st, kit)
-    _matvec3d_against_twin(kit, op, weights, 5)
+    op, W = ai.assemble(st, kit), _dense_W(st, kit)
+    _matvec3d_against_twin(kit, op, W, weights, 5)
     # (assemble gives bonds that leave the grid a zero weight)
     assert torch.equal(kernels.unpack_stencil(op.packed, kit),
-                       torch.where(op.unknown, op.W, 0.0))
+                       torch.where(op.unknown, W, 0.0))
     # dense weights are refused on the card
     x = torch.zeros(kit.shape, device="cuda")
     with pytest.raises(TypeError):
-        kernels.matvec3d(x, op.W, op.diag, op.unknown, kit)
+        kernels.matvec3d(x, W, op.diag, op.unknown, kit)
 
 
-@pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
-def test_matvec3d_equals_plain_at_the_flagship_shape(weights):
-    """config/params_3d.cfg (1,055,668 nodes, S = 178), seeded velocity."""
+@pytest.fixture(scope="module")
+def flagship():
+    """config/params_3d.cfg (1,055,668 nodes, S = 178) on the card, seeded
+    velocity: (kit, its assembled operator, the dense f32 weights)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
     cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
@@ -340,26 +399,58 @@ def test_matvec3d_equals_plain_at_the_flagship_shape(weights):
     st.vel = torch.where((st.node_type == 0)[..., None], st.vel + torch.tensor(
         rng.normal(0, 0.02 * cfg.U_in, st.vel.shape), dtype=torch.float32,
         device="cuda"), st.vel)
-    op = ai.assemble(st, kit)
+    return kit, ai.assemble(st, kit), _dense_W(st, kit)
+
+
+@pytest.mark.parametrize("weights", [torch.float32, torch.bfloat16])
+def test_matvec3d_equals_plain_at_the_flagship_shape(flagship, weights):
+    kit, op, W = flagship
     assert 0.3 < op.packed.nnz / float(op.unknown.sum() * kit.S) < 0.9
-    _matvec3d_against_twin(kit, op, weights, 8)
+    _matvec3d_against_twin(kit, op, W, weights, 8)
+
+
+def _slots3d_against_twin(kit, op, W, seed):
+    """The packed f64 slot sum against the dense twin, an x of both signs
+    with exact zeros: bit for bit, one counted launch a call."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=kit.shape) * (rng.random(kit.shape)
+                                                   > 0.1),
+                     dtype=torch.float64, device="cuda")
+    n0 = kernels.slots3d_f64.launches
+    y = kernels.slots3d_f64(x, op.packed, kit)
+    assert kernels.slots3d_f64.launches == n0 + 1
+    yp = kernels.slots3d_f64_plain(x, W, kit)
+    assert y.dtype == torch.float64
+    assert (y - yp).abs().max() <= 1e-14 * yp.abs().max()
+    assert torch.equal(_bits64(y), _bits64(yp))
+    assert torch.equal(y, kernels.slots3d_f64(x, op.packed, kit))
+    assert not y[~op.unknown].any()
+    return x
+
+
+def _bits64(t):
+    return t.contiguous().view(torch.int64)
 
 
 def test_slots3d_f64_equals_plain(setup3d):
     kit, st = setup3d
-    op = ai.assemble(st, kit)
-    x = torch.tensor(np.random.default_rng(6).random(kit.shape),
-                     dtype=torch.float64, device="cuda")
-    y = kernels.slots3d_f64(x, op.W, kit)
-    yp = kernels.slots3d_f64_plain(x, op.W, kit)
-    assert y.dtype == torch.float64
-    assert (y - yp).abs().max() <= 1e-14 * yp.abs().max()
-    assert torch.equal(y, yp)
+    op, W = ai.assemble(st, kit), _dense_W(st, kit)
+    x = _slots3d_against_twin(kit, op, W, 6)
+    # the kernel takes the packed f32 weights and an f64 x only
     with pytest.raises(TypeError):
-        kernels.slots3d_f64(x.float(), op.W, kit)
+        kernels.slots3d_f64(x, W, kit)
+    with pytest.raises(TypeError):
+        kernels.slots3d_f64(x.float(), op.packed, kit)
+    with pytest.raises(TypeError):
+        kernels.slots3d_f64(x, op.W16, kit)
     with pytest.raises(TypeError):
         kernels.matvec3d(x.float(), op.packed.to(torch.float64), op.diag,
                          op.unknown, kit)
+
+
+def test_slots3d_f64_equals_plain_at_the_flagship_shape(flagship):
+    kit, op, W = flagship
+    _slots3d_against_twin(kit, op, W, 9)
 
 
 def test_implicit_step_3d_on_the_card(setup3d):
@@ -367,6 +458,7 @@ def test_implicit_step_3d_on_the_card(setup3d):
     the CPU (plain twins): both solve to the f32 tolerance."""
     kit, st = setup3d
     op = ai.assemble(st, kit)
+    assert op.W is None      # every sum of the step reads the packed weights
     n0 = {k: getattr(kernels, k).launches
           for k in ("matvec3d", "slots3d_f64", "basis_dots")}
     s_gpu, res = ai.implicit_step(st, op, kit, 60.0)

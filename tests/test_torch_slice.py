@@ -20,7 +20,7 @@ from pd_mg_pin_corrosion_tpu.coupling import CoupledSolver as JSolver
 from pd_mg_pin_corrosion_tpu.io_vtk import VTKWriter as JWriter
 from pd_mg_pin_corrosion_tpu_torch import Config as TConfig
 from pd_mg_pin_corrosion_tpu_torch import build_grid as t_build_grid
-from pd_mg_pin_corrosion_tpu_torch import cli, state_from_numpy
+from pd_mg_pin_corrosion_tpu_torch import cli, coupling, state_from_numpy
 from pd_mg_pin_corrosion_tpu_torch.io_vtk import VTKWriter as TWriter
 
 torch.set_num_threads(2)
@@ -94,6 +94,37 @@ def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
         cli.run(args + ["--device", "cpu"])
     assert cli.main(args + ["--device=cpu"]) == 1
     assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_cli_names_the_flow_warm_start_item(tmp_path):
+    """The refusal points at the item that ports the warm start (it runs on
+    uniform grids too), not at block AMR."""
+    with pytest.raises(NotImplementedError,
+                       match="port order: 'flow_warm_start'"):
+        cli.run([PARITY, f"output_dir={tmp_path}", "flow_warm_start=2",
+                 "--device", "cpu"])
+
+
+def test_run_flushes_the_flow_writer_with_the_state_writer(tmp_path,
+                                                           monkeypatch):
+    """Both writers are flushed before each checkpoint and at exit: one
+    cycle (T_final = 1.2 s), a flow snapshot, a checkpoint, binary VTI."""
+    flushed = []
+
+    class Counting(TWriter):
+        def flush(self):
+            flushed.append(self)
+            super().flush()
+
+    monkeypatch.setattr(coupling, "VTKWriter", Counting)
+    solver, rows = _run_port(tmp_path, [
+        "precision=f32", "flow_max_iters=30", "T_final=1.2",
+        "checkpoint_every=1", "vtk_binary=1"])
+    assert solver.cycles == 1 and len(rows) == 2
+    assert {"flow.pvd", "checkpoint.npz"} <= set(os.listdir(tmp_path))
+    # (the state writer also joins its last write before each new one)
+    assert sum(w is solver.flow_writer for w in flushed) == 2
+    assert sum(w is solver.writer for w in flushed) >= 2
 
 
 def test_cli_without_cuda_fails_unless_cpu_is_asked(monkeypatch, tmp_path, capsys):
