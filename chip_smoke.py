@@ -18,8 +18,10 @@ argument all of them run, in this order):
    over the HBM rate or flops over the peak rate, whichever is larger) and
    the time of one PyTorch library call that computes the same function,
    where there is one (LIBRARY); basis_dots must be one device kernel a
-   call (counted in a torch.profiler window); ns2d's tile, staged bytes,
-   halo factor, unfused issue floor and time behind another kernel.
+   call (counted in a torch.profiler window); ns2d's and ard2d's tile,
+   staged bytes, halo factor, unfused issue floor and time behind another
+   kernel; ard2d bit-equal to its twin on seeded C with salt-blocked SOLID
+   nodes.
 3. ``kernels3d``, 3D kernel vs plain at the flagship shape: ns3d, matvec3d
    (packed f32 and bf16 weights against the dense twin; the packing's
    nonzero count, padding, bytes and time on a line of its own),
@@ -29,14 +31,16 @@ argument all of them run, in this order):
    (basis_dots also on its first 13 rows and as the k = 1 self-dot), ns3d's
    staged bytes and halo factor, and the four forms of
    ns3d_chunked.cu (chunked XLA / factored / jconv, and j-static; NCHUNK 6,
-   BZ 16), each also against ns3d at the script's gate, on
+   BZ 16), each bit-equal to its twin and against ns3d at the script's
+   gate, with its tile, staged bytes, unfused issue floor and time behind
+   another kernel, on
    config/params_3d.cfg's 157 x 82 x 82 = 1,055,668-node grid (S = 178)
    with a real Kit, seeded State and its assembled operator (which keeps
    no dense W on the card: the twins get one built for them); the same
    checks and numbers.
 4. ``ladder``, the chunked / j-static kernels' main path:
    scripts/exp_ns3d_chunked_torch.py's ladder (every rung checked against
-   ns3d and timed) on the flagship grid.
+   ns3d and timed, each rung's BZ -> tile printed) on the flagship grid.
 5. ``main``, 2D main path: ``cli.run`` on params_fine_calibration.cfg at
    full size on CUDA, capped by MAIN_CAPS; checks the run and that the 2D
    path's four kernels launched in it.
@@ -66,6 +70,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -522,11 +527,31 @@ def phase_kernels(pkg):
     print(f"[kernels] ard2d inputs: {int(salt.sum())} of {int(solid.sum())} "
           f"SOLID nodes salt-blocked, dt {dt_corr:.4e} s; bonds: "
           + ", ".join(f"{k} {int(v.sum())}" for k, v in counts.items()))
-    record("ard2d", err, torch.equal(cn, cp) or torch.allclose(
-        cn, cp, rtol=1e-6, atol=0.0),
-           lambda: (kernels.ard2d(*ard),), lambda: kernels.ard2d_plain(*ard),
-           "rtol 1e-6", 26 * n, flops)
     print(f"[kernels] ard2d bit-equal to its plain twin: {torch.equal(cn, cp)}")
+    record("ard2d", err, torch.equal(cn, cp),
+           lambda: (kernels.ard2d(*ard),), lambda: kernels.ard2d_plain(*ard),
+           "bit-equal", 26 * n, flops)
+    geo = kernels.ard2d_geometry()
+    tiles, busy, staged, halo = kernels.ard2d_staging(kit, st.node_type, geo)
+    issue_ms = 1e3 * flops / (
+        128 * torch.cuda.get_device_properties(0).multi_processor_count
+        * 1e6 * torch.cuda.clock_rate())
+    other = torch.empty_like(st.vel)
+    apart = apart_ms(lambda: kernels.ard2d(*ard),
+                     lambda: torch.add(st.vel, st.vel, out=other))
+    del other
+    print(f"[kernels] ard2d tile {geo.tx} x {geo.ty} (x, y), {geo.r} x nodes "
+          f"a thread, {geo.threads} threads, {geo.tile_bytes / 1e3:.1f} KB of "
+          f"staged fields a block: {busy} of {tiles} tiles hold a FLUID or "
+          f"SOLID node and stage {geo.staged} positions each ({halo:.2f} per "
+          f"node of the tile, C, |v|, Ds, node_type and salt): "
+          f"{staged / 1e6:.2f} MB a launch from L2 / HBM; behind another "
+          f"kernel (an elementwise add), one call at a time: {apart:.4f} ms; "
+          f"its flops as unfused instructions would take {issue_ms:.4f} ms "
+          f"of issue slots at {torch.cuda.clock_rate()} MHz ("
+          f"{100 * issue_ms / results['ard2d']['ms']:.1f} % of the kernel's "
+          f"time back to back, {100 * issue_ms / apart:.1f} % behind "
+          f"another kernel)")
     return results
 
 
@@ -658,22 +683,42 @@ def phase_kernels3d(pkg):
                                                   factored=form)
         (r, v), (rp, vp) = fn(), plain()
         torch.cuda.synchronize()
-        ok = (torch.allclose(r, rp, rtol=1e-6, atol=0.0)
-              and torch.allclose(v, vp, rtol=1e-4, atol=1e-9))
+        ok = torch.equal(r, rp) and torch.equal(v, vp)
         err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
         gate = max(float((r - r0).abs().max() / r0.abs().max()),
                    float((v - v0).abs().max() / v0.abs().max()))
-        print(f"[kernels3d] {name} bit-equal to its plain twin: "
-              f"{torch.equal(r, rp) and torch.equal(v, vp)}; max rel diff "
-              f"vs ns3d {gate:.2e} (gate 1e-4)")
+        print(f"[kernels3d] {name} bit-equal to its plain twin: {ok}; max rel "
+              f"diff vs ns3d {gate:.2e} (gate 1e-4)")
         if gate > 1e-4:
             fail(f"{name}: differs from ns3d by {gate:.2e} (gate 1e-4)")
         del r, v, rp, vp
         per_bond, per_node, n_acc = flop_counts[name]
-        record(name, err, ok, fn, plain,
-               "rho rtol 1e-6, v rtol 1e-4 atol 1e-9",
-               (53 if form == "jstat" else 37) * n,
-               per_bond * act + (per_node + 6 * n_acc) * n_fluid)
+        flops = per_bond * act + (per_node + 6 * n_acc) * n_fluid
+        record(name, err, ok, fn, plain, "bit-equal",
+               (53 if form == "jstat" else 37) * n, flops)
+        geo = kernels.ns3d_chunked_geometry(
+            {False: "xla", True: "factored"}.get(form, form), 16)
+        tiles, busy, staged, halo = kernels.ns3d_staging(kit, st.node_type,
+                                                         geo)
+        issue_ms = 1e3 * flops / (
+            128 * torch.cuda.get_device_properties(0).multi_processor_count
+            * 1e6 * torch.cuda.clock_rate())
+        other = torch.empty_like(st.vel)
+        apart = apart_ms(fn, lambda: torch.add(st.vel, st.vel, out=other))
+        del other
+        ms = results[name]["ms"]
+        print(f"[kernels3d] {name} at BZ 16: tile {geo.tx} x {geo.ty} x "
+              f"{geo.tz} (x, y, z), {geo.r} z nodes a thread, {geo.threads} "
+              f"threads, {geo.tile_bytes / 1e3:.1f} KB of staged fields a "
+              f"block: {busy} of {tiles} tiles hold a FLUID node and stage "
+              f"{geo.staged} positions each ({halo:.2f} per node of the "
+              f"tile): {staged / 1e6:.1f} MB a launch from L2 / HBM; behind "
+              f"another kernel (an elementwise add), one call at a time: "
+              f"{apart:.4f} ms; its flops as unfused instructions would take "
+              f"{issue_ms:.4f} ms of issue slots at "
+              f"{torch.cuda.clock_rate()} MHz ({100 * issue_ms / ms:.1f} % of "
+              f"the kernel's time back to back, {100 * issue_ms / apart:.1f} "
+              f"% behind another kernel)")
     del r0, v0, actconv
 
     # matvec3d on the operator of this state, packed f32 and bf16 weights
@@ -1102,7 +1147,7 @@ def phase_explicit(tmp):
     explicit_chunk(st, kit, dt, vol, n)
     with open(os.path.join(out_dir, "profile.txt"), "w") as out:
         prof.window("explicit", lambda: explicit_chunk(st, kit, dt, vol, n),
-                    n, out)
+                    n, out, show=("ard2d",))
     return counts
 
 
@@ -1146,6 +1191,29 @@ def phase_parity(tmp):
                  f"disagree")
 
 
+def kernel_label(line):
+    """The kernel's name and template arguments (integers, bools and the
+    f32 / f64 / bf16 types) from the mangled name in a ptxas line: the
+    length-prefixed name after its namespace's, if it has one."""
+    types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+    m = re.search(r"_Z(N?)(\d+)", line)
+    if m is None:
+        return line.strip()
+    at, size = m.end(), int(m.group(2))
+    if m.group(1):                  # a nested name: skip the namespace
+        at += size
+        n = re.match(r"\d+", line[at:])
+        if n is None:
+            return line.strip()
+        at, size = at + n.end(), int(n.group())
+    name = line[at:at + size]
+    targs = re.match(r"I((?:L[bi]\d+E|13__nv_bfloat16|[fd])+)E",
+                     line[at + size:])
+    args = re.findall(r"L[bi](\d+)E|(13__nv_bfloat16|[fd])",
+                      targs.group(1) if targs else "")
+    return " ".join([name] + [v or types[t] for v, t in args])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -1171,9 +1239,12 @@ def main():
     lib = build.load()
     print(f"[device] kernels {'built' if lib.built else 'loaded'} in "
           f"{lib.seconds:.2f} s: {lib.path}")
+    entry = ""
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = kernel_label(line)
+        elif "registers" in line or "spill" in line:
+            print(f"[ptxas] {entry}: {line.strip()}")
 
     measured, counts = {}, {}
     if "kernels" in phases:

@@ -19,6 +19,8 @@ import time
 
 import torch
 
+from .fields import DeviceUnavailable
+
 # configurations the port does not run yet, with the ROADMAP item that adds them
 _UNSUPPORTED = (
     (lambda c: c.use_amr, "use_amr = 1", "block AMR"),
@@ -32,10 +34,6 @@ _UNSUPPORTED = (
     (lambda c: c.dim == 3 and c.wall_mirror_subcell,
      "wall_mirror_subcell = 1", "wall_mirror_subcell"),
 )
-
-
-class DeviceUnavailable(RuntimeError):
-    pass
 
 
 def check_supported(cfg) -> None:

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .ard2d import ard2d, ard2d_plain
+from .ard2d import (ard2d, ard2d_geometry, ard2d_plain, ard2d_staged_plain,
+                    ard2d_staging)
 from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
                     basis_dots_plain, basis_dots_walk_plain, dots_grid,
                     pitched_basis)
@@ -26,8 +27,10 @@ from .ns2d import (Ns2dTables, ns2d, ns2d_geometry, ns2d_plain,
                    ns2d_staged_plain, ns2d_staging, ns2d_tables)
 from .ns3d import (Ns3dTables, ns3d, ns3d_geometry, ns3d_plain,
                    ns3d_staged_plain, ns3d_staging, ns3d_tables)
-from .ns3d_chunked import (compute_actconv, group_chunks, ns3d_chunked,
-                           ns3d_chunked_plain, ns3d_jstat, ns3d_jstat_plain)
+from .ns3d_chunked import (BZ_RUNGS, Ns3dChunkedTables, compute_actconv,
+                           group_chunks, ns3d_chunked, ns3d_chunked_geometry,
+                           ns3d_chunked_plain, ns3d_chunked_staged_plain,
+                           ns3d_chunked_tables, ns3d_jstat, ns3d_jstat_plain)
 
 
 @dataclass(frozen=True)

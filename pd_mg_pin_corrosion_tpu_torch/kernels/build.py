@@ -93,12 +93,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_basis_axpy.argtypes = [vp, vp, i64, vp, i32, i64, i32, i32, vp,
                                   i32, vp]
     lib.pd_ard2d.restype = i32
-    lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp, vp, i32, i32,
-                             i32, f32, f32, f32, f32, f32, f32, vp, i32, vp]
+    lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp, vp, vp, i32,
+                             i32, i32, i32, f32, f32, f32, f32, f32, f32, vp,
+                             i32, vp]
+    lib.pd_ard2d_geometry.restype = None
+    lib.pd_ard2d_geometry.argtypes = [ctypes.POINTER(ctypes.c_int * 8)]
     lib.pd_ns3d_chunked.restype = i32
     lib.pd_ns3d_chunked.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                    i32, i32, i32, i32, i32, i32, f32, f32,
-                                    f32, f32, f32, vp, vp, i32, vp]
+                                    vp, i32, i32, i32, i32, i32, i32, i32,
+                                    f32, f32, f32, f32, f32, vp, vp, i32, vp]
+    lib.pd_ns3d_chunked_geometry.restype = i32
+    lib.pd_ns3d_chunked_geometry.argtypes = [
+        i32, i32, ctypes.POINTER(ctypes.c_int * 10)]
     lib.pd_cuda_error_string.restype = ctypes.c_char_p
     lib.pd_cuda_error_string.argtypes = [i32]
 

@@ -266,12 +266,18 @@ def ns2d_staging(kit: Kit, node_type, geo: Ns2dGeometry | None = None):
     node_type byte (17 bytes); the halo factor is staged positions per node
     of those tiles."""
     geo = geo or ns2d_geometry()
-    ny, nx = kit.shape
-    fl = F.pad(node_type == FLUID, (0, -nx % geo.tx, 0, -ny % geo.ty))
-    gy, gx = fl.shape[0] // geo.ty, fl.shape[1] // geo.tx
-    busy = int(fl.view(gy, geo.ty, gx, geo.tx).any(3).any(1).sum())
-    return (gy * gx, busy, busy * geo.staged * 17,
+    tiles, busy = busy_tiles(node_type == FLUID, geo)
+    return (tiles, busy, busy * geo.staged * 17,
             geo.staged / (geo.tx * geo.ty))
+
+
+def busy_tiles(mask, geo: Ns2dGeometry) -> tuple[int, int]:
+    """(tiles of a launch on ``geo``'s tile, tiles holding a node of the
+    2D bool ``mask``)."""
+    ny, nx = mask.shape
+    m = F.pad(mask, (0, -nx % geo.tx, 0, -ny % geo.ty))
+    gy, gx = m.shape[0] // geo.ty, m.shape[1] // geo.tx
+    return gy * gx, int(m.view(gy, geo.ty, gx, geo.tx).any(3).any(1).sum())
 
 
 def ns2d(rho, vel, p, node_type, dt, kit: Kit):

@@ -16,27 +16,38 @@ What sets the numbers is the chunking: the (dj, di) slot groups, in
 ``kit.ns_slots`` order, split into ``nchunk`` contiguous chunks balanced by
 slot count (``group_chunks``, the script's ``_group_chunks``). Per chunk
 each accumulator starts at zero and sums the chunk's slots in order, and is
-then added into the running sum. ``bz`` is the thread block's z extent (the
-TPU kernel's VMEM block height) and does not change the numbers. The twins
-evaluate the FLUID nodes only, over slot ranges that hold at most
-``kit.SLOT_CHUNK_ELEMS`` gathered elements, as ``ns3d_plain`` does.
+then added into the running sum. ``bz`` (8, 16 or 32) is the z extent of
+the kernel's staged tile (the TPU kernel's VMEM block height) and does not
+change the numbers. The twins evaluate the FLUID nodes only, over slot
+ranges that hold at most ``kit.SLOT_CHUNK_ELEMS`` gathered elements, as
+``ns3d_plain`` does. The kernel stages masked planar tiles (and act) in
+shared memory and walks the stencil's runs along z for several nodes a
+thread, ns3d's design; ``ns3d_chunked_tables`` builds its slot table and
+``ns3d_chunked_staged_plain`` is that walk in PyTorch, equal to each form's
+twin bit for bit for finite inputs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import weakref
+from dataclasses import dataclass
 
 import torch
 
 from ..grid import FLUID, OUTSIDE
 from ..kit import Kit
 from .build import check, load, ptr, stream, use_plain
-from .ns3d import _constants
+from .ns3d import HALO, Ns3dGeometry, _constants, ns3d_tables
 
 FORMS = ("xla", "factored", "jconv", "jstat")
+# the z extents of the kernel's staged tile (the ladder's BZ rungs)
+BZ_RUNGS = (8, 16, 32)
 _FACTORED = {False: "xla", True: "factored", "jconv": "jconv"}
 _NACC = {"xla": 11, "factored": 11, "jconv": 15, "jstat": 11}
 _TABLES: "weakref.WeakKeyDictionary[Kit, dict]" = weakref.WeakKeyDictionary()
+# {kit: {(form, bz, nchunk): Ns3dChunkedTables}} for the loaded library
+_STAGED: "weakref.WeakKeyDictionary[Kit, dict]" = weakref.WeakKeyDictionary()
 
 
 def group_chunks(kit: Kit, nchunk: int):
@@ -152,7 +163,6 @@ def _terms(form, g, c, r, v, pi):
 
 
 def _plain(form, rho, vel, p, node_type, dt, kit: Kit, nchunk, actconv):
-    dens, a, visc, rho_lo, rho_hi = _constants(kit)
     rows = (node_type == FLUID).reshape(-1).nonzero().squeeze(1)
     pidx = kit.padded_index(rows)
     act = (node_type != OUTSIDE).to(rho.dtype)
@@ -182,7 +192,19 @@ def _plain(form, rho, vel, p, node_type, dt, kit: Kit, nchunk, actconv):
                 part = part + T[:, s]
         acc = acc + part
         c0 = c1
+    return _finish(form, acc, rows, rho, vel, p, dt, kit, actconv)
 
+
+def _finish(form, acc, rows, rho, vel, p, dt, kit: Kit, actconv):
+    """The update of the FLUID nodes ``rows`` (flat indices) from their
+    accumulators ``acc`` [NACC, len(rows)]: the i-side terms of the j-side
+    forms, the clamp, the copy-through of every other node."""
+    dens, a, visc, rho_lo, rho_hi = _constants(kit)
+
+    def at(f):
+        return f.reshape(-1)[rows]
+
+    r, pi, v = at(rho), at(p), [at(vel[..., d]) for d in range(3)]
     if form in ("xla", "factored"):
         mc, md = acc[0], acc[1]
         conv, pres, vis = acc[2:5], acc[5:8], acc[8:11]
@@ -225,6 +247,160 @@ def ns3d_jstat_plain(rho, vel, p, node_type, dt, kit: Kit, actconv,
     return _plain("jstat", rho, vel, p, node_type, dt, kit, nchunk, actconv)
 
 
+# ---------------------------------------------------------------------------
+# the staged form the CUDA kernel computes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Ns3dChunkedTables:
+    """The kernel's slot table for one kit, form, chunking and tile."""
+    # [S] int32: (dk + HALO) plane + (dj + HALO) pitch + di + HALO
+    offsets: torch.Tensor
+    # [S, 4] float32: vol/xi^2, e vol/xi (the XLA form [S, 8]: 1/xi,
+    # 1/xi^2, e_x, e_y, e_z, vol, 0, 0)
+    coefs: torch.Tensor
+    # [nruns, 2] int32: (first slot, length)
+    runs: torch.Tensor
+    # [nchunk] int32: the run after each chunk's last
+    chunk_end: torch.Tensor
+
+
+def ns3d_chunked_tables(kit: Kit, form: str, nchunk: int, pitch: int,
+                        plane: int) -> Ns3dChunkedTables:
+    """The slot table of csrc/ns3d_chunked.cu for one form and chunking on
+    a tile whose rows lie ``pitch`` floats apart and whose z planes
+    ``plane``: ns3d's offsets and runs (``ns3d_tables``; it refuses a
+    stencil wider than the halo), the form's coefficients from
+    ``_tables`` (each rounded once from float64), and each chunk's end as
+    a run index: a chunk is a run of whole (dj, di) groups, so each chunk
+    ends where a run does."""
+    base = ns3d_tables(kit, pitch, plane)
+    rows, ends = _tables(kit, torch.float32, nchunk)
+    rows = rows.cpu()
+    if form == "xla":
+        coefs = torch.zeros((kit.S, 8), dtype=torch.float32)
+        coefs[:, :6] = rows[[1, 2, 3, 4, 5, 0]].T
+    else:
+        coefs = rows[6:10].T.contiguous()
+    first = base.runs[:, 0].cpu().tolist() + [kit.S]
+    try:
+        chunk_end = [first.index(e) for e in ends.tolist()]
+    except ValueError:
+        raise ValueError("ns3d_chunked: a chunk ends inside a run of the "
+                         "slot table") from None
+    dev = kit.device
+    return Ns3dChunkedTables(base.offsets, coefs.to(dev), base.runs,
+                             torch.tensor(chunk_end, dtype=torch.int32,
+                                          device=dev))
+
+
+def _staged_terms(form, g, c, r, v, pi):
+    """[NACC, rows] terms of one bond in the kernel's operations: the twin's
+    (``_terms``) on the masked fields and act, but jconv's fdj act, R w2 and
+    P u taken as fdj, R c2 and P e vol/xi (equal at act 1, +-0 like them at
+    act 0 on masked fields)."""
+    if form != "jconv":
+        return _terms(form, g if form != "jstat" else g[:5], c, r, v, pi)
+    R, VX, VY, VZ, P, ACT = g
+    c2, et = c[6], c[7:10]
+    VJ = (VX, VY, VZ)
+    fdj = ((R * VX) * et[0] + (R * VY) * et[1]) + (R * VZ) * et[2]
+    return torch.stack([fdj, R * c2, c2 * ACT, *(et[d] * ACT for d in range(3)),
+                        *(VJ[d] * fdj for d in range(3)),
+                        *(P * et[d] for d in range(3)),
+                        *(VJ[d] * c2 for d in range(3))])
+
+
+def ns3d_chunked_staged_plain(form, rho, vel, p, node_type, dt, kit: Kit,
+                              nchunk=6, actconv=None, R: int = 2, tile=None):
+    """The result of the twin of ``form`` ("xla", "factored", "jconv" or
+    "jstat"; jstat takes ``actconv``) by the CUDA kernel's walk, in PyTorch:
+    tiles of ``tile`` = (tz, ty, tx) nodes (default: one tile that holds the
+    grid; tz a multiple of R), each staged with its halo of HALO as five
+    fields masked by a select on node_type and the act plane, zero-filled
+    off the grid; the kernel's table (``ns3d_chunked_tables``); and a
+    thread per (y, x) column and R consecutive z of a tile that walks every
+    run along z, chunk by chunk: element e of the run's column serves node
+    q under slot first + e - q, each chunk's partial sums start at 0 and
+    are added into the running sums after its last run. Each node adds its
+    terms in slot order, so the result equals the form's twin bit for bit
+    for finite inputs."""
+    nz, ny, nx = kit.shape
+    tz, ty, tx = tile or (-(-nz // R) * R, ny, nx)
+    if tz % R:
+        raise ValueError(f"ns3d_chunked_staged_plain: tile depth {tz} is not "
+                         f"a multiple of R={R}")
+    gz, gy, gx = -(-nz // tz), -(-ny // ty), -(-nx // tx)
+    ez, ey, ex = tz + 2 * HALO, ty + 2 * HALO, tx + 2 * HALO
+    pitch, plane = ex, ex * ey
+    tab = ns3d_chunked_tables(kit, form, nchunk, pitch, plane)
+    act = node_type != OUTSIDE
+    fields = [torch.where(act, f, 0.0) for f in
+              (rho, vel[..., 0], vel[..., 1], vel[..., 2], p)]
+    pad = (HALO, HALO + gx * tx - nx, HALO, HALO + gy * ty - ny, HALO,
+           HALO + gz * tz - nz)
+    planes = [torch.nn.functional.pad(f, pad).unfold(0, ez, tz)
+              .unfold(1, ey, ty).unfold(2, ex, tx).reshape(gz * gy * gx, -1)
+              for f in fields + [act.to(rho.dtype)]]
+    fluid = torch.nn.functional.pad(node_type == FLUID, (
+        0, gx * tx - nx, 0, gy * ty - ny, 0, gz * tz - nz)).view(
+            gz, tz // R, R, gy, ty, gx, tx).permute(0, 3, 5, 1, 4, 6, 2)
+    # threads with a FLUID node among their R: (tile, z thread, y, x), and
+    # the tile index of their first node less the halo
+    b_z, b_y, b_x, zt, y, x = fluid.any(-1).nonzero(as_tuple=True)
+    tile_of = (b_z * gy + b_y) * gx + b_x
+    base = zt * R * plane + y * pitch + x
+    centre = base + HALO * (plane + pitch + 1)
+    own = []
+    for q in range(R):
+        r, vx, vy, vz, pq = (f[tile_of, centre + q * plane]
+                             for f in planes[:5])
+        own.append((r, [vx, vy, vz], pq))
+    coefs = _tables(kit, rho.dtype, nchunk)[0]
+    zero = torch.zeros((_NACC[form], base.numel()), dtype=rho.dtype,
+                       device=rho.device)
+    acc, run = [zero] * R, 0
+    runs = tab.runs.tolist()
+    for end in tab.chunk_end.tolist():
+        part = [zero] * R
+        for first, length in runs[run:end]:
+            col = base[None, :] + tab.offsets[first] + torch.arange(
+                length + R - 1, device=base.device)[:, None] * plane
+            seg = [f[tile_of[None, :], col] for f in planes]
+            for t in range(length):
+                c = coefs[:, first + t]
+                for q in range(R):
+                    part[q] = part[q] + _staged_terms(
+                        form, [f[t + q] for f in seg], c, *own[q])
+        acc = [a + b for a, b in zip(acc, part)]
+        run = end
+    # the threads' FLUID nodes, as flat indices of the grid
+    q = torch.arange(R, device=base.device)[:, None]
+    k = b_z[None, :] * tz + zt[None, :] * R + q
+    mine = fluid[b_z[None, :], b_y[None, :], b_x[None, :], zt[None, :],
+                 y[None, :], x[None, :], q]
+    rows = ((k * ny + b_y[None, :] * ty + y[None, :]) * nx
+            + b_x[None, :] * tx + x[None, :])[mine]
+    return _finish(form, torch.stack(acc).permute(1, 0, 2)[:, mine], rows,
+                   rho, vel, p, dt, kit, actconv)
+
+
+def ns3d_chunked_geometry(form: str, bz: int, lib=None) -> Ns3dGeometry:
+    """The compiled kernel's tile of ``form`` at the rung ``bz``
+    (csrc/ns3d_chunked.cu pd_ns3d_chunked_geometry); ``tile_bytes`` counts
+    the five staged fields and the act bytes."""
+    if form not in FORMS or bz not in BZ_RUNGS:
+        raise ValueError(f"ns3d_chunked: no kernel for form {form!r} at BZ "
+                         f"{bz} (BZ is one of {BZ_RUNGS})")
+    out = (ctypes.c_int * 10)()
+    rc = (lib or load().lib).pd_ns3d_chunked_geometry(
+        FORMS.index(form), bz, ctypes.byref(out))
+    if rc != 0:
+        raise ValueError(f"ns3d_chunked: the library has no kernel for form "
+                         f"{form!r} at BZ {bz}")
+    return Ns3dGeometry(*out)
+
+
 def _launch(form, rho, vel, p, node_type, dt, kit: Kit, nchunk, bz,
             actconv):
     if node_type.dtype != torch.uint8 or dt.numel() != 1:
@@ -234,20 +410,26 @@ def _launch(form, rho, vel, p, node_type, dt, kit: Kit, nchunk, bz,
             or (actconv is not None and actconv.shape != (4,) + kit.shape)):
         raise ValueError(f"ns3d_{form}: shapes do not match the grid "
                          f"{kit.shape}")
-    if not (1 <= bz <= 64 and 256 % bz == 0) or not 1 <= nchunk <= 64:
-        raise ValueError(f"ns3d_{form}: bz must divide 256 and be <= 64, "
+    if bz not in BZ_RUNGS or not 1 <= nchunk <= 64:
+        raise ValueError(f"ns3d_{form}: bz must be one of {BZ_RUNGS}, "
                          f"nchunk in 1..64 (got {bz}, {nchunk})")
-    dens, a, visc, rho_lo, rho_hi = _constants(kit)
-    coefs, ends = _tables(kit, torch.float32, nchunk)
+    lib = load().lib
+    per_kit = _STAGED.setdefault(kit, {})
+    key = (form, bz, nchunk)
+    if key not in per_kit:
+        geo = ns3d_chunked_geometry(form, bz, lib)
+        per_kit[key] = ns3d_chunked_tables(kit, form, nchunk, geo.pitch,
+                                           geo.plane)
+    tab = per_kit[key]
     rho_out = torch.empty_like(rho)
     vel_out = torch.empty_like(vel)
     nz, ny, nx = kit.shape
-    rc = load().lib.pd_ns3d_chunked(
+    rc = lib.pd_ns3d_chunked(
         FORMS.index(form), ptr(rho), ptr(vel), ptr(p), ptr(node_type),
-        None if actconv is None else ptr(actconv), ptr(dt),
-        ptr(kit.ns_offsets), ptr(coefs), ptr(ends), nchunk, kit.S, nz, ny, nx,
-        bz, dens, a, visc, rho_lo, rho_hi, ptr(rho_out), ptr(vel_out),
-        rho.device.index, stream(rho))
+        None if actconv is None else ptr(actconv), ptr(dt), ptr(tab.offsets),
+        ptr(tab.coefs), ptr(tab.runs), ptr(tab.chunk_end), nchunk, kit.S,
+        tab.runs.shape[0], nz, ny, nx, bz, *_constants(kit), ptr(rho_out),
+        ptr(vel_out), rho.device.index, stream(rho))
     check(rc, f"ns3d_{form}")
     return rho_out, vel_out
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import Config, FrozenConfig
-from .fields import poiseuille_axial
+from .fields import poiseuille_axial, resolve_device
 from .grid import INLET, OUTLET, OUTSIDE, SOLID_MG, WALL, Grid
 
 PI = math.pi
@@ -200,7 +200,9 @@ def slot_sum(T: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def build_kit(grid: Grid, cfg: Config, dtype=None, device="cpu") -> Kit:
+def build_kit(grid: Grid, cfg: Config, dtype=None, device="cuda") -> Kit:
+    """The kit of ``grid`` under ``cfg``, on the card unless
+    ``device="cpu"`` (no card: DeviceUnavailable)."""
     if grid.dim == 3 and cfg.wall_mirror_subcell:
         raise NotImplementedError(
             "wall_mirror_subcell = 1 (the bilinear 3D wall mirror, "
@@ -208,7 +210,7 @@ def build_kit(grid: Grid, cfg: Config, dtype=None, device="cpu") -> Kit:
             "'wall_mirror_subcell')")
     if dtype is None:
         dtype = torch.float64 if cfg.precision == "f64" else torch.float32
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def dev(a, t=None):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device,

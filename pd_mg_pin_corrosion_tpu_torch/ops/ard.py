@@ -37,7 +37,7 @@ def compute_salt_blocked(state: State, kit: Kit) -> torch.Tensor:
 
 
 def micro_d_factor(cfg, volume_loss_fraction, dtype,
-                   device="cpu") -> torch.Tensor:
+                   device) -> torch.Tensor:
     """Volume-loss scaling of the solid micro-diffusivities: the Hermann et
     al. 2022 Eq. 42 decay 10^(-V_L/corrosion_decay_l) (pd_ard.cpp:75-79)
     times the optional acceleration extension 10^(+V_L/corrosion_accel_l)."""

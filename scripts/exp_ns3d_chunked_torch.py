@@ -14,9 +14,10 @@ events around 150 back-to-back launches on the same inputs, best of 3.
 The ladder is the JAX script's five rungs, (8, 4), (16, 4), (16, 8) and
 (32, 8) in the factored form and (16, 4) in the XLA form, plus the two
 forms its ``main()`` did not time: jconv at (16, 6) and the j-static
-kernel at its defaults (8, 2). BZ is the thread block's z extent; NCHUNK
-the number of slot chunks. Prints a summary in ms per step. Fails without a
-card; imports nothing of JAX.
+kernel at its defaults (8, 2). BZ is the z extent of the kernel's staged
+tile (8, 16 or 32; the cross-section is chosen per BZ, printed per rung);
+NCHUNK the number of slot chunks. Prints a summary in ms per step. Fails
+without a card; imports nothing of JAX.
 """
 
 import os
@@ -88,6 +89,11 @@ def ladder(kit, state, dt, rungs=LADDER, inner=INNER, reps=REPS, log=print):
             def fn(bz=bz, nchunk=nchunk, form=form):
                 return kernels.ns3d_chunked(*args, nchunk=nchunk, bz=bz,
                                             factored=form)
+        geo = kernels.ns3d_chunked_geometry(
+            {False: "xla", True: "factored"}.get(form, form), bz)
+        log(f"{name:40s} tile {geo.tx} x {geo.ty} x {geo.tz} (x, y, z), "
+            f"{geo.r} z nodes a thread, {geo.threads} threads, "
+            f"{geo.tile_bytes / 1e3:.1f} KB staged")
         rho, vel = fn()
         dr = float((rho - ref_rho).abs().max() / ref_rho.abs().max())
         dv = float((vel - ref_vel).abs().max() / ref_vel.abs().max())

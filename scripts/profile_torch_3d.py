@@ -44,9 +44,11 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def window(name, fn, units, out):
+def window(name, fn, units, out, show=()):
     """Time fn() (one window of ``units`` units) without and with the
-    profiler; print and return the summary line."""
+    profiler; print and return the summary line. The eight largest device
+    items are printed, and every item whose name holds a string of
+    ``show``."""
     torch.cuda.synchronize()
     t0 = time.time()
     fn()
@@ -65,7 +67,9 @@ def window(name, fn, units, out):
         t = (e.device_time_total if hasattr(e, "device_time_total")
              else e.cuda_time_total)
         by_name[e.name] = by_name.get(e.name, 0.0) + t
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = ranked[:8] + [(k, t) for k, t in ranked[8:]
+                        if any(w in k for w in show)]
     busy = busy_us * 1e-3 / units
     line = (f"[{name}] wall {wall * 1e3:.4f} ms per unit, device busy "
             f"{busy:.4f} ms per unit ({100 * busy / (wall * 1e3):.1f} %), "

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Sweep the free parameters of the port's basis_axpy, basis_dots, matvec3d
-(with slots3d_f64, which walks its packed f32 layout), ns3d and ns2d kernels
-on one CUDA device.
+(with slots3d_f64, which walks its packed f32 layout), ns3d, ns2d, ard2d and
+ns3d_chunked kernels on one CUDA device.
 
     python3 scripts/sweep_kernels_torch.py [axpy] [dots] [matvec3d] [ns3d]
-                                           [ns2d]
+                                           [ns2d] [ard2d] [ns3d_chunked]
 
 The kernels' compile-time constants (``PD_AXPY_ROWS``: rows per register
 group of basis_axpy; ``PD_DOTS_UNROLL``, ``PD_DOTS_STREAM``: pieces a lane
@@ -15,14 +15,20 @@ weights of a row stored side by side in matvec3d's packed layout;
 of its row walk; ``PD_NS3D_R``, ``_TX``, ``_TY``, ``_ZT``, ``_WX``,
 ``_PAD``, ``_BLOCKS``: ns3d's z nodes a thread, tile, warp shape, row
 padding and blocks an SM; ``PD_NS2D_R``, ``_TX``, ``_TY``, ``_WX``,
-``_PAD``, ``_BLOCKS``: the same of ns2d, x nodes a thread) are ``#ifndef``
+``_PAD``, ``_BLOCKS``: the same of ns2d, x nodes a thread; ``PD_ARD2D_R``,
+``_TX``, ``_TY``, ``_WX``, ``_PAD``, ``_BLOCKS``: the same of ard2d;
+``PD_NS3DC_R_XLA``, ``_R_FACTORED``, ``_R_JCONV``, ``_R_JSTAT``,
+``_UNROLL``, ``_TX_<BZ>``, ``_TY_<BZ>``, ``_ZT_<BZ>``: ns3d_chunked's z
+nodes a thread per form, staged positions a thread loads at once and, per
+BZ rung, cross-section and threads along z) are ``#ifndef``
 macros in csrc/; this script
 builds one library per value (``kernels.build.build_library``), calls the C
 entry points directly, holds every variant to the plain twin (bit for bit;
 basis_dots to rtol 2e-6), and prints median times (chip_smoke.py's
 protocol: CUDA events around back-to-back calls behind a spin kernel; for
-matvec3d, slots3d_f64, ns3d and ns2d also one call at a time behind
-another kernel):
+matvec3d, slots3d_f64, ns3d, ns2d, ard2d and ns3d_chunked also one call at
+a time behind another kernel; the variants' libraries are built four at a
+time):
 
 * axpy: rows per group x threads per block x 4-element pieces per thread,
   at (26, 196,749), (13, 196,749) and (26, 1,055,668), rows 128-byte
@@ -36,6 +42,12 @@ another kernel):
 * ns2d: tile shape x x nodes a thread x warp shape x row padding x blocks
   an SM (``NS2D_VARIANTS``) on the seeded state of
   config/params_fine_calibration.cfg (567 x 347 nodes, S = 36);
+* ard2d: tile shape x x nodes a thread x warp shape (``ARD2D_VARIANTS``)
+  on chip_smoke.py's seeded explicit-step inputs at the fine-calibration
+  grid (some SOLID nodes salt-blocked);
+* ns3d_chunked: nodes a thread x cross-section and threads per BZ
+  (``NS3DC_VARIANTS``), each of the four forms at every rung (NCHUNK 6),
+  on the seeded state of config/params_3d.cfg;
 * matvec3d: group size x bytes per turn, packed f32 and bf16 weights, and
   slots3d_f64 over the packed f32 weights, on the assembled operator of
   config/params_3d.cfg (1,055,668 nodes, S = 178), each group size with
@@ -45,6 +57,7 @@ The port's wrappers use the values the sources default to. Needs a CUDA
 device; imports nothing of JAX.
 """
 
+import concurrent.futures
 import itertools
 import os
 import sys
@@ -90,6 +103,26 @@ NS2D_VARIANTS = ((2, 32, 16, 16, 1, 3), (2, 32, 16, 16, 0, 3),
                  (3, 48, 16, 16, 1, 3), (1, 32, 8, 32, 1, 4),
                  (1, 32, 16, 32, 1, 2))
 NS2D_KEYS = ("R", "TX", "TY", "WX", "PAD", "BLOCKS")
+# (R, TX, TY, WX, PAD, BLOCKS) of ard2d; the first is the source's default
+ARD2D_VARIANTS = ((2, 32, 16, 16, 1, 3), (1, 32, 16, 32, 1, 2),
+                  (1, 32, 8, 32, 1, 4), (4, 32, 16, 8, 1, 3),
+                  (4, 64, 16, 16, 1, 3), (2, 16, 16, 8, 1, 6),
+                  (2, 32, 8, 16, 1, 6), (2, 64, 16, 32, 1, 2),
+                  (4, 32, 32, 8, 1, 2))
+ARD2D_KEYS = ("R", "TX", "TY", "WX", "PAD", "BLOCKS")
+# (R of the XLA, factored, jconv and jstat forms, UNROLL, then per rung BZ
+# = 8, 16, 32: TX, TY, ZT) of ns3d_chunked; the first is the source's
+# default
+NS3DC_VARIANTS = ((2, 2, 2, 4, 4, 16, 8, 2, 8, 8, 4, 8, 8, 8),
+                  (2, 2, 2, 2, 4, 16, 8, 2, 8, 8, 4, 8, 8, 8),
+                  (1, 2, 2, 4, 4, 16, 8, 2, 8, 8, 4, 8, 8, 8),
+                  (2, 4, 4, 4, 4, 16, 8, 2, 8, 8, 4, 8, 8, 8),
+                  (2, 2, 2, 4, 1, 16, 8, 2, 8, 8, 4, 8, 8, 8),
+                  (2, 2, 2, 4, 4, 16, 8, 2, 16, 8, 4, 8, 8, 8),
+                  (2, 2, 2, 4, 4, 16, 8, 2, 8, 8, 4, 8, 8, 4))
+NS3DC_KEYS = ("R_XLA", "R_FACTORED", "R_JCONV", "R_JSTAT", "UNROLL", "TX_8",
+              "TY_8", "ZT_8", "TX_16", "TY_16", "ZT_16", "TX_32", "TY_32",
+              "ZT_32")
 MATVEC_GROUP = (4, 8, 16)
 MATVEC_TURN_BYTES = (32, 64, 128)
 
@@ -309,6 +342,143 @@ def sweep_ns2d(libs):
     return good
 
 
+def sweep_ard2d(libs):
+    """libs: {variant tuple: library}. ard2d on chip_smoke.py's inputs:
+    the fine-calibration grid with grains, a seeded C (some SOLID nodes
+    salt-blocked) and seeded FLUID velocities."""
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    cfg = pkg.Config.load(FINE)
+    grid = pkg.build_grid(cfg)
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    st = pkg.initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
+                              device="cuda")
+    rng = np.random.default_rng(SEED)
+    fluid = st.node_type == pkg.FLUID
+    solid = st.node_type == pkg.SOLID_MG
+    st.vel = torch.where(fluid[..., None],
+                         st.vel + seeded(rng, st.vel.shape, 0.02 * cfg.U_in),
+                         st.vel)
+    st.C = torch.where(solid, 1.0 - 0.2 * torch.tensor(
+        rng.random(kit.shape), dtype=torch.float32, device="cuda"),
+        torch.where(fluid, torch.tensor(rng.random(kit.shape),
+                                        dtype=torch.float32, device="cuda"),
+                    0.0))
+    salt = ard_ops.compute_salt_blocked(st, kit)
+    Ds = ard_ops.solid_diffusivity(st.is_gb, st.is_precip, cfg,
+                                   ard_ops.micro_d_factor(cfg, 0.05,
+                                                          kit.dtype, "cuda"))
+    vmag = ns.vel_magnitude(st.vel)
+    dt = float(ard_ops.compute_dt(st, kit))
+    args = (st.C, st.vel, vmag, st.node_type, Ds, salt, dt, kit)
+    twin = kernels.ard2d_plain(*args)
+    out = torch.empty_like(st.C)
+    z = torch.empty_like(st.vel)
+
+    def other():
+        torch.add(st.vel, st.vel, out=z)
+
+    def wrapper():
+        return kernels.ard2d(*args)
+    print(f"[ard2d] {grid.N_total} nodes, S={kit.S}, {int(salt.sum())} of "
+          f"{int(solid.sum())} SOLID nodes salt-blocked; the port's wrapper "
+          f"(the sources' defaults): {median_ms(wrapper, 20):.4f} ms back to "
+          f"back, {apart_ms(wrapper, other):.4f} ms behind another kernel")
+    good = True
+    for variant, lib in libs.items():
+        geo = kernels.ard2d_geometry(lib)
+        tab = kernels.ns2d_tables(kit, geo.pitch)
+        tiles, busy, staged, halo = kernels.ard2d_staging(kit, st.node_type,
+                                                          geo)
+
+        def fn():
+            rc = lib.pd_ard2d(
+                ptr(st.C), ptr(st.vel), ptr(vmag), ptr(st.node_type), ptr(Ds),
+                ptr(salt), dt, ptr(tab.offsets), ptr(tab.coefs),
+                ptr(tab.runs), kit.S, tab.runs.shape[0], *kit.shape,
+                kit.beta_lap, cfg.D_liquid, 2.0 * cfg.D_liquid,
+                cfg.alpha_art_diff, cfg.dx, kit.alpha / kit.V_H, ptr(out), 0,
+                stream(st.C))
+            assert rc == 0, rc
+        out.zero_()
+        fn()
+        torch.cuda.synchronize()
+        same = torch.equal(out, twin)
+        good &= same
+        print(f"[ard2d]   {dict(zip(ARD2D_KEYS, variant))}: tile {geo.tx} x "
+              f"{geo.ty}, {geo.threads} threads, "
+              f"{geo.tile_bytes / 1e3:.1f} KB, {busy} of {tiles} tiles busy, "
+              f"halo factor {halo:.2f}, {staged / 1e6:.2f} MB staged: "
+              f"{median_ms(fn, 20):.4f} ms back to back, "
+              f"{apart_ms(fn, other):.4f} ms behind another kernel, "
+              f"bit-equal {same}")
+    return good
+
+
+def sweep_ns3d_chunked(libs):
+    """libs: {variant tuple: library}. The four forms at every rung (BZ 8,
+    16, 32; NCHUNK 6) on the seeded state of config/params_3d.cfg."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels.ns3d import _constants
+    from pd_mg_pin_corrosion_tpu_torch.kernels.ns3d_chunked import FORMS
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    _, grid, kit, st = flagship_state(SEED + 3)
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    actconv = kernels.compute_actconv(kit, st.node_type)
+    consts = _constants(kit)
+    rho_out, vel_out = torch.empty_like(st.rho), torch.empty_like(st.vel)
+    z = torch.empty_like(st.vel)
+
+    def other():
+        torch.add(st.vel, st.vel, out=z)
+    good = True
+    for fi, form in enumerate(FORMS):
+        if form == "jstat":
+            twin = kernels.ns3d_jstat_plain(*args, actconv, nchunk=6)
+        else:
+            twin = kernels.ns3d_chunked_plain(
+                *args, nchunk=6,
+                factored={"xla": False, "factored": True,
+                          "jconv": "jconv"}[form])
+        for bz in kernels.BZ_RUNGS:
+            for variant, lib in libs.items():
+                geo = kernels.ns3d_chunked_geometry(form, bz, lib)
+                tab = kernels.ns3d_chunked_tables(kit, form, 6, geo.pitch,
+                                                  geo.plane)
+                _, busy, staged, halo = kernels.ns3d_staging(
+                    kit, st.node_type, geo)
+
+                def fn():
+                    rc = lib.pd_ns3d_chunked(
+                        fi, ptr(st.rho), ptr(st.vel), ptr(p),
+                        ptr(st.node_type),
+                        ptr(actconv) if form == "jstat" else None, ptr(dt),
+                        ptr(tab.offsets), ptr(tab.coefs), ptr(tab.runs),
+                        ptr(tab.chunk_end), 6, kit.S, tab.runs.shape[0],
+                        *kit.shape, bz, *consts, ptr(rho_out), ptr(vel_out),
+                        0, stream(st.rho))
+                    assert rc == 0, rc
+                rho_out.zero_()
+                vel_out.zero_()
+                fn()
+                torch.cuda.synchronize()
+                same = (torch.equal(rho_out, twin[0])
+                        and torch.equal(vel_out, twin[1]))
+                good &= same
+                print(f"[ns3d_chunked]   {form} BZ {bz} "
+                      f"{dict(zip(NS3DC_KEYS, variant))}: tile {geo.tx} x "
+                      f"{geo.ty} x {geo.tz}, R {geo.r}, {geo.threads} "
+                      f"threads, {geo.tile_bytes / 1e3:.1f} KB, {busy} busy "
+                      f"tiles, halo factor {halo:.2f}, {staged / 1e6:.1f} MB "
+                      f"staged: {median_ms(fn, 10):.4f} ms back to back, "
+                      f"{apart_ms(fn, other):.4f} ms behind another kernel, "
+                      f"bit-equal {same}")
+    return good
+
+
 def sweep_matvec3d(libs):
     """libs: {(group, turn bytes): library}."""
     _, grid, kit, st = flagship_state(SEED + 3)
@@ -402,11 +572,18 @@ def print_registers(tag, log, *patterns):
             print(f"[ptxas] {tag}: {name}: {line.split(':', 1)[1].strip()}")
 
 
+def build_all(defines, workers=4):
+    """build_library for each list of defines, ``workers`` at a time."""
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(build_library, defines))
+
+
 def main():
     if not torch.cuda.is_available():
         print("sweep_kernels_torch: needs a CUDA device", file=sys.stderr)
         return 1
-    what = sys.argv[1:] or ["axpy", "dots", "matvec3d", "ns3d", "ns2d"]
+    what = sys.argv[1:] or ["axpy", "dots", "matvec3d", "ns3d", "ns2d",
+                            "ard2d", "ns3d_chunked"]
     print(f"[sweep] {torch.cuda.get_device_name(0)}; nvidia-smi: "
           f"{nvidia_smi()}")
     ok = True
@@ -437,6 +614,21 @@ def main():
         for v, lib in libs.items():
             print_registers(" ".join(map(str, v)), lib.log, "ns2d_kernel")
         ok &= sweep_ns2d({v: lib.lib for v, lib in libs.items()})
+    if "ard2d" in what:
+        libs = build_all([f"PD_ARD2D_{k}={x}" for k, x in zip(ARD2D_KEYS, v)]
+                         for v in ARD2D_VARIANTS)
+        libs = dict(zip(ARD2D_VARIANTS, libs))
+        for v, lib in libs.items():
+            print_registers(" ".join(map(str, v)), lib.log, "ard2d_kernel")
+        ok &= sweep_ard2d({v: lib.lib for v, lib in libs.items()})
+    if "ns3d_chunked" in what:
+        libs = build_all([f"PD_NS3DC_{k}={x}" for k, x in zip(NS3DC_KEYS, v)]
+                         for v in NS3DC_VARIANTS)
+        libs = dict(zip(NS3DC_VARIANTS, libs))
+        for v, lib in libs.items():
+            print_registers(" ".join(map(str, v)), lib.log,
+                            "ns3d_chunked_kernel")
+        ok &= sweep_ns3d_chunked({v: lib.lib for v, lib in libs.items()})
     if "matvec3d" in what:
         libs = {(g, t): build_library([f"PD_MATVEC3D_GROUP={g}",
                                        f"PD_MATVEC3D_TURN_BYTES={t}"])

@@ -107,7 +107,8 @@ def test_resume_refuses_another_grid(tmp_path):
     t.apply_overrides([*SMALL, *F64])
     grid = t_build_grid(t)
     ckpt = str(tmp_path / "ckpt.npz")
-    t_ckpt.save_checkpoint(ckpt, t_initialize_state(grid, t, dtype=torch.float64),
+    t_ckpt.save_checkpoint(ckpt, t_initialize_state(
+                               grid, t, dtype=torch.float64, device="cpu"),
                            0.0, {"cycle": 0}, t_ckpt.fingerprint(t, grid),
                            fp_grid=t_ckpt.grid_fingerprint(grid),
                            cfg_json=t_ckpt.cfg_items_json(t))
@@ -133,7 +134,8 @@ def test_vti_3d_bytes_match_jax_writer(precision, binary, tmp_path):
         vel=jnp.asarray(rng.normal(size=kit.shape + (3,)), kit.jdtype))
     ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
                            for f in dataclasses.fields(js)},
-                          dtype=torch.float32 if precision == "f32" else torch.float64)
+                          dtype=torch.float32 if precision == "f32" else torch.float64,
+                          device="cpu")
     tcfg = TConfig.load(CFG_3D)
     tcfg.apply_overrides([*SMALL, f"precision={precision}"])
     a, b = str(tmp_path / "jax.vti"), str(tmp_path / "port.vti")

@@ -51,7 +51,7 @@ def _pair(precision, overrides=()):
     for c in (j, t):
         c.apply_overrides([*SMALL_3D, f"precision={precision}", *overrides])
     jg, tg = j_build_grid(j), t_build_grid(t)
-    return j_build_kit(jg, j), t_build_kit(tg, t), jg, j
+    return j_build_kit(jg, j), t_build_kit(tg, t, device="cpu"), jg, j
 
 
 def _states(precision, seed=0):
@@ -74,7 +74,7 @@ def _states(precision, seed=0):
     h["is_gb"] = solid & (rng.random(solid.shape) < 0.3)
     h["is_precip"] = solid & ~h["is_gb"] & (rng.random(solid.shape) < 0.2)
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype) for k, v in h.items()})
-    ts = state_from_numpy(h, dtype=tk.dtype)
+    ts = state_from_numpy(h, dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 
@@ -191,7 +191,8 @@ def test_solve_steady_3d_same_iterations_and_fields():
     jk, tk, jg, j = _pair("f64")
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
     ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
-                           for f in dataclasses.fields(js)}, dtype=tk.dtype)
+                           for f in dataclasses.fields(js)}, dtype=tk.dtype,
+                          device="cpu")
     jst, jit_, jeps, jconv, jdiv = j_solvers.solve_steady(js, jk, max_iters=120)
     tst, tit, teps, tconv, tdiv = t_solvers.solve_steady(ts, tk, max_iters=120)
     assert (int(jit_), bool(jconv), bool(jdiv)) == (tit, tconv, tdiv) == (121, False, False)

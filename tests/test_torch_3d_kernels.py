@@ -52,7 +52,7 @@ def _configs(precision, overrides=()):
 def _kits(precision, overrides=()):
     j, t = _configs(precision, overrides)
     jg, tg = j_build_grid(j), t_build_grid(t)
-    return j_build_kit(jg, j), t_build_kit(tg, t), jg, j
+    return j_build_kit(jg, j), t_build_kit(tg, t, device="cpu"), jg, j
 
 
 def _states(precision, seed=0):
@@ -74,7 +74,7 @@ def _states(precision, seed=0):
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in host.items()})
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in host},
-                          dtype=tk.dtype)
+                          dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 
@@ -151,7 +151,7 @@ def test_kit_3d_arrays_equal(precision, legacy):
 def test_kit_refuses_subcell_mirror():
     _, t = _configs("f32", ["wall_mirror_subcell=1"])
     with pytest.raises(NotImplementedError, match="wall_mirror_subcell"):
-        t_build_kit(t_build_grid(t), t)
+        t_build_kit(t_build_grid(t), t, device="cpu")
 
 
 @pytest.mark.parametrize("precision", ["f64", "f32"])

@@ -54,7 +54,7 @@ def test_config_overrides_and_frozen_copy():
     j, t = _load_both(PARITY, ["precision=f64", "flow_max_iters=123",
                                "R_wire=2.5e-5"])
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
-    kit = t_build_kit(t_build_grid(t), t)
+    kit = t_build_kit(t_build_grid(t), t, device="cpu")
     t.flow_max_iters = 7          # the kit keeps its own snapshot
     assert kit.cfg.flow_max_iters == 123
     with pytest.raises(dataclasses.FrozenInstanceError):
@@ -83,7 +83,7 @@ def test_kit_arrays_equal(name, precision):
     j, t = _load_both(GRIDS[name][0],
                       GRIDS[name][1] + [f"precision={precision}"])
     jg, tg = j_build_grid(j), t_build_grid(t)
-    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t, device="cpu")
     assert str(tk.dtype).split(".")[-1] == jk.dtype
     for a in ("inlet_mask", "outlet_mask", "wall_mask", "near_inlet_mask",
               "near_outlet_mask", "v_pois", "initial_solid_mask",
@@ -123,14 +123,14 @@ def test_initial_state_equal(name, precision):
     j, t = _load_both(GRIDS[name][0],
                       GRIDS[name][1] + [f"precision={precision}"])
     jg, tg = j_build_grid(j), t_build_grid(t)
-    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t, device="cpu")
     js = j_initialize_state(jg, j, grains=j_grains.generate(jg, j),
                             dtype=jk.jdtype)
     ts = t_initialize_state(tg, t, grains=t_grains.generate(tg, t),
-                            dtype=tk.dtype)
+                            dtype=tk.dtype, device="cpu")
     carried = state_from_numpy(
         {f.name: np.asarray(getattr(js, f.name))
-         for f in dataclasses.fields(js)}, dtype=tk.dtype)
+         for f in dataclasses.fields(js)}, dtype=tk.dtype, device="cpu")
     for f in dataclasses.fields(ts):
         a, b, c = (np.asarray(getattr(js, f.name)),
                    getattr(ts, f.name).numpy(),

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
-                                           initialize_state, kernels)
+                                           grains, initialize_state, kernels)
 from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
 from pd_mg_pin_corrosion_tpu_torch.ops import ns
@@ -241,6 +241,60 @@ def test_ard2d_equals_plain(setup):
     assert kernels.ard2d.launches == n0 + 2
     assert torch.equal(c1, c2)
     assert torch.equal(c1, cp)
+    # the staged walk in PyTorch at the compiled tile
+    geo = kernels.ard2d_geometry()
+    cs = kernels.ard2d_staged_plain(*args, R=geo.r, tile=(geo.ty, geo.tx))
+    assert torch.equal(c1, cs)
+
+
+@pytest.mark.parametrize("case", ["fine_calibration", "parity_outside"])
+def test_ard2d_bit_equal_at_the_fine_calibration_shape(case):
+    """ard2d at the explicit path's shape (567 x 347, grains, a seeded C
+    that salt-blocks some SOLID nodes) and on parity.cfg with a block of
+    OUTSIDE nodes: two launches and the twin give the same bits, every
+    node."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    if case == "fine_calibration":
+        cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                       "config",
+                                       "params_fine_calibration.cfg"))
+    else:
+        cfg = Config.load(PARITY)
+        cfg.precision = "f32"
+        cfg.compute_derived()
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    st = initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
+                          device="cuda")
+    rng = np.random.default_rng(17)
+    fluid, solid = st.node_type == 0, st.node_type == 1
+
+    def uniform():
+        return torch.tensor(rng.random(kit.shape), dtype=torch.float32,
+                            device="cuda")
+    st.C = torch.where(solid, 1.0 - 0.2 * uniform(),
+                       torch.where(fluid, uniform(), 0.0))
+    st.vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.02 * cfg.U_in, st.vel.shape), dtype=torch.float32,
+        device="cuda"), st.vel)
+    if case == "parity_outside":
+        ny, nx = kit.shape
+        nt = st.node_type.clone()
+        nt[ny // 3:ny // 3 + 7, nx // 4:nx // 2] = 5
+        st = dataclasses.replace(st, node_type=nt)
+    salt = ard_ops.compute_salt_blocked(st, kit)
+    assert 0 < int(salt.sum()) < int(solid.sum())
+    Ds = ard_ops.solid_diffusivity(st.is_gb, st.is_precip, kit.cfg,
+                                   ard_ops.micro_d_factor(kit.cfg, 0.05,
+                                                          kit.dtype, "cuda"))
+    args = (st.C, st.vel, ns.vel_magnitude(st.vel), st.node_type, Ds, salt,
+            float(ard_ops.compute_dt(st, kit)), kit)
+    c1, c2 = kernels.ard2d(*args), kernels.ard2d(*args)
+    cp = kernels.ard2d_plain(*args)
+    assert bool(torch.isfinite(c1).all())
+    assert torch.equal(_bits(c1), _bits(c2))
+    assert torch.equal(_bits(c1), _bits(cp))
 
 
 def test_f64_on_cuda_is_refused(setup):
@@ -465,7 +519,7 @@ def test_implicit_step_3d_on_the_card(setup3d):
     assert res < 1e-6
     assert all(getattr(kernels, k).launches > n for k, n in n0.items())
     cfg = _cfg3d()
-    cpu_kit = build_kit(build_grid(cfg), cfg)
+    cpu_kit = build_kit(build_grid(cfg), cfg, device="cpu")
     cpu_st = type(st)(*(t.cpu() for t in st.tensors()))
     s_cpu, res_cpu = ai.implicit_step(cpu_st, ai.assemble(cpu_st, cpu_kit),
                                       cpu_kit, 60.0)
@@ -482,18 +536,75 @@ def test_ns3d_chunked_equals_plain(setup3d, form):
     p = ns.tait_pressure(st.rho, kit)
     dt = ns.compute_dt(st, kit)
     args = (st.rho, st.vel, p, st.node_type, dt, kit)
-    if form == "jstat":
-        actconv = kernels.compute_actconv(kit, st.node_type)
-        outs = [kernels.ns3d_jstat(*args, actconv, nchunk=6, bz=bz)
-                for bz in (8, 16, 16)]
-        twin = kernels.ns3d_jstat_plain(*args, actconv, nchunk=6)
-    else:
-        f = {"xla": False, "factored": True, "jconv": "jconv"}[form]
-        outs = [kernels.ns3d_chunked(*args, nchunk=6, bz=bz, factored=f)
-                for bz in (8, 16, 16)]
-        twin = kernels.ns3d_chunked_plain(*args, nchunk=6, factored=f)
-    for r, v in outs:
-        assert torch.equal(r, twin[0]) and torch.equal(v, twin[1])
+    actconv = (kernels.compute_actconv(kit, st.node_type) if form == "jstat"
+               else None)
+    for nchunk in (6, 2, 8):
+        outs = [_chunked(form, args, actconv, nchunk, bz)
+                for bz in (8, 16, 32, 16)]
+        twin = _chunked_twin(form, args, actconv, nchunk)
+        for r, v in outs:
+            assert torch.equal(r, twin[0]) and torch.equal(v, twin[1])
+    geo = kernels.ns3d_chunked_geometry(form, 16)
+    staged = kernels.ns3d_chunked_staged_plain(
+        form, *args, nchunk=8, actconv=actconv, R=geo.r,
+        tile=(geo.tz, geo.ty, geo.tx))
+    assert torch.equal(staged[0], twin[0]) and torch.equal(staged[1], twin[1])
     r0, v0 = kernels.ns3d(*args)
     assert (outs[0][0] - r0).abs().max() <= 1e-4 * r0.abs().max()
     assert (outs[0][1] - v0).abs().max() <= 1e-4 * v0.abs().max()
+
+
+def _chunked(form, args, actconv, nchunk, bz):
+    if form == "jstat":
+        return kernels.ns3d_jstat(*args, actconv, nchunk=nchunk, bz=bz)
+    return kernels.ns3d_chunked(*args, nchunk=nchunk, bz=bz,
+                                factored=_FACTORED[form])
+
+
+def _chunked_twin(form, args, actconv, nchunk):
+    if form == "jstat":
+        return kernels.ns3d_jstat_plain(*args, actconv, nchunk=nchunk)
+    return kernels.ns3d_chunked_plain(*args, nchunk=nchunk,
+                                      factored=_FACTORED[form])
+
+
+_FACTORED = {"xla": False, "factored": True, "jconv": "jconv"}
+
+
+@pytest.fixture(scope="module")
+def flagship_flow():
+    """config/params_3d.cfg (1,055,668 nodes, S = 178) on the card with
+    seeded FLUID rho and vel: the arguments of a 3D NS step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+    cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                   "config", "params_3d.cfg"))
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device="cuda")
+    st = initialize_state(grid, cfg, device="cuda")
+    rng = np.random.default_rng(11)
+    fluid = st.node_type == 0
+    st.rho = torch.where(fluid, st.rho + torch.tensor(
+        rng.normal(0, 0.01, kit.shape), dtype=torch.float32, device="cuda"),
+        st.rho)
+    st.vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.02 * cfg.U_in, st.vel.shape), dtype=torch.float32,
+        device="cuda"), st.vel)
+    p = ns.tait_pressure(st.rho, kit)
+    return (st.rho, st.vel, p, st.node_type, ns.compute_dt(st, kit), kit)
+
+
+@pytest.mark.parametrize("form", ["xla", "factored", "jconv", "jstat"])
+def test_ns3d_chunked_equals_plain_at_the_flagship_shape(flagship_flow, form):
+    """Each form at the flagship shape and the ladder's rungs: two launches
+    and the twin give the same bits, every node."""
+    args = flagship_flow
+    actconv = (kernels.compute_actconv(args[-1], args[3]) if form == "jstat"
+               else None)
+    twin = _chunked_twin(form, args, actconv, 6)
+    for bz in kernels.BZ_RUNGS:
+        r1, v1 = _chunked(form, args, actconv, 6, bz)
+        r2, v2 = _chunked(form, args, actconv, 6, bz)
+        assert bool(torch.isfinite(r1).all()) and bool(torch.isfinite(v1).all())
+        for a, b in ((r1, r2), (v1, v2), (r1, twin[0]), (v1, twin[1])):
+            assert torch.equal(_bits(a), _bits(b))

@@ -49,7 +49,7 @@ def _states(precision, seed=0):
     for c in (j, t):
         c.apply_overrides([*GEOMETRY, f"precision={precision}"])
     jg = j_build_grid(j)
-    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t, device="cpu")
     js = j_initialize_state(jg, j, grains=j_grains.generate(jg, j),
                             dtype=jk.jdtype)
     host = {f.name: np.asarray(getattr(js, f.name))
@@ -64,7 +64,7 @@ def _states(precision, seed=0):
                          np.where(fluid, rng.random(fluid.shape), 0.0))
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in host.items()})
-    ts = state_from_numpy(host, dtype=tk.dtype)
+    ts = state_from_numpy(host, dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 
@@ -142,9 +142,9 @@ def test_3d_explicit_step_is_refused():
                          "R_tube=48e-6", "L_upstream=32e-6",
                          "L_downstream=32e-6", "precision=f32"])
     grid = t_build_grid(cfg)
-    kit = t_build_kit(grid, cfg)
+    kit = t_build_kit(grid, cfg, device="cpu")
     from pd_mg_pin_corrosion_tpu_torch import initialize_state
-    st = initialize_state(grid, cfg)
+    st = initialize_state(grid, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_ard.ard_step(st, kit, 1e-6)
 

@@ -38,7 +38,7 @@ def _pair(precision, overrides=()):
     for c in (j, t):
         c.apply_overrides([f"precision={precision}", *overrides])
     jg, tg = j_build_grid(j), t_build_grid(t)
-    return j_build_kit(jg, j), t_build_kit(tg, t), jg, j
+    return j_build_kit(jg, j), t_build_kit(tg, t, device="cpu"), jg, j
 
 
 def _states(precision, seed=0):
@@ -58,7 +58,7 @@ def _states(precision, seed=0):
     h["is_gb"] = solid & (rng.random(solid.shape) < 0.3)
     h["is_precip"] = solid & ~h["is_gb"] & (rng.random(solid.shape) < 0.2)
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype) for k, v in h.items()})
-    ts = state_from_numpy(h, dtype=tk.dtype)
+    ts = state_from_numpy(h, dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 
@@ -103,7 +103,8 @@ def test_solve_steady_same_iterations_and_eps():
     converges at the 400th iteration (eps 1.45e-3 at 300, 1.06e-3 at 400)."""
     jk, tk, jg, j = _pair("f64", ["flow_conv_tol=1.2e-3"])
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
-    ts = t_initialize_state(t_build_grid(tk.cfg), tk.cfg, dtype=tk.dtype)
+    ts = t_initialize_state(t_build_grid(tk.cfg), tk.cfg, dtype=tk.dtype,
+                            device="cpu")
     jst, jit_, jeps, jconv, jdiv = j_solvers.solve_steady(js, jk)
     tst, tit, teps, tconv, tdiv = t_solvers.solve_steady(ts, tk)
     assert (int(jit_), bool(jconv), bool(jdiv)) == (tit, tconv, tdiv) == (400, True, False)
@@ -233,9 +234,9 @@ def test_gmres_f32_stiff_dt_reaches_tol():
     cfg.precision = "f32"
     cfg.compute_derived()
     grid = t_build_grid(cfg)
-    kit = t_build_kit(grid, cfg)
+    kit = t_build_kit(grid, cfg, device="cpu")
     assert kit.dtype == torch.float32
-    state = t_initialize_state(grid, cfg, dtype=kit.dtype)
+    state = t_initialize_state(grid, cfg, dtype=kit.dtype, device="cpu")
     op = t_ai.assemble(state, kit)
     s1, _ = t_ai.implicit_step(state, op, kit, 10.0)
     s2, res = t_ai.implicit_step(s1, op, kit, 60.0)

@@ -49,7 +49,8 @@ def parity():
     for c in (j, t):
         c.precision = "f32"
         c.compute_derived()
-    jk, tk = j_build_kit(j_build_grid(j), j), t_build_kit(t_build_grid(t), t)
+    jk = j_build_kit(j_build_grid(j), j)
+    tk = t_build_kit(t_build_grid(t), t, device="cpu")
     js = j_initialize_state(j_build_grid(j), j, dtype=jk.jdtype)
     host = {f.name: np.asarray(getattr(js, f.name))
             for f in dataclasses.fields(js)}
@@ -64,7 +65,7 @@ def parity():
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in host.items()})
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in host},
-                          dtype=tk.dtype)
+                          dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 

@@ -1,7 +1,11 @@
 """The port's slot-chunked and j-static 3D NS steps (``kernels.ns3d_chunked``
 in its three forms and ``kernels.ns3d_jstat``, plain twins on the CPU)
 against the functions of ``scripts/exp_ns3d_chunked.py`` itself, on the
-8,303-node 3D grid of tests/test_pallas_interpret.py (S = 178).
+8,303-node 3D grid of tests/test_pallas_interpret.py (S = 178); and what
+the staged CUDA kernel rests on: its slot table (``ns3d_chunked_tables``)
+and its walk in PyTorch (``ns3d_chunked_staged_plain``), bit for bit
+against each form's twin for nchunk 2, 4, 6 and 8 on the tiles of the
+ladder's BZ rungs and on the whole grid.
 
 The script is imported from its path, unchanged; its kernels are TPU
 Pallas kernels with DMA copies and semaphores, so ``pl.pallas_call`` is
@@ -66,7 +70,7 @@ def states():
     for c in (j, t):
         c.apply_overrides(GEOMETRY)
     jg = j_build_grid(j)
-    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t, device="cpu")
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
     host = {f.name: np.asarray(getattr(js, f.name))
             for f in dataclasses.fields(js)}
@@ -79,7 +83,7 @@ def states():
                            host["vel"])
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in host.items()})
-    ts = state_from_numpy(host, dtype=tk.dtype)
+    ts = state_from_numpy(host, dtype=tk.dtype, device="cpu")
     dt = j_ns.compute_dt(js, jk)
     return jk, js, tk, ts, dt, torch.tensor(float(dt), dtype=torch.float32)
 
@@ -134,6 +138,11 @@ def test_twin_matches_the_script(script, states, interpret, form):
         twin = kernels.ns3d_chunked_plain(*args, **kw)
     # CPU tensors: the wrapper is the twin and launches nothing
     assert torch.equal(rho, twin[0]) and torch.equal(vel, twin[1])
+    # the kernel's walk in PyTorch is the twin, bit for bit
+    staged = kernels.ns3d_chunked_staged_plain(
+        form, *args, actconv=actconv if form == "jstat" else None,
+        **{k: v for k, v in kw.items() if k == "nchunk"})
+    assert torch.equal(staged[0], rho) and torch.equal(staged[1], vel)
     assert sum(kernels.launch_counts()[k] for k in (
         "ns3d_chunked_xla", "ns3d_chunked_factored", "ns3d_chunked_jconv",
         "ns3d_jstat")) == 0
@@ -164,3 +173,111 @@ def test_chunking_sets_the_numbers_and_slot_ranges_do_not(states,
         assert torch.equal(r, w[0]) and torch.equal(v, w[1])
     with pytest.raises(KeyError):
         kernels.ns3d_chunked(*args, factored="other")
+
+
+def _form_args(states, form):
+    _, _, tk, ts, _, dt = states
+    p = t_ns.tait_pressure(ts.rho, tk)
+    args = (ts.rho, ts.vel, p, ts.node_type, dt, tk)
+    actconv = (kernels.compute_actconv(tk, ts.node_type) if form == "jstat"
+               else None)
+    return args, actconv
+
+
+def _twin(form, args, actconv, nchunk):
+    if form == "jstat":
+        return kernels.ns3d_jstat_plain(*args, actconv, nchunk=nchunk)
+    return kernels.ns3d_chunked_plain(
+        *args, nchunk=nchunk,
+        factored={"xla": False, "factored": True, "jconv": "jconv"}[form])
+
+
+# (tz, ty, tx): the csrc defaults' tiles of the BZ = 8, 16 and 32 rungs (the
+# 23 x 19 x 19 grid is no multiple of any), and one tile that holds the grid
+STAGED_TILES = [(8, 8, 16), (16, 8, 16), (32, 8, 8), None]
+
+
+@pytest.mark.parametrize("tile", STAGED_TILES,
+                         ids=["bz8", "bz16", "bz32", "whole"])
+@pytest.mark.parametrize("nchunk", [2, 4, 6, 8])
+@pytest.mark.parametrize("form", ["xla", "factored", "jconv", "jstat"])
+def test_staged_walk_equals_the_twin_bit_for_bit(states, form, nchunk, tile):
+    args, actconv = _form_args(states, form)
+    R = 1 if form == "xla" else 2
+    twin = _twin(form, args, actconv, nchunk)
+    rho, vel = kernels.ns3d_chunked_staged_plain(
+        form, *args, nchunk=nchunk, actconv=actconv, R=R, tile=tile)
+    assert torch.equal(rho.view(torch.int32), twin[0].view(torch.int32))
+    assert torch.equal(vel.view(torch.int32), twin[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("R", [1, 2, 4])
+def test_staged_walk_holds_for_any_nodes_a_thread(states, R):
+    """Nodes a thread do not enter a node's sum; the chunking does."""
+    args, _ = _form_args(states, "factored")
+    twin = _twin("factored", args, None, 6)
+    rho, vel = kernels.ns3d_chunked_staged_plain(
+        "factored", *args, nchunk=6, R=R, tile=(8, 8, 8))
+    assert torch.equal(rho, twin[0]) and torch.equal(vel, twin[1])
+    other = _twin("factored", args, None, 2)
+    assert not (torch.equal(rho, other[0]) and torch.equal(vel, other[1]))
+
+
+@pytest.mark.parametrize("nchunk", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("form", ["xla", "jstat"])
+def test_chunked_tables_hold_the_kits_slots(states, form, nchunk):
+    _, _, tk, *_ = states
+    pitch, plane = 24, 24 * 14
+    tab = kernels.ns3d_chunked_tables(tk, form, nchunk, pitch, plane)
+    S = tk.S
+    assert tab.offsets.dtype == torch.int32 and tab.offsets.shape == (S,)
+    # a slot's offset decodes to its (dk, dj, di) plus the halo
+    off = tab.offsets.long()
+    decoded = torch.stack([off // plane, off % plane // pitch, off % pitch],
+                          1) - 3
+    assert torch.equal(decoded, tk.ns_offsets.long())
+    # runs: dk steps by one inside, (dj, di) fixed; 38 at S = 178
+    first, length = tab.runs[:, 0].long(), tab.runs[:, 1].long()
+    assert int(length.sum()) == S and tab.runs.shape[0] == 38
+    # each chunk ends where a run does, at the group boundary of
+    # group_chunks, the last at the last run
+    ends = tab.chunk_end.long()
+    assert tab.chunk_end.shape == (nchunk,) and int(ends[-1]) == 38
+    slot_ends = [sum(len(g) for _, g in c) for c in kernels.group_chunks(
+        tk, nchunk)]
+    assert (torch.cat([first, torch.tensor([S])])[ends].tolist()
+            == np.cumsum(slot_ends).tolist())
+    # the coefficients, a slot's side by side
+    rows = [tk.dist[s] for s in tk.ns_slots.tolist()]
+    if form == "xla":
+        assert tab.coefs.shape == (S, 8) and not tab.coefs[:, 6:].any()
+        np.testing.assert_array_equal(
+            tab.coefs[:, 0].numpy(),
+            np.float32([1.0 / xi for xi in rows]))
+    else:
+        assert tab.coefs.shape == (S, 4)
+        np.testing.assert_array_equal(tab.coefs.T.numpy(),
+                                      tk.ns_coefs.float().numpy())
+
+
+def test_chunked_tables_refuse_a_wider_stencil(states):
+    _, _, tk, *_ = states
+    far = tk.ns_offsets.clone()
+    far[0, 2] = -4
+    with pytest.raises(ValueError, match="halo"):
+        kernels.ns3d_chunked_tables(
+            dataclasses.replace(tk, ns_offsets=far), "jstat", 6, 24, 336)
+
+
+def test_staged_walk_refuses_a_tile_that_splits_a_thread(states):
+    args, _ = _form_args(states, "factored")
+    with pytest.raises(ValueError, match="multiple of R"):
+        kernels.ns3d_chunked_staged_plain("factored", *args, R=4,
+                                          tile=(6, 8, 8))
+
+
+@pytest.mark.parametrize("bz", [4, 12, 64])
+def test_only_the_ladders_rungs_have_a_kernel(bz):
+    assert kernels.BZ_RUNGS == (8, 16, 32)
+    with pytest.raises(ValueError, match="BZ"):
+        kernels.ns3d_chunked_geometry("factored", bz)

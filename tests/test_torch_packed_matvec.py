@@ -51,7 +51,7 @@ def _setup(seed=0, overrides=()):
     for c in (j, t):
         c.apply_overrides([*SMALL_3D, *overrides])
     jg = j_build_grid(j)
-    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t, device="cpu")
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
     h = {f.name: np.asarray(getattr(js, f.name))
          for f in dataclasses.fields(js)}
@@ -65,7 +65,7 @@ def _setup(seed=0, overrides=()):
                         h["vel"])
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in h.items()})
-    return jk, js, tk, state_from_numpy(h, dtype=tk.dtype)
+    return jk, js, tk, state_from_numpy(h, dtype=tk.dtype, device="cpu")
 
 
 def _synthetic(tk, seed):

@@ -50,7 +50,7 @@ def _operator(developed):
     for c in (j, t):
         c.apply_overrides(GEOMETRY)
     jg = j_build_grid(j)
-    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(t_build_grid(t), t, device="cpu")
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
     host = {f.name: np.asarray(getattr(js, f.name))
             for f in dataclasses.fields(js)}
@@ -66,7 +66,7 @@ def _operator(developed):
                      for k, v in host.items()})
     op = jax.jit(lambda s: j_ai.assemble(s, jk))(js)
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in host},
-                          dtype=tk.dtype)
+                          dtype=tk.dtype, device="cpu")
     return (jk, op, tk, ts, torch.tensor(np.asarray(op.W)),
             torch.tensor(np.asarray(op.unknown)))
 

@@ -172,7 +172,7 @@ def small3d():
     for c in (j, t):
         c.apply_overrides(GEOMETRY)
     jg, tg = j_build_grid(j), t_build_grid(t)
-    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t)
+    jk, tk = j_build_kit(jg, j), t_build_kit(tg, t, device="cpu")
     js = j_initialize_state(jg, j, dtype=jk.jdtype)
     host = {f.name: np.asarray(getattr(js, f.name))
             for f in dataclasses.fields(js)}
@@ -186,7 +186,7 @@ def small3d():
     js = type(js)(**{k: jnp.asarray(v, getattr(js, k).dtype)
                      for k, v in host.items()})
     ts = state_from_numpy({k: np.asarray(getattr(js, k)) for k in host},
-                          dtype=tk.dtype)
+                          dtype=tk.dtype, device="cpu")
     return jk, js, tk, ts
 
 

@@ -152,7 +152,8 @@ def test_vti_bytes_match_jax_writer(precision, binary, tmp_path):
     js = dataclasses.replace(js, C=jnp.asarray(rng.random(kit.shape), kit.jdtype))
     ts = state_from_numpy({f.name: np.asarray(getattr(js, f.name))
                            for f in dataclasses.fields(js)},
-                          dtype=torch.float32 if precision == "f32" else torch.float64)
+                          dtype=torch.float32 if precision == "f32" else torch.float64,
+                          device="cpu")
     tgrid = t_build_grid(TConfig.load(PARITY))
     a, b = str(tmp_path / "jax.vti"), str(tmp_path / "port.vti")
     jw, tw = JWriter(), TWriter()
