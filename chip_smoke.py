@@ -55,9 +55,30 @@ argument all of them run, in this order):
    docs/runs/3d_1M/diagnostics.csv within BANKED_GATES; prints the peak
    device memory, whether assembly or the steps set it, and whether the
    operator held a dense W.
-8. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
-   implicit and the explicit path, on CUDA (kernels) and on the CPU (plain
-   twins); diagnostics.csv must agree.
+8. ``warm3d``, the warm-started flagship: ``cli.run`` on params_3d.cfg at
+   full size on CUDA with flow_warm_start=2 and MAIN3D_CAPS: the coarse
+   solve at 2 dx (166,050 nodes) and the fine solve both on ns3d, then
+   main3d's implicit cycle; prints both solves, ns3d's launches on each
+   grid, ms per implicit step and peak memory, and the FLUID-node relative
+   L2 of vel and rho against the cold solve (main3d's, or a solve_steady
+   of its own when main3d did not run); both solves must converge, the
+   fine one in fewer iterations than the cold one, vel within
+   WARM_L2_GATE, and every kernel of the 3D path must launch.
+9. ``explicit3d``, 3D explicit transport (plain PyTorch: no kernel, as in
+   the JAX package): ``cli.run`` on params_3d.cfg at full size with
+   use_implicit=0 after the warm start, the flow capped, one chunk of a
+   few hundred explicit steps; ms per step, a profiler window (device ops
+   per step, busy share) and peak memory; then the 8,303-node grid of
+   tests/test_torch_3d_slice.py on CUDA against the CPU path.
+10. ``subcell3d``, the sub-cell 3D wall mirror: the same small grid with
+   wall_mirror_subcell=1, CUDA against the CPU path; the flagship kit built
+   with it (primary columns, and how many carry more than one weight).
+11. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
+   implicit and the explicit path and the gs_parity path in float32, on
+   CUDA (kernels) and on the CPU (plain twins); diagnostics.csv must
+   agree. And the gs_parity run in float64 on CUDA against the C++
+   reference binary's tests/golden/parity_diagnostics_ref.csv, with
+   tests/test_parity.py's gates.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels, the nvidia-smi line, and the
@@ -111,6 +132,36 @@ EXPLICIT_CAPS = ["use_implicit=0", "flow_max_iters=20000",
                  f"output_every_corr={EXPLICIT_EVERY}",
                  f"T_final={EXPLICIT_T_FINAL}"]
 EXPLICIT_PROFILE_STEPS = 100
+# the warm-started flagship: MAIN3D_CAPS with the coarse warm start at 2 dx;
+# the JAX package recorded a FLUID-node relative L2 of vel of 5.9e-3 between
+# the warm and the cold solve at this configuration (its config.py)
+WARM3D_CAPS = MAIN3D_CAPS + ["flow_warm_start=2"]
+WARM_L2_GATE = 2e-2
+# 3D explicit transport at full size: the warm start, both solves capped at
+# 2,000 iterations, then one chunk of explicit steps up to T_final (a few
+# hundred steps at a CFL dt of ~2e-6 s)
+EXPLICIT3D_T_FINAL = 6e-4
+EXPLICIT3D_CAPS = ["use_implicit=0", "flow_warm_start=2", "flow_max_iters=2000",
+                   "corrosion_steps_per_check=1000", "output_every_corr=1000",
+                   f"T_final={EXPLICIT3D_T_FINAL}"]
+EXPLICIT3D_PROFILE_STEPS = 20
+# tests/test_torch_3d_slice.py's SMALL: params_3d.cfg cut to the 8,303-node
+# grid, in f32; the explicit run as tests/test_torch_explicit3d.py's (62
+# steps), the sub-cell run the first 3 s of the implicit one
+SMALL_3D = ["dx=8e-6", "R_wire=16e-6", "L_wire=64e-6", "R_tube=48e-6",
+            "L_upstream=32e-6", "L_downstream=32e-6", "Q_flow=1.667e-10",
+            "D_grain=5e-12", "D_gb=5e-10", "corrosion_accel_l=0",
+            "dissolution_batch=1", "flow_max_iters=100",
+            "flow_max_iters_resolve=50", "precision=f32"]
+SMALL_EXPLICIT_CAPS = SMALL_3D + ["use_implicit=0", "T_final=0.0025",
+                                  "corrosion_steps_per_check=25",
+                                  "output_every_corr=10"]
+SMALL_SUBCELL_CAPS = SMALL_3D + ["wall_mirror_subcell=1", "T_final=3"]
+# gs_parity: the whole f64 run against the C++ reference binary (as
+# tests/test_parity.py), and the CPU slice tests' capped f32 run
+PARITY_GS_CAPS = ["precision=f64", "gs_parity=1",
+                  "implicit_output_every=1000000000"]
+GOLDEN = os.path.join(ROOT, "tests", "golden", "parity_diagnostics_ref.csv")
 # the CPU slice tests' flow cap (tests/test_torch_slice.py), in f32; the
 # explicit run as tests/test_torch_explicit.py: 151 steps of 6.6e-7 s
 PARITY_CAPS = ["precision=f32", "flow_max_iters=300"]
@@ -121,7 +172,7 @@ PARITY_EXPLICIT_CAPS = PARITY_CAPS + ["use_implicit=0", "T_final=1e-4",
 LOSS_ATOL = 4 * 100.0 * float(np.spacing(np.float32(180))) / 180
 SEED = 20261016
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
-          "parity")
+          "warm3d", "explicit3d", "subcell3d", "parity")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -889,6 +940,66 @@ def run_cli(out_dir, args):
         f"{out_dir}/out/diagnostics.csv", delimiter=",", names=True))
 
 
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """module.<name> wrapped for the block: each call appends (args,
+    result, seconds to the device's end, the kernels' launches in it)."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        n0 = kernels.launch_counts()
+        t0 = time.time()
+        r = real(*a, **k)
+        torch.cuda.synchronize()
+        calls.append((a, r, time.time() - t0,
+                      {n: c - n0[n] for n, c in kernels.launch_counts().items()}))
+        return r
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def compare_rows(tag, what, g, c, loss_atol=0.0, limit=1e-4):
+    """Fail unless the diagnostics rows g (CUDA) and c (CPU) have the same
+    solid_nodes and every other column within ``limit`` relative (the mass
+    loss may instead differ by loss_atol)."""
+    same_solid = (len(g) == len(c)
+                  and np.array_equal(g["solid_nodes"], c["solid_nodes"]))
+    diffs, loss_abs = {}, float("inf")
+    if same_solid:
+        for col in ("time_s", "pin_mass_loss_pct", "v_max", "C_max_fluid"):
+            rel = (np.abs(g[col] - c[col])
+                   / np.maximum(np.abs(c[col]), 1e-300))
+            diffs[col] = float(rel.max())
+        loss_abs = float(np.abs(g["pin_mass_loss_pct"]
+                                - c["pin_mass_loss_pct"]).max())
+    print(f"[{tag}] {what}: {len(g)} rows; solid_nodes equal: {same_solid}; "
+          f"max rel diff by column {json.dumps(diffs)} (limit {limit:g}); "
+          f"max abs diff of the loss {loss_abs:.3e} % (limit "
+          f"{loss_atol:.3e} %)")
+    loss_ok = (diffs.get("pin_mass_loss_pct", 1.0) <= limit
+               or loss_abs <= loss_atol)
+    if (not same_solid or not loss_ok or max(
+            v for k, v in diffs.items() if k != "pin_mass_loss_pct") > limit):
+        fail(f"{what}: CUDA vs CPU disagree")
+
+
+def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
+    """run_cli on CUDA and on the CPU; compare_rows of the two."""
+    t0 = time.time()
+    _, g = run_cli(os.path.join(tmp, f"{name}_cuda"), args + ["--device",
+                                                             "cuda"])
+    t1 = time.time()
+    _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
+                                                            "cpu"])
+    compare_rows(tag, f"{name} (cuda {t1 - t0:.2f} s, cpu "
+                 f"{time.time() - t1:.2f} s)", g, c, loss_atol)
+
+
 def phase_main(tmp):
     """Phase 5; returns the launch counts of the 2D main path's run."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
@@ -938,7 +1049,8 @@ def phase_main(tmp):
 
 
 def phase_main3d(tmp):
-    """Phase 7; returns the launch counts of the 3D main path's run."""
+    """Phase 7; returns the launch counts of the 3D main path's run and its
+    initial flow solve (state, iterations, seconds)."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
     from pd_mg_pin_corrosion_tpu_torch.checkpoint import load_checkpoint
 
@@ -959,10 +1071,12 @@ def phase_main3d(tmp):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     coupling.assemble = assemble
+    solves = []
     try:
         t0 = time.time()
-        solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS, "--device",
-                                         "cuda"])
+        with recording(coupling, "solve_steady", solves):
+            solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS,
+                                             "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
@@ -1042,7 +1156,213 @@ def phase_main3d(tmp):
         print(f"[main3d] check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         fail("3D main path checks")
+    (_, (flow, iters, *_), seconds, _) = solves[0]
+    return counts, (flow, iters, seconds)
+
+
+def fluid_l2(a, b, fluid):
+    """Relative L2 of a against b over the FLUID nodes, in float64."""
+    m = fluid.reshape(fluid.shape + (1,) * (a.dim() - fluid.dim()))
+    d = torch.where(m, a.double() - b.double(), 0.0)
+    return float(torch.sqrt((d * d).sum() / torch.where(
+        m, b.double() ** 2, 0.0).sum()))
+
+
+WARM_LINE = re.compile(r"Warm start: coarse \((\d+)x dx, (\d+) nodes\) solve "
+                       r"(\d+) iters, eps=(\S+), converged=(True|False)")
+
+
+def phase_warm3d(tmp, cold):
+    """Phase 8: the warm-started flagship; ``cold`` is main3d's initial
+    flow solve (state, iterations, seconds) or None. Returns the launch
+    counts of the run."""
+    import pd_mg_pin_corrosion_tpu_torch as pkg
+    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels, solvers
+
+    if cold is None:
+        # the cold initial solve of the same configuration
+        cfg = pkg.Config.load(FLAGSHIP)
+        cfg.apply_overrides(MAIN3D_CAPS)
+        grid = pkg.build_grid(cfg)
+        kit = pkg.build_kit(grid, cfg, device="cuda")
+        st = pkg.initialize_state(grid, cfg, grains=pkg.grains.generate(
+            grid, cfg), device="cuda")
+        t0 = time.time()
+        flow, iters, *_ = solvers.solve_steady(st, kit)
+        torch.cuda.synchronize()
+        cold = (flow, iters, time.time() - t0)
+        del kit, st
+    cold_flow, cold_iters, cold_s = cold
+    out_dir = os.path.join(tmp, "warm3d")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    warm, solves = [], []
+    t0 = time.time()
+    with recording(coupling, "coarse_warm_start", warm), \
+            recording(coupling, "solve_steady", solves):
+        solver, rows = run_cli(out_dir, [FLAGSHIP, *WARM3D_CAPS, "--device",
+                                         "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "run.log")) as f:
+        log = f.read()
+    for line in log.splitlines():
+        if any(k in line for k in ("Warm start", "Flow:", "Implicit cycle",
+                                   "WARNING", "[Timer]")):
+            print(f"[warm3d] log: {line.rstrip()}")
+    m = WARM_LINE.search(log)
+    if m is None or not warm or not solves:
+        fail("warm3d: the run printed no warm-start line")
+    ratio, c_nodes, c_iters, c_eps, c_conv = m.groups()
+    (_, _, warm_s, warm_launches) = warm[0]
+    (_, (flow, iters, eps, conv, _), fine_s, fine_launches) = solves[0]
+    fluid = cold_flow.node_type == pkg.FLUID
+    l2_vel = fluid_l2(flow.vel, cold_flow.vel, fluid)
+    l2_rho = fluid_l2(flow.rho, cold_flow.rho, fluid)
+    step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps, 1)
+    print(f"[warm3d] params_3d.cfg {' '.join(WARM3D_CAPS)}: coarse grid "
+          f"({ratio}x dx) {c_nodes} nodes, {c_iters} iterations, eps "
+          f"{c_eps}, converged={c_conv}, {warm_s:.3f} s with the sampling "
+          f"onto the fine grid; fine grid {iters} iterations, eps "
+          f"{eps:.3e}, converged={conv}, {fine_s:.3f} s; cold {cold_iters} "
+          f"iterations, {cold_s:.3f} s")
+    print(f"[warm3d] initial flow phase {warm_s + fine_s:.3f} s warm vs "
+          f"{cold_s:.3f} s cold (host clock, one run each); "
+          f"ns3d launches: {warm_launches['ns3d']} on the coarse grid, "
+          f"{fine_launches['ns3d']} on the fine grid, {counts['ns3d']} in "
+          f"the run")
+    print(f"[warm3d] FLUID-node relative L2 against the cold solve: vel "
+          f"{l2_vel:.3e}, rho {l2_rho:.3e} (vel gate {WARM_L2_GATE:g})")
+    print(f"[warm3d] ms per implicit step {step_ms:.3f} "
+          f"({solver.total_implicit_steps} steps in "
+          f"{solver.implicit_seconds:.3f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB; wall {wall:.2f} s")
+    print(f"[warm3d] launches {json.dumps(counts)}")
+    checks = {
+        "the coarse solve converged": c_conv == "True",
+        "the fine solve converged": bool(conv),
+        "fewer fine iterations than the cold solve's": iters < cold_iters,
+        f"vel within {WARM_L2_GATE:g} of the cold solve": l2_vel <= WARM_L2_GATE,
+        "ns3d launched on both grids": warm_launches["ns3d"] > 0
+            and fine_launches["ns3d"] > 0,
+        "every kernel of the 3D path launched":
+            all(counts[k] > 0 for k in PATH_3D),
+        "20 rows, all finite": len(rows) == 20 and all(
+            np.isfinite(rows[c]).all() for c in rows.dtype.names),
+        "no GMRES non-convergence warning": solver.gmres_warnings == 0,
+        "the solver kept the coarse iterations apart":
+            solver.coarse_iters == int(c_iters)
+            and solver.flow_results[0][0] == iters,
+    }
+    for what, ok in checks.items():
+        print(f"[warm3d] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail("warm3d checks")
     return counts
+
+
+def phase_explicit3d(tmp):
+    """Phase 9: 3D explicit transport; returns the launch counts of the
+    full-size run."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels
+
+    out_dir = os.path.join(tmp, "explicit3d")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    chunks = []
+    t0 = time.time()
+    with recording(coupling, "explicit_chunk", chunks):
+        solver, rows = run_cli(out_dir, [FLAGSHIP, *EXPLICIT3D_CAPS,
+                                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "run.log")) as f:
+        for line in f:
+            if any(k in line for k in ("Warm start", "Flow:", "Corrosion dt",
+                                       "Phase change", "WARNING", "[Timer]")):
+                print(f"[explicit3d] log: {line.rstrip()}")
+    st = solver.final_state
+    steps = solver.explicit_steps
+    chunk_ms = 1e3 * sum(c[2] for c in chunks) / max(steps, 1)
+    print(f"[explicit3d] params_3d.cfg {' '.join(EXPLICIT3D_CAPS)}: "
+          f"{solver.cycles} cycle(s), {steps} explicit steps in "
+          f"{len(chunks)} chunk(s), {chunk_ms:.4f} ms per step (BCs and "
+          f"transport, host clock to the device's end), "
+          f"{1e3 * solver.explicit_seconds / max(steps, 1):.4f} ms with the "
+          f"VTI and the diagnostics row; flow solves {solver.flow_results}; "
+          f"peak device memory {peak / 2**30:.2f} GiB; wall {wall:.2f} s")
+    print(f"[explicit3d] launches {json.dumps(counts)}")
+    last = rows[-1]
+    checks = {
+        "a few hundred explicit steps in one chunk":
+            steps >= 100 and len(chunks) == 1
+            and solver.total_implicit_steps == 0,
+        "no kernel of the 2D step launched": counts["ard2d"] == 0,
+        "the flow ran on ns3d": counts["ns3d"] > 0,
+        "a row at T_final, all finite":
+            float(last["time_s"]) >= EXPLICIT3D_T_FINAL * (1 - 1e-6) and all(
+                np.isfinite(rows[c]).all() for c in rows.dtype.names),
+        "all state tensors on cuda": all(t.is_cuda for t in st.tensors()),
+    }
+    for what, ok in checks.items():
+        print(f"[explicit3d] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail("explicit3d checks")
+
+    # a window of explicit steps on the run's final state, timed and
+    # profiled (scripts/profile_torch_3d.py's window)
+    spec = importlib.util.spec_from_file_location("profile_torch_3d", PROFILE)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    (_, kit, dt, vol, _), *_ = chunks[0]
+    n = EXPLICIT3D_PROFILE_STEPS
+    with open(os.path.join(out_dir, "profile.txt"), "w") as out:
+        prof.window("explicit3d", lambda: coupling.explicit_chunk(
+            st, kit, dt, vol, n), n, out)
+    del kit, chunks, st, solver
+
+    # the small grid, CUDA against the CPU path: the mass loss over its 99
+    # initially solid nodes keeps only the last bits of the f32 sum
+    n0 = 99
+    run_cuda_and_cpu(tmp, "explicit3d", "small3d_explicit",
+                     [FLAGSHIP, *SMALL_EXPLICIT_CAPS],
+                     4 * 100.0 * float(np.spacing(np.float32(n0))) / n0)
+    return counts
+
+
+def phase_subcell3d(tmp):
+    """Phase 10: the sub-cell 3D wall mirror."""
+    import pd_mg_pin_corrosion_tpu_torch as pkg
+
+    run_cuda_and_cpu(tmp, "subcell3d", "small3d_subcell",
+                     [FLAGSHIP, *SMALL_SUBCELL_CAPS])
+    cfg = pkg.Config.load(FLAGSHIP)
+    cfg.apply_overrides(["wall_mirror_subcell=1"])
+    grid = pkg.build_grid(cfg)
+    t0 = time.time()
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    xs = kit.shape[1] * kit.shape[2]
+    dst, w = kit.mirror_sub_dst, kit.mirror_sub_w
+    cols, first = np.unique((dst % xs).cpu().numpy(), return_index=True)
+    terms = (w[:, torch.as_tensor(first, device=w.device)] > 0).sum(0)
+    weighted = int((terms > 1).sum())
+    sums = w.double().sum(0)
+    print(f"[subcell3d] params_3d.cfg wall_mirror_subcell=1 at full size: "
+          f"kit built in {build_s:.2f} s; {cols.size} primary columns, "
+          f"{weighted} of them with more than one weight; {dst.numel()} "
+          f"wall nodes mirrored bilinearly, weights summing to "
+          f"{float(sums.min()):.6f}-{float(sums.max()):.6f}")
+    if not (cols.size > 0 and weighted > 0.5 * cols.size
+            and float((sums - 1.0).abs().max()) < 1e-3):
+        fail("subcell3d: the flagship's sub-cell mirror terms")
 
 
 def phase_ladder():
@@ -1152,43 +1472,46 @@ def phase_explicit(tmp):
 
 
 def phase_parity(tmp):
-    """Phase 8: parity.cfg with the kernels on CUDA vs the plain twins on
-    the CPU, implicit and explicit. Every column within 1e-4 relative; in
-    the explicit run the mass loss, 100 (1 - sum C / n0) over the n0 = 180
-    initially solid nodes, may instead differ by LOSS_ATOL: after its 151
-    steps it is ~1e-2 % and keeps only the last bits of the float32 sum,
-    which CUDA and the CPU take in different orders."""
-    for tag, caps, loss_atol in (("implicit", PARITY_CAPS, 0.0),
-                                 ("explicit", PARITY_EXPLICIT_CAPS, LOSS_ATOL)):
-        t0 = time.time()
-        gpu, g = run_cli(os.path.join(tmp, f"parity_{tag}_cuda"),
-                         [PARITY, *caps, "--device", "cuda"])
-        t1 = time.time()
-        cpu, c = run_cli(os.path.join(tmp, f"parity_{tag}_cpu"),
-                         [PARITY, *caps, "--device", "cpu"])
-        t2 = time.time()
-        same_solid = (len(g) == len(c)
-                      and np.array_equal(g["solid_nodes"], c["solid_nodes"]))
-        diffs, loss_abs = {}, float("inf")
-        if same_solid:
-            for col in ("time_s", "pin_mass_loss_pct", "v_max", "C_max_fluid"):
-                rel = (np.abs(g[col] - c[col])
-                       / np.maximum(np.abs(c[col]), 1e-300))
-                diffs[col] = float(rel.max())
-            loss_abs = float(np.abs(g["pin_mass_loss_pct"]
-                                    - c["pin_mass_loss_pct"]).max())
-        print(f"[parity] tests/golden/parity.cfg {' '.join(caps)}: {len(g)} "
-              f"rows, cuda {t1 - t0:.2f} s vs cpu {t2 - t1:.2f} s; "
-              f"solid_nodes equal: {same_solid}; max rel diff by column "
-              f"{json.dumps(diffs)} (limit 1e-4); max abs diff of the loss "
-              f"{loss_abs:.3e} % (limit {loss_atol:.3e} %)")
-        loss_ok = (diffs.get("pin_mass_loss_pct", 1.0) <= 1e-4
-                   or loss_abs <= loss_atol)
-        if (not same_solid or not loss_ok or max(
-                v for k, v in diffs.items() if k != "pin_mass_loss_pct")
-                > 1e-4):
-            fail(f"parity.cfg ({tag}): CUDA kernels vs CPU plain path "
-                 f"disagree")
+    """Phase 11: parity.cfg with the kernels on CUDA vs the plain twins on
+    the CPU, implicit, explicit and gs_parity, in float32. Every column
+    within 1e-4 relative; in the explicit run the mass loss, 100 (1 - sum C
+    / n0) over the n0 = 180 initially solid nodes, may instead differ by
+    LOSS_ATOL: after its 151 steps it is ~1e-2 % and keeps only the last
+    bits of the float32 sum, which CUDA and the CPU take in different
+    orders. Then the whole gs_parity run in float64 on CUDA against the C++
+    reference binary's diagnostics.csv."""
+    for tag, caps, loss_atol in (
+            ("implicit", PARITY_CAPS, 0.0),
+            ("explicit", PARITY_EXPLICIT_CAPS, LOSS_ATOL),
+            ("gs", PARITY_CAPS + ["gs_parity=1"], 0.0)):
+        run_cuda_and_cpu(tmp, "parity", f"parity_{tag}", [PARITY, *caps],
+                         loss_atol)
+
+    t0 = time.time()
+    solver, ours = run_cli(os.path.join(tmp, "parity_gs_f64"),
+                           [PARITY, *PARITY_GS_CAPS, "--device", "cuda"])
+    wall = time.time() - t0
+    ref = np.atleast_1d(np.genfromtxt(GOLDEN, delimiter=",", names=True))
+    with open(GOLDEN) as f, open(os.path.join(
+            tmp, "parity_gs_f64", "out", "diagnostics.csv")) as g:
+        identical = f.read() == g.read()
+    ok = len(ours) == len(ref) and np.array_equal(ours["solid_nodes"],
+                                                  ref["solid_nodes"])
+    diffs = {}
+    if ok:
+        diffs = {c: float((np.abs(ours[c] - ref[c]) / np.abs(ref[c])).max())
+                 for c in ("time_s", "pin_mass_loss_pct", "v_max",
+                           "C_max_fluid")}
+    gates = {"time_s": 1e-9, "pin_mass_loss_pct": 1e-6, "v_max": 1e-6,
+             "C_max_fluid": 1e-6}
+    print(f"[parity] gs_parity f64 on CUDA vs the C++ reference binary "
+          f"(tests/golden/parity_diagnostics_ref.csv): {len(ours)} rows, "
+          f"{sum(r[0] for r in solver.flow_results)} flow iterations in "
+          f"{solver.flow_seconds:.2f} s, wall {wall:.2f} s; solid_nodes "
+          f"equal: {ok}; max rel diff {json.dumps(diffs)} (gates "
+          f"{json.dumps(gates)}); byte-identical: {identical}")
+    if not ok or any(diffs[c] > g for c, g in gates.items()):
+        fail("parity.cfg gs_parity f64 on CUDA vs the reference binary")
 
 
 def kernel_label(line):
@@ -1251,28 +1574,37 @@ def main():
         measured.update(phase_kernels(pkg))
     if "kernels3d" in phases:
         measured.update(phase_kernels3d(pkg))
+    cold = None
     with tempfile.TemporaryDirectory() as tmp:
         for name, run in (("ladder", phase_ladder),
                           ("main", lambda: phase_main(tmp)),
                           ("explicit", lambda: phase_explicit(tmp)),
-                          ("main3d", lambda: phase_main3d(tmp))):
+                          ("main3d", lambda: phase_main3d(tmp)),
+                          ("warm3d", lambda: phase_warm3d(tmp, cold)),
+                          ("explicit3d", lambda: phase_explicit3d(tmp))):
             if name in phases:
                 counts[name] = run()
+                if name == "main3d":
+                    counts[name], cold = counts[name]
+        if "subcell3d" in phases:
+            phase_subcell3d(tmp)
         if "parity" in phases:
             phase_parity(tmp)
 
     # each kernel's launches on the main path that runs it at the shape it
-    # was timed at: the 2D one for the basis kernels, the 3D one for ns3d
-    owner = {**{k: "ladder" for k in PATH_LADDER},
-             **{k: "main3d" for k in PATH_3D},
-             **{k: "main" for k in PATH_2D},
-             **{k: "explicit" for k in PATH_EXPLICIT}}
+    # was timed at: the 2D one for the basis kernels, the 3D one (main3d,
+    # else warm3d) for ns3d
+    owner = {**{k: ("ladder",) for k in PATH_LADDER},
+             **{k: ("main3d", "warm3d") for k in PATH_3D},
+             **{k: ("main",) for k in PATH_2D},
+             **{k: ("explicit",) for k in PATH_EXPLICIT}}
     rows = []
     for k in KERNELS:
         if k.name in measured:
+            run = next((p for p in owner[k.name] if p in counts), None)
             rows.append({"name": k.name, "route": "cuda", "source": k.source,
                          "replaces": k.replaces,
-                         "launches": counts.get(owner[k.name], {}).get(k.name),
+                         "launches": counts.get(run, {}).get(k.name),
                          **measured[k.name]})
     print(f"[device] chip_smoke total {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -24,15 +24,8 @@ from .fields import DeviceUnavailable
 # configurations the port does not run yet, with the ROADMAP item that adds them
 _UNSUPPORTED = (
     (lambda c: c.use_amr, "use_amr = 1", "block AMR"),
-    (lambda c: c.dim == 3 and not c.use_implicit,
-     "dim = 3 with use_implicit = 0", "3D explicit transport (no kernel)"),
-    (lambda c: c.gs_parity, "gs_parity = 1", "gs_parity"),
-    (lambda c: c.flow_warm_start > 0, "flow_warm_start > 0",
-     "flow_warm_start"),
     (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
      "left out: implicit_extrapolate_x0"),
-    (lambda c: c.dim == 3 and c.wall_mirror_subcell,
-     "wall_mirror_subcell = 1", "wall_mirror_subcell"),
 )
 
 

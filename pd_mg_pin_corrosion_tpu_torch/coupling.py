@@ -5,11 +5,12 @@ Port of the step-at-a-time host loop of
 ``pd_mg_pin_corrosion_tpu/coupling.py`` ``CoupledSolver.run`` (reference
 src/coupling.cpp:82-302):
 
-* Phase 1 — flow re-solve only when dissolution changed the geometry;
+* Phase 1 — flow re-solve only when dissolution changed the geometry; the
+  first solve starts from a coarse-grid warm start under flow_warm_start;
 * Phase 2 — corrosion with frozen velocity. Implicit (``use_implicit =
   1``): the operator is assembled once per cycle, adaptive dt per step,
   exit at the dissolution_batch-th node below C_thresh or after
-  corrosion_steps_per_check steps. Explicit (2D): one CFL dt per cycle,
+  corrosion_steps_per_check steps. Explicit: one CFL dt per cycle,
   corrosion_steps_per_check steps in chunks of output_every_corr, each
   chunk BCs then ``ard_step`` per step;
 * Phase 3 — phase change as a device-side remask (no neighbour rebuild).
@@ -40,7 +41,7 @@ from .io_vtk import VTKWriter
 from .ops.ard import apply_phase_change, ard_step, compute_dt
 from .ops.ard_implicit import assemble, compute_adaptive_dt, implicit_step
 from .ops.ns import vel_magnitude
-from .solvers import poiseuille_l2_error, solve_steady
+from .solvers import coarse_warm_start, poiseuille_l2_error, solve_steady
 
 # the two CSVs (coupling.cpp:55-80): file name, header, seconds per unit of
 # the first column
@@ -113,6 +114,9 @@ class CoupledSolver:
         # run totals read by chip_smoke.py and the phase report
         self.flow_iters = 0
         self.flow_seconds = 0.0
+        # iterations of the coarse warm start of the initial flow solve
+        # (flow_warm_start), kept apart from the fine solves' flow_iters
+        self.coarse_iters = 0
         self.implicit_seconds = 0.0
         self.assemble_seconds = 0.0   # operator assembly (and packing)
         self.explicit_steps = 0
@@ -345,11 +349,16 @@ class CoupledSolver:
             if need_flow_solve:
                 print(f"  Flow re-solve triggered ({self.dissolved_since_flow} "
                       f"nodes dissolved since last flow solve)")
-                t_ph = time.time()
                 is_resolve = cycle > 1 or self.total_dissolved > 0
                 cap = (cfg.flow_max_iters_resolve
                        if is_resolve and cfg.flow_max_iters_resolve > 0
                        else None)
+                if not is_resolve and cfg.flow_warm_start:
+                    t_ph = time.time()
+                    state, self.coarse_iters = coarse_warm_start(
+                        state, grid, kit, cfg)
+                    self._phase("warm_start", t_ph, fence=True)
+                t_ph = time.time()
                 state, iters, eps, conv, div = solve_steady(state, kit,
                                                             max_iters=cap)
                 self._sync()

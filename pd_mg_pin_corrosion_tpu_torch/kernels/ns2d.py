@@ -35,40 +35,44 @@ def _constants(kit: Kit):
 
 def ns2d_plain(rho, vel, p, node_type, dt, kit: Kit):
     """(rho_new, vel_new) of one PD-NS step; every node that is not FLUID
-    keeps its input value. ``p`` is Tait(rho); ``dt`` a 0-d tensor."""
+    keeps its input value. ``p`` is Tait(rho); ``dt`` a 0-d tensor. Only
+    the FLUID nodes are computed, over [S, n] gathers of their neighbour
+    values (``kit.gather``)."""
     dens = _constants(kit)[0]
-    ixi, ixi2, ex, ey, vol = kit.slot_coefs.to(rho.dtype)[:, :, None, None]
+    ixi, ixi2, (ex, ey), vol = kit.coefs(dtype=rho.dtype, flat=True)
 
+    flat = (node_type == FLUID).reshape(-1).nonzero().squeeze(1)
     vx, vy = vel[..., 0], vel[..., 1]
     mx, my = rho * vx, rho * vy
+    act = (node_type != OUTSIDE).to(rho.dtype)
+    fields = (act, mx, my, vx, vy, p, rho)
+    # [S, n] neighbour values, 0 outside the grid
+    A, MX, MY, VX, VY, P, R = kit.gather(
+        kit.padded_index(flat), 0, kit.S, *(kit.pad(f, 0.0) for f in fields))
+    mx, my, vx, vy, p, rho_c = (f.reshape(-1)[flat] for f in fields[1:])
     qxx, qxy, qyx, qyy = mx * vx, mx * vy, my * vx, my * vy
 
-    def nb(A):  # [S, Ny, Nx] neighbour values, 0 outside the grid
-        return kit.neighbors(kit.pad(A, 0.0))
-
-    act = (node_type != OUTSIDE).to(rho.dtype)
-    V = vol * nb(act)
-    MX, MY, VX, VY = nb(mx), nb(my), nb(vx), nb(vy)
+    V = vol * A
     # an exactly-zero e component contributes an exact (+-)0 to each sum
     flux = (MX - mx) * ex + (MY - my) * ey
     cx = (MX * VX - qxx) * ex + (MX * VY - qxy) * ey
     cy = (MY * VX - qyx) * ex + (MY * VY - qyy) * ey
-    dp = nb(p) - p
+    dp = P - p
     # per-bond terms of the 8 accumulators, written straight into one
-    # [8, S, Ny, Nx] buffer and summed over slots together
+    # [8, S, n] buffer and summed over slots together
     T = torch.empty((8,) + V.shape, dtype=rho.dtype, device=rho.device)
-    for k, term in enumerate((flux * ixi, dens * (nb(rho) - rho) * ixi2,
+    for k, term in enumerate((flux * ixi, dens * (R - rho_c) * ixi2,
                               cx * ixi, cy * ixi, dp * ex * ixi,
                               dp * ey * ixi, (VX - vx) * ixi2,
                               (VY - vy) * ixi2)):
         torch.mul(term, V, out=T[k])
-    rho_new, vx_new, vy_new = _update(rho, vx, vy, slot_sum(T.transpose(0, 1)),
-                                      dt, kit)
+    rho_new, vx_new, vy_new = _update(rho_c, vx, vy,
+                                      slot_sum(T.transpose(0, 1)), dt, kit)
 
-    fluid = node_type == FLUID
-    rho_out = torch.where(fluid, rho_new, rho)
-    vel_out = torch.where(fluid[..., None],
-                          torch.stack([vx_new, vy_new], dim=-1), vel)
+    rho_out = rho.clone()
+    rho_out.view(-1)[flat] = rho_new
+    vel_out = vel.clone()
+    vel_out.view(-1, 2)[flat] = torch.stack([vx_new, vy_new], dim=-1)
     return rho_out, vel_out
 
 

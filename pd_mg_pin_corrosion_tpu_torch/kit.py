@@ -14,8 +14,11 @@ Departures from the JAX Kit, all layout-only:
 * the FNM wall mirror is one flat gather (``mirror_src``) in 2D and 3D,
   instead of roll-per-offset groups (2D) or one-hot cross-section matmuls
   (3D) — both existed because a gather was slow or crashed on the TPU; the
-  values moved are the same;
-* the Gauss-Seidel parity tables are not built (gs_parity is not ported);
+  values moved are the same. The sub-cell 3D mirror
+  (``wall_mirror_subcell``) is up to four weighted gathers per wall node of
+  a primary column (``mirror_sub_*``) in place of the weighted matmul;
+* the Gauss-Seidel parity tables (``gs``) stay on the host, where the
+  sequential sweeps run;
 * ``cfg`` is a frozen snapshot, so editing the caller's Config cannot change
   a built Kit.
 """
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 
 from .config import Config, FrozenConfig
 from .fields import poiseuille_axial, resolve_device
-from .grid import INLET, OUTLET, OUTSIDE, SOLID_MG, WALL, Grid
+from .grid import FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG, WALL, Grid
 
 PI = math.pi
 
@@ -70,6 +73,16 @@ class Kit:
     # stencil order in the run dtype (JAX kit._actconv3d_np). act never
     # changes over a run (dissolution turns SOLID into FLUID, both active).
     actconv3d: torch.Tensor          # [4, *S] run dtype
+    # wall_mirror_subcell (3D): the wall nodes of the primary mirror columns
+    # (JAX _mirror_tables_3d) and their bilinear sources in their own
+    # z-plane, up to 4 in ascending flat order (unused terms weigh 0);
+    # empty otherwise. The weights are the JAX kit's float32 wm_G entries
+    # in the run dtype.
+    mirror_sub_dst: torch.Tensor     # [n] int64 flat node index
+    mirror_sub_src: torch.Tensor     # [4, n] int64 flat source index
+    mirror_sub_w: torch.Tensor       # [4, n] run dtype
+    # gs_parity: the sequential sweeps' host tables, None otherwise
+    gs: "GsTables | None"
 
     # --- static metadata ---
     cfg: FrozenConfig
@@ -164,7 +177,8 @@ class Kit:
         (from ``padded_index``): one [s1 - s0, len(pidx)] tensor per field,
         element [s - s0, q] = shift(Ap, s) at node q."""
         idx = pidx[None, :] + self.slot_flat[s0:s1, None]
-        return [Ap.reshape(-1)[idx] for Ap in padded]
+        return [Ap.reshape(-1).index_select(0, idx.reshape(-1)).view(idx.shape)
+                for Ap in padded]
 
     def slot_chunks(self, nodes: int | None = None):
         """(s0, s1) ranges covering the stencil in order, each small enough
@@ -203,11 +217,6 @@ def slot_sum(T: torch.Tensor) -> torch.Tensor:
 def build_kit(grid: Grid, cfg: Config, dtype=None, device="cuda") -> Kit:
     """The kit of ``grid`` under ``cfg``, on the card unless
     ``device="cpu"`` (no card: DeviceUnavailable)."""
-    if grid.dim == 3 and cfg.wall_mirror_subcell:
-        raise NotImplementedError(
-            "wall_mirror_subcell = 1 (the bilinear 3D wall mirror, "
-            "_subcell_G_3d) is not ported yet (ROADMAP.md, port order: "
-            "'wall_mirror_subcell')")
     if dtype is None:
         dtype = torch.float64 if cfg.precision == "f64" else torch.float32
     device = resolve_device(device)
@@ -259,6 +268,9 @@ def build_kit(grid: Grid, cfg: Config, dtype=None, device="cuda") -> Kit:
                            dev(evec, dtype), dev(np.asarray(st.vol), dtype)[None]])
 
     ns_slots, ns_coefs, actconv = _ns3d_tables(grid, dtype, device)
+    sub_dst, sub_src, sub_w = _subcell_mirror(cfg, grid)
+    gs = (_gs_tables(nt, np.asarray(st.offsets, np.int64), near_inlet,
+                     near_outlet, device) if cfg.gs_parity else None)
     return Kit(
         inlet_mask=dev(nt == INLET),
         outlet_mask=dev(nt == OUTLET),
@@ -278,6 +290,10 @@ def build_kit(grid: Grid, cfg: Config, dtype=None, device="cuda") -> Kit:
         ns_offsets=dev(np.asarray(st.offsets, np.int32)[ns_slots].reshape(-1, 3)),
         ns_coefs=dev(ns_coefs, dtype),
         actconv3d=actconv,
+        mirror_sub_dst=dev(sub_dst),
+        mirror_sub_src=dev(sub_src),
+        mirror_sub_w=dev(sub_w, dtype),
+        gs=gs,
         cfg=FrozenConfig(cfg),
         dim=grid.dim,
         shape=grid.shape,
@@ -333,3 +349,225 @@ def _ns3d_tables(grid: Grid, dtype, device):
 def _round(x: float, dtype) -> float:
     """x rounded to the run dtype, as a Python float."""
     return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# gs_parity: the reference's in-place sweeps, replayed on the host
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class GsSweep:
+    """One Gauss-Seidel sweep's plan. ``band`` holds the flat indices of
+    every node the sweep reads or writes (a device tensor); per swept
+    node, in the sweep's order, ``nodes`` holds its position in ``band``
+    and the band positions of the neighbours it may read, in slot order."""
+    band: torch.Tensor     # [n] int64
+    swept: torch.Tensor    # [B] int64: band positions of the swept nodes
+    nodes: tuple           # ((i, (j, ...)), ...) band positions
+
+
+@dataclass(frozen=True, eq=False)
+class GsTables:
+    """The host tables of the gs_parity sweeps (JAX kit._gs_tables, the
+    same eight arrays) and the plans built from them."""
+    out_idx: np.ndarray       # [B_out] int32 OUTLET nodes, ascending
+    out_nbr: np.ndarray       # [B_out, S] int32 flat neighbour (clipped)
+    out_valid: np.ndarray     # [B_out, S] bool: in range and not OUTSIDE
+    smo_idx: np.ndarray       # [B_smo] int32 smoothing band, ascending
+    smo_nbr: np.ndarray       # [B_smo, S] int32
+    smo_valid: np.ndarray     # [B_smo, S] bool
+    smo_near_in: np.ndarray   # [B_smo] bool
+    smo_near_out: np.ndarray  # [B_smo] bool
+    outlet: GsSweep           # every valid neighbour
+    smooth: GsSweep           # valid neighbours on the interior side
+
+
+def _gs_tables(nt: np.ndarray, offsets: np.ndarray, near_in: np.ndarray,
+               near_out: np.ndarray, device) -> GsTables:
+    """Host-side flat-index tables for the Gauss-Seidel parity sweeps (a
+    copy of JAX ``kit._gs_tables``).
+
+    Ascending flat order == the reference's node index order (grid.h:58-64:
+    j*Nx+i in 2D, k*Nx*Ny+j*Nx+i in 3D, matching this package's C-order
+    [axial-first] layout), which is the sequential order of the reference's
+    in-place sweeps under one OpenMP thread.
+    """
+    shape = nt.shape
+    shp = np.asarray(shape)
+    nt_flat = nt.ravel()
+
+    def nbr_of(flat_idx: np.ndarray):
+        coords = np.stack(np.unravel_index(flat_idx, shape), -1)     # [B, nd]
+        nc = coords[:, None, :] + offsets[None, :, :]                # [B, S, nd]
+        inb = np.all((nc >= 0) & (nc < shp), axis=-1)
+        ncc = np.clip(nc, 0, shp - 1)
+        flat = np.ravel_multi_index(
+            tuple(np.moveaxis(ncc, -1, 0)), shape).astype(np.int32)
+        # CSR parity: OUTSIDE nodes are never neighbors (grid.cpp:196-199)
+        valid = inb & (nt_flat[flat] != OUTSIDE)
+        return flat, valid
+
+    out_idx = np.flatnonzero(nt_flat == OUTLET).astype(np.int32)
+    out_nbr, out_valid = nbr_of(out_idx)
+
+    # smoothing band: static geometry; restrict to nodes that can ever be
+    # FLUID (WALL/INLET/OUTLET/OUTSIDE never change type)
+    smo_mask = (near_in | near_out) & ((nt == FLUID) | (nt == SOLID_MG))
+    smo_idx = np.flatnonzero(smo_mask.ravel()).astype(np.int32)
+    smo_nbr, smo_valid = nbr_of(smo_idx)
+    smo_near_in = near_in.ravel()[smo_idx]
+    smo_near_out = near_out.ravel()[smo_idx]
+
+    # the smoothing reads the interior side only, a static test per slot:
+    # the outlet band reads slots toward the inlet (negative axial offset),
+    # the inlet band slots toward the outlet (boundary.cpp:355-366)
+    sgn = offsets[:, 0]
+    side = ((smo_near_out[:, None] & (sgn < 0)[None, :])
+            | (smo_near_in[:, None] & (sgn > 0)[None, :]))
+    return GsTables(
+        out_idx, out_nbr, out_valid, smo_idx, smo_nbr, smo_valid,
+        smo_near_in, smo_near_out,
+        outlet=_gs_sweep(out_idx, out_nbr, out_valid, device),
+        smooth=_gs_sweep(smo_idx, smo_nbr, smo_valid & side, device))
+
+
+def _gs_sweep(idx: np.ndarray, nbr: np.ndarray, use: np.ndarray,
+              device) -> GsSweep:
+    band = np.unique(np.concatenate([idx, nbr[use]]).astype(np.int64))
+    at = {int(q): n for n, q in enumerate(band)}
+    nodes = tuple((at[int(i)], tuple(at[int(j)] for j in row[ok]))
+                  for i, row, ok in zip(idx, nbr, use))
+    return GsSweep(
+        band=torch.as_tensor(band).to(device),
+        swept=torch.as_tensor([i for i, _ in nodes],
+                              dtype=torch.int64).to(device),
+        nodes=nodes)
+
+
+# ---------------------------------------------------------------------------
+# wall_mirror_subcell: the bilinear 3D wall mirror
+# ---------------------------------------------------------------------------
+
+def _mirror_columns_3d(shape, mirror_idx: np.ndarray,
+                       node_type: np.ndarray):
+    """The primary columns of the 3D wall mirror (JAX
+    ``kit._mirror_tables_3d``): cross-section columns (j, i) whose every
+    z-plane's mirror source lies in the same plane at one cross-section
+    source, and whose planes without a source are OUTSIDE (ascending flat
+    cross-section indices); every other mirrored node keeps its staircase
+    source."""
+    Nz = shape[0]
+    XS = shape[1] * shape[2]
+    mi = mirror_idx.reshape(Nz, XS)
+    nt = node_type.reshape(Nz, XS)
+    has = mi >= 0
+
+    src_k = np.where(has, mi // XS, -1)
+    src_q = np.where(has, mi % XS, -1)
+    own_k = np.broadcast_to(np.arange(Nz)[:, None], (Nz, XS))
+
+    any_have = has.any(axis=0)
+    # reference src column = the first mirror-carrying plane's source
+    first_k = np.argmax(has, axis=0)
+    ref_q = src_q[first_k, np.arange(XS)]
+    in_plane_ok = ((src_k == own_k) | ~has).all(axis=0)
+    same_q_ok = ((src_q == ref_q[None, :]) | ~has).all(axis=0)
+    dead_ok = (has | (nt == OUTSIDE)).all(axis=0)
+    col_invariant = any_have & in_plane_ok & same_q_ok & dead_ok
+
+    return np.flatnonzero(col_invariant).astype(np.int32)
+
+
+def _subcell_G_3d(cfg, grid: Grid, dst_cols: np.ndarray, XS: int) -> np.ndarray:
+    """Weighted cross-section mirror operator for the sub-cell wall mirror
+    (a copy of JAX ``kit._subcell_G_3d``): column p of G holds the BILINEAR
+    weights of the reflected point 2*R_tube - r on the surrounding lattice
+    nodes, instead of a one-hot at the nearest node. Weights are
+    z-invariant (geometry only) and float32. Corners outside the accepted
+    set (WALL/OUTSIDE) are dropped and the rest renormalized; a column with
+    no accepted corner falls back to one-hot at the nearest accepted node
+    in-plane."""
+    Ny, Nx = grid.shape[1], grid.shape[2]
+    dx = grid.dx
+    ox, oy = grid.origin[0], grid.origin[1]
+    # representative z-plane for accepted-type lookup: the one with the
+    # most in-tube (accepted) nodes — robust against axially padded grids
+    accepted_types = (FLUID, INLET, OUTLET, SOLID_MG)
+    acc3 = np.isin(grid.node_type, accepted_types)
+    k_rep = int(np.argmax(acc3.reshape(grid.shape[0], -1).sum(axis=1)))
+    acc = acc3[k_rep].ravel()
+
+    P = dst_cols.size
+    G = np.zeros((XS, max(P, 1)), np.float32)
+    for p, q in enumerate(dst_cols):
+        j, i = divmod(int(q), Nx)
+        x = ox + i * dx
+        y = oy + j * dx
+        r = math.sqrt(x * x + y * y)
+        r_m = 2.0 * cfg.R_tube - r
+        xm = x * r_m / r
+        ym = y * r_m / r
+        fi = (xm - ox) / dx
+        fj = (ym - oy) / dx
+        i0 = int(math.floor(fi))
+        j0 = int(math.floor(fj))
+        tx = fi - i0
+        ty = fj - j0
+        w = {(j0, i0): (1 - tx) * (1 - ty), (j0, i0 + 1): tx * (1 - ty),
+             (j0 + 1, i0): (1 - tx) * ty, (j0 + 1, i0 + 1): tx * ty}
+        tot = 0.0
+        ent = []
+        for (jj, ii), ww in w.items():
+            if ww <= 0.0 or not (0 <= jj < Ny and 0 <= ii < Nx):
+                continue
+            col = jj * Nx + ii
+            if not acc[col]:
+                continue
+            ent.append((col, ww))
+            tot += ww
+        if tot <= 0.0:
+            # degenerate: keep the staircase one-hot source for this column
+            # (nearest accepted node in-plane, as in _build_mirror_table)
+            best, best_d = -1, np.inf
+            for jj in range(max(0, j0 - 1), min(Ny, j0 + 3)):
+                for ii in range(max(0, i0 - 1), min(Nx, i0 + 3)):
+                    col = jj * Nx + ii
+                    if not acc[col]:
+                        continue
+                    d = (jj - fj) ** 2 + (ii - fi) ** 2
+                    if d < best_d:
+                        best_d, best = d, col
+            if best >= 0:
+                G[best, p] = 1.0
+            continue
+        for col, ww in ent:
+            G[col, p] = ww / tot
+    return G
+
+
+def _subcell_mirror(cfg, grid: Grid):
+    """(dst [n], src [4, n], w [4, n]) of the sub-cell 3D wall mirror: each
+    mirrored node of a primary column reads the nonzero entries of its
+    column of G in its own z-plane, in ascending order (G's matmul sums
+    over the cross-section in that order); empty unless
+    cfg.wall_mirror_subcell in 3D."""
+    empty = (np.zeros(0, np.int64), np.zeros((4, 0), np.int64),
+             np.zeros((4, 0), np.float32))
+    if grid.dim != 3 or not cfg.wall_mirror_subcell:
+        return empty
+    Nz, XS = grid.shape[0], grid.shape[1] * grid.shape[2]
+    dst_cols = _mirror_columns_3d(grid.shape, grid.mirror_idx,
+                                  grid.node_type)
+    G = _subcell_G_3d(cfg, grid, dst_cols, XS)
+    cols = np.zeros((4, dst_cols.size), np.int64)
+    wts = np.zeros((4, dst_cols.size), np.float32)
+    for p in range(dst_cols.size):
+        nz = np.flatnonzero(G[:, p])
+        cols[:len(nz), p] = nz
+        wts[:len(nz), p] = G[nz, p]
+    has = grid.mirror_idx.reshape(Nz, XS)[:, dst_cols] >= 0   # [Nz, P]
+    k, p = np.nonzero(has)
+    dst = k * XS + dst_cols[p].astype(np.int64)
+    # a term of weight 0 reads the node itself
+    src = np.where(wts[:, p] != 0, k * XS + cols[:, p], dst)
+    return dst, src, wts[:, p]

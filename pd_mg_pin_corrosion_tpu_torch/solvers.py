@@ -1,7 +1,8 @@
 """Steady-state flow solve, host loop over device steps.
 
 Port of ``solve_steady`` / ``_channel_flow_corrections`` /
-``poiseuille_l2_error`` of ``pd_mg_pin_corrosion_tpu/solvers.py``, keeping
+``coarse_warm_start`` / ``poiseuille_l2_error`` of
+``pd_mg_pin_corrosion_tpu/solvers.py``, keeping
 the reference's cadence exactly (src/pd_ns.cpp:182-372): checks on the
 first 10 iterations and every 100th, convergence only for iter > 100, the
 velocity-blowup guard at 100x U_in, dt refresh every 200 iterations, and an
@@ -114,6 +115,75 @@ def solve_steady(state: State, kit: Kit, verbose: bool = False,
 
     state = replace(state, pressure=tait_pressure(state.rho, kit))
     return state, it, eps, conv, div
+
+
+def coarse_warm_start(state: State, grid, kit: Kit, cfg):
+    """Coarse-grid warm start for the INITIAL steady flow solve
+    (cfg.flow_warm_start = coarsening ratio; JAX ``solvers.py:207-271``).
+
+    Solves steady flow on the coarse twin of the same geometry (cfg with
+    dx * ratio, on the kit's device and dtype), then samples its (rho, vel)
+    trilinearly at the fine node positions, in float64 on the host
+    (``scipy.ndimage.map_coordinates``, order 1, mode "nearest", as the
+    reference does), and writes them onto FLUID nodes only, with the
+    pressure recomputed. The fine solve's convergence gate is unchanged.
+
+    Returns (state, coarse_iters); (state, 0) unchanged when the coarse
+    grid has no SOLID_MG node or the coarse solve diverged.
+    """
+    import copy
+
+    from scipy.ndimage import map_coordinates
+
+    from .fields import initialize_state
+    from .grid import SOLID_MG, build_grid
+    from .kit import build_kit
+
+    ratio = int(cfg.flow_warm_start)
+    ccfg = copy.copy(cfg)
+    ccfg.dx = cfg.dx * ratio
+    ccfg.use_amr = 0
+    ccfg.flow_warm_start = 0
+    ccfg.compute_derived()
+
+    cgrid = build_grid(ccfg)
+    # degenerate coarse geometry (e.g. the wire thinner than dx_coarse)
+    if not (cgrid.node_type == SOLID_MG).any():
+        print("  Warm start skipped: no solid nodes at coarse spacing")
+        return state, 0
+    ckit = build_kit(cgrid, ccfg, dtype=kit.dtype, device=kit.device)
+    cstate = initialize_state(cgrid, ccfg, grains=None, dtype=kit.dtype,
+                              device=kit.device)
+
+    cstate, it, eps, conv, div = solve_steady(cstate, ckit)
+    if div:
+        print("  Warm start skipped: coarse solve diverged")
+        return state, 0
+    print(f"  Warm start: coarse ({ratio}x dx, {cgrid.N_total} nodes) solve "
+          f"{it} iters, eps={eps:.3e}, converged={conv}")
+
+    # trilinear sample of the coarse fields at the fine node positions
+    # (host, one-time). Coarse index space: i_d = (pos_d - origin_d) / dx_c;
+    # the array layout is [z,] y, x, so the components go in reverse order
+    coords = [(grid.pos[..., d] - cgrid.origin[d]) / ccfg.dx
+              for d in range(grid.dim)][::-1]
+
+    def interp(a):
+        return map_coordinates(a.cpu().numpy().astype(np.float64), coords,
+                               order=1, mode="nearest")
+
+    rho_i = interp(cstate.rho)
+    vel_i = np.stack([interp(cstate.vel[..., d]) for d in range(grid.dim)],
+                     axis=-1)
+
+    def to_run(a):
+        return torch.as_tensor(a).to(device=kit.device, dtype=kit.dtype)
+
+    fluid = state.node_type == FLUID
+    rho = torch.where(fluid, to_run(rho_i), state.rho)
+    vel = torch.where(fluid[..., None], to_run(vel_i), state.vel)
+    return replace(state, rho=rho, vel=vel,
+                   pressure=tait_pressure(rho, kit)), it
 
 
 def poiseuille_l2_error(state: State, grid, cfg) -> float:

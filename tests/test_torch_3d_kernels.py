@@ -149,9 +149,22 @@ def test_kit_3d_arrays_equal(precision, legacy):
 
 
 def test_kit_refuses_subcell_mirror():
-    _, t = _configs("f32", ["wall_mirror_subcell=1"])
-    with pytest.raises(NotImplementedError, match="wall_mirror_subcell"):
-        t_build_kit(t_build_grid(t), t, device="cpu")
+    """The kit no longer refuses wall_mirror_subcell: it builds the
+    bilinear mirror's terms, up to four a wall node of a primary column,
+    with float32 weights that sum to 1 (tests/test_torch_subcell.py holds
+    them against the JAX kit), and the staircase table stays as it was."""
+    _, t = _configs("f64", ["wall_mirror_subcell=1"])
+    grid = t_build_grid(t)
+    tk = t_build_kit(grid, t, device="cpu")
+    n = tk.mirror_sub_dst.numel()
+    assert n > 0 and tk.mirror_sub_src.shape == tk.mirror_sub_w.shape == (4, n)
+    w = tk.mirror_sub_w.numpy()
+    np.testing.assert_array_equal(w, w.astype(np.float32))
+    assert np.all(np.abs(w.sum(0) - 1.0) < 1e-3)
+    assert bool(tk.mirror_mask.view(-1)[tk.mirror_sub_dst].all())
+    mi = grid.mirror_idx.ravel()
+    np.testing.assert_array_equal(tk.mirror_src.numpy().ravel(),
+                                  np.where(mi >= 0, mi, np.arange(mi.size)))
 
 
 @pytest.mark.parametrize("precision", ["f64", "f32"])

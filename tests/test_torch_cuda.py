@@ -608,3 +608,114 @@ def test_ns3d_chunked_equals_plain_at_the_flagship_shape(flagship_flow, form):
         assert bool(torch.isfinite(r1).all()) and bool(torch.isfinite(v1).all())
         for a, b in ((r1, r2), (v1, v2), (r1, twin[0]), (v1, twin[1])):
             assert torch.equal(_bits(a), _bits(b))
+
+
+# --- the uniform-grid features without a kernel of their own: gs_parity,
+# the coarse warm start, the sub-cell 3D wall mirror and 3D explicit
+# transport, on the card against the C++ reference or the CPU path
+
+GOLDEN = os.path.join(os.path.dirname(PARITY), "parity_diagnostics_ref.csv")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none is present")
+
+
+def test_gs_parity_f64_on_cuda_matches_reference_binary(tmp_path):
+    """The whole f64 gs_parity run of parity.cfg on CUDA (ns2d's plain twin
+    on the card, the sweeps on the host) against the C++ reference
+    binary's diagnostics, with tests/test_parity.py's gates."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch import cli
+
+    solver = cli.run([PARITY, f"output_dir={tmp_path}", "precision=f64",
+                      "gs_parity=1", "implicit_output_every=1000000000",
+                      "--device", "cuda"])
+    assert solver.final_state.C.is_cuda and solver.total_dissolved == 180
+    ref = np.atleast_1d(np.genfromtxt(GOLDEN, delimiter=",", names=True))
+    ours = np.atleast_1d(np.genfromtxt(f"{tmp_path}/diagnostics.csv",
+                                       delimiter=",", names=True))
+    assert len(ours) == len(ref)
+    np.testing.assert_array_equal(ours["solid_nodes"], ref["solid_nodes"])
+    np.testing.assert_allclose(ours["time_s"], ref["time_s"], rtol=1e-9)
+    for col in ("pin_mass_loss_pct", "v_max", "C_max_fluid"):
+        np.testing.assert_allclose(ours[col], ref[col], rtol=1e-6,
+                                   err_msg=col)
+
+
+def _small3d_on(device, extra=()):
+    """(grid, cfg, kit, state) of _cfg3d()'s grid, with ``extra``
+    overrides, on ``device``; FLUID velocities and C seeded."""
+    cfg = _cfg3d()
+    cfg.apply_overrides(list(extra))
+    grid = build_grid(cfg)
+    kit = build_kit(grid, cfg, device=device)
+    st = initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
+                          device=device)
+    rng = np.random.default_rng(11)
+    fluid = st.node_type == 0
+    st.vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+        rng.normal(0, 0.05, st.vel.shape), dtype=torch.float32,
+        device=device), st.vel)
+    st.rho = torch.where(fluid, st.rho + torch.tensor(
+        rng.normal(0, 1.0, kit.shape), dtype=torch.float32, device=device),
+        st.rho)
+    st.C = torch.where(st.node_type == 1, 1.0, torch.tensor(
+        0.92 * rng.random(kit.shape), dtype=torch.float32, device=device))
+    return grid, cfg, kit, st
+
+
+def test_warm_start_on_cuda_equals_cpu():
+    """coarse_warm_start at dx = 4e-6 (the coarse twin is _cfg3d()'s
+    8,303-node grid, solved on ns3d, capped at 200 iterations) on CUDA
+    against the CPU path: the same iterations, fields within f32
+    tolerance after 200 steps whose BC sums reduce in another order."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch.solvers import coarse_warm_start
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = _cfg3d()
+        cfg.apply_overrides(["dx=4e-6", "flow_max_iters=200",
+                             "flow_warm_start=2"])
+        grid = build_grid(cfg)
+        kit = build_kit(grid, cfg, device=device)
+        st = initialize_state(grid, cfg, device=device)
+        n0 = kernels.ns3d.launches
+        out[device] = coarse_warm_start(st, grid, kit, cfg) + (
+            kernels.ns3d.launches - n0,)
+    (g, it_g, ns_g), (c, it_c, ns_c) = out["cuda"], out["cpu"]
+    assert it_g == it_c == 201 and ns_g == 200 and ns_c == 0
+    for f in ("rho", "vel", "pressure"):
+        a, b = getattr(g, f).cpu(), getattr(c, f)
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_subcell_mirror_on_cuda_equals_cpu():
+    """apply_wall_bc with wall_mirror_subcell = 1 on CUDA against the CPU:
+    the same gathers and the same sums of products, bit for bit."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch import boundary as bc
+
+    outs = [bc.apply_wall_bc(st, kit) for _, _, kit, st in (
+        _small3d_on(d, ["wall_mirror_subcell=1"]) for d in ("cuda", "cpu"))]
+    assert torch.equal(outs[0].rho.cpu(), outs[1].rho)
+    assert torch.equal(outs[0].vel.cpu(), outs[1].vel)
+
+
+def test_explicit_3d_step_on_cuda_equals_cpu():
+    """The 3D explicit step (ops/ard.explicit_step, no kernel) on CUDA
+    against the CPU, with salt-blocked SOLID nodes."""
+    _card()
+    res = {}
+    for device in ("cuda", "cpu"):
+        _, cfg, kit, st = _small3d_on(device)
+        salt = ard_ops.compute_salt_blocked(st, kit)
+        n0 = kernels.launch_counts()
+        res[device] = (ard_ops.ard_step(st, kit, 2e-6, 0.1).C, int(salt.sum()))
+        assert kernels.launch_counts() == n0
+    (g, nsalt_g), (c, nsalt_c) = res["cuda"], res["cpu"]
+    assert nsalt_g == nsalt_c > 0
+    torch.testing.assert_close(g.cpu(), c, rtol=1e-6, atol=1e-9)

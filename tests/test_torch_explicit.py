@@ -145,8 +145,19 @@ def test_3d_explicit_step_is_refused():
     kit = t_build_kit(grid, cfg, device="cpu")
     from pd_mg_pin_corrosion_tpu_torch import initialize_state
     st = initialize_state(grid, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ard.ard_step(st, kit, 1e-6)
+    # no longer refused: the 3D step is ops/ard.explicit_step in plain
+    # PyTorch (tests/test_torch_explicit3d.py holds it against the JAX
+    # package), and no kernel of the 2D step launches
+    before = kernels.launch_counts()
+    out = t_ard.ard_step(st, kit, 1e-6)
+    assert kernels.launch_counts() == before
+    assert out.C.shape == kit.shape and bool(torch.isfinite(out.C).all())
+    assert torch.equal(out.C, t_ard.explicit_step(
+        st.C, st.vel, torch.sqrt((st.vel * st.vel).sum(-1)), st.node_type,
+        t_ard.solid_diffusivity(st.is_gb, st.is_precip, cfg,
+                                t_ard.micro_d_factor(cfg, 0.0, kit.dtype,
+                                                     "cpu")),
+        t_ard.compute_salt_blocked(st, kit), 1e-6, kit))
 
 
 # parity.cfg, explicit: flow capped at 300 iterations as in

@@ -1,7 +1,9 @@
 """The port's whole slice against the JAX package: ``cli.run`` (the
 ``python -m pd_mg_pin_corrosion_tpu_torch`` path, on the CPU) and the JAX
 ``CoupledSolver.run`` on tests/golden/parity.cfg, capped the same way, give
-the same diagnostics.csv; plus the CLI's refusals and the VTI writer."""
+the same diagnostics.csv; plus the CLI's refusals, the configurations it
+runs since gs_parity, the warm start, the sub-cell mirror and 3D explicit
+transport were ported, and the VTI writer."""
 
 import dataclasses
 import os
@@ -85,9 +87,7 @@ def test_slice_f32_first_cycle_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "use_amr=1", "gs_parity=1", "flow_warm_start=2",
-    "implicit_extrapolate_x0=1", "dim=3 wall_mirror_subcell=1",
-    "dim=3 use_implicit=0", "dim=3 gs_parity=1"])
+    "use_amr=1", "implicit_extrapolate_x0=1"])
 def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
     args = [PARITY, f"output_dir={tmp_path}", *override.split()]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -96,13 +96,58 @@ def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-def test_cli_names_the_flow_warm_start_item(tmp_path):
-    """The refusal points at the item that ports the warm start (it runs on
-    uniform grids too), not at block AMR."""
-    with pytest.raises(NotImplementedError,
-                       match="port order: 'flow_warm_start'"):
-        cli.run([PARITY, f"output_dir={tmp_path}", "flow_warm_start=2",
-                 "--device", "cpu"])
+# tests/test_pallas_interpret.py's 3D geometry for the 3D cases
+GRID_3D = ("dim=3 dx=8e-6 R_wire=16e-6 L_wire=64e-6 R_tube=48e-6 "
+           "L_upstream=32e-6 L_downstream=32e-6")
+
+
+RUNS = ["gs_parity=1", "flow_warm_start=2", "dim=3 wall_mirror_subcell=1",
+        "dim=3 use_implicit=0", "dim=3 gs_parity=1"]
+
+
+@pytest.mark.parametrize("override", [
+    ov.replace("dim=3", GRID_3D) for ov in RUNS], ids=RUNS)
+def test_cli_runs_configs_of_the_uniform_grid(override, tmp_path):
+    """The configurations the CLI refused before gs_parity, the warm start,
+    the sub-cell mirror and 3D explicit transport were ported: accepted,
+    and a short run (20 flow iterations a solve, one coupling cycle)
+    writes its diagnostics."""
+    cfg = TConfig.load(PARITY)
+    cfg.apply_overrides(override.split())
+    cli.check_supported(cfg)
+    t_final = "T_final=1e-5" if "use_implicit=0" in override else "T_final=0.6"
+    assert cli.main([PARITY, f"output_dir={tmp_path}", *override.split(),
+                     "flow_max_iters=20", t_final, "--device", "cpu"]) == 0
+    rows = np.atleast_1d(np.genfromtxt(f"{tmp_path}/diagnostics.csv",
+                                       delimiter=",", names=True))
+    assert len(rows) >= 1 and all(np.isfinite(rows[c]).all()
+                                  for c in rows.dtype.names)
+
+
+def test_cli_names_the_flow_warm_start_item(tmp_path, capsys):
+    """The CLI runs the warm start of the initial flow solve and prints the
+    JAX package's warm-start line (solvers.coarse_warm_start) for the
+    same configuration."""
+    from pd_mg_pin_corrosion_tpu.solvers import coarse_warm_start
+
+    ov = ["flow_warm_start=2", "flow_max_iters=20", "T_final=0.6"]
+    cfg = JConfig.load(PARITY)
+    cfg.apply_overrides(ov)
+    grid = j_build_grid(cfg)
+    kit = j_build_kit(grid, cfg)
+    capsys.readouterr()
+    coarse_warm_start(j_initialize_state(grid, cfg, dtype=kit.jdtype), grid,
+                      kit, cfg)
+    ref = [ln for ln in capsys.readouterr().out.splitlines()
+           if "Warm start" in ln]
+    solver = cli.run([PARITY, f"output_dir={tmp_path}", *ov,
+                      "--device", "cpu"])
+    ours = [ln for ln in capsys.readouterr().out.splitlines()
+            if "Warm start" in ln]
+    assert len(ref) == 1 and ours == ref
+    assert ref[0].startswith("  Warm start: coarse (2x dx, 667 nodes) "
+                             "solve 21 iters")
+    assert solver.coarse_iters == 21 and solver.flow_solve_count >= 1
 
 
 def test_run_flushes_the_flow_writer_with_the_state_writer(tmp_path,
