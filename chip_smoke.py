@@ -73,7 +73,22 @@ argument all of them run, in this order):
 10. ``subcell3d``, the sub-cell 3D wall mirror: the same small grid with
    wall_mirror_subcell=1, CUDA against the CPU path; the flagship kit built
    with it (primary columns, and how many carry more than one weight).
-11. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
+11. ``amr``, block AMR on config/params_amr.cfg at full size (blocks
+   208 x 80 and 194 x 120, 39,920 nodes): ns2d, matvec2d and ard2d on
+   each block and basis_dots / basis_axpy on GMRES's (26, 39,920) basis
+   against their twins, with times, in-situ times, bounds and library
+   calls as in ``kernels``; the implicit path (capped by AMR_CAPS) and the
+   explicit one (AMR_EXPLICIT_CAPS, ~250 steps) on CUDA against the CPU
+   within 1e-4; then the warm-started run (AMR_WARM_CAPS) on the card,
+   whose coarse and fine iteration counts must come within 10 % of the
+   JAX package's 49,800 / 9,300, with ms per flow iteration on each grid
+   and per implicit step, and its rows beside the banked
+   docs/runs/amr/diagnostics.csv (printed, not a gate). PATH_AMR must
+   launch in the warm run, PATH_AMR_EXPLICIT in the explicit one.
+12. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
+   geometry with use_amr = 1), CUDA against the CPU within 1e-4; PATH_AMR3D
+   must launch.
+13. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
    implicit and the explicit path and the gs_parity path in float32, on
    CUDA (kernels) and on the CPU (plain twins); diagnostics.csv must
    agree. And the gs_parity run in float64 on CUDA against the C++
@@ -81,7 +96,8 @@ argument all of them run, in this order):
    tests/test_parity.py's gates.
 
 Launch counts are set to 0 just before each main path and read just after
-it. Then one JSON line about the kernels, the nvidia-smi line, and the
+it. Then one JSON line about the kernels (the AMR phase's block shapes as
+``name@shape`` rows, with the launches of the block-AMR run), the nvidia-smi line, and the
 result line. Imports nothing of JAX. Exits non-zero without a CUDA device
 or without the repository beside it.
 """
@@ -122,12 +138,12 @@ MAIN3D_CAPS = ["flow_max_iters=10000", "T_final=600", "checkpoint_every=1"]
 # max relative difference of the 20 rows against the banked run's first 20
 # (measured on an H100 at 700 W: 2.1e-5, 1.0e-6 and 7.4e-5)
 BANKED_GATES = {"pin_mass_loss_pct": 1e-3, "v_max": 1e-3, "C_max_fluid": 1e-2}
-# explicit-transport caps: the initial flow solve as MAIN_CAPS; cycles of
-# 1,000 steps in chunks (diagnostics rows) of 250; T_final = 0.02 s of
-# physics is ~1,400 steps at the 1.4e-5 s CFL dt of the initial state and
-# more at the converged flow's higher v_max
+# explicit-transport caps: an initial flow solve of 2,000 iterations (the
+# explicit path's checks do not need it converged); cycles of 1,000 steps
+# in chunks (diagnostics rows) of 250; T_final = 0.02 s of physics is
+# ~1,400 steps at the 1.4e-5 s CFL dt of the initial state
 EXPLICIT_EVERY, EXPLICIT_T_FINAL = 250, 0.02
-EXPLICIT_CAPS = ["use_implicit=0", "flow_max_iters=20000",
+EXPLICIT_CAPS = ["use_implicit=0", "flow_max_iters=2000",
                  "flow_max_iters_resolve=2000", "corrosion_steps_per_check=1000",
                  f"output_every_corr={EXPLICIT_EVERY}",
                  f"T_final={EXPLICIT_T_FINAL}"]
@@ -170,14 +186,46 @@ PARITY_EXPLICIT_CAPS = PARITY_CAPS + ["use_implicit=0", "T_final=1e-4",
 # 4 units in the last place of a float32 sum of 180 values near 1, as a
 # mass loss in % (tests/test_torch_explicit.py holds the f32 run to it)
 LOSS_ATOL = 4 * 100.0 * float(np.spacing(np.float32(180))) / 180
+# block AMR: config/params_amr.cfg at full size (blocks 208 x 80 and
+# 194 x 120, 39,920 nodes). CUDA against the CPU: the implicit path capped
+# (a flow solve of 300 iterations, 120 s of physics: four steps at the
+# 30 s dt ceiling), the explicit path (a flow solve of 100 iterations)
+# ~250 steps at the capped flow's CFL dt of ~1.4e-5 s in rows of 50 (the
+# CPU side is most of the phase: 290.7 s for 1,200 flow iterations and 17
+# implicit steps on the card machine's host, NVIDIA H100 80GB HBM3 at
+# 700.00 W); then the warm-started run on
+# the card alone, to 600 s of physics, whose coarse (2 dx, uniform) and
+# fine iteration counts must come within AMR_WARM_GATE of the JAX
+# package's record (config.py, flow_warm_start: 49,800 and 9,300 on this
+# configuration)
+AMR_CFG = os.path.join(ROOT, "config", "params_amr.cfg")
+AMR_BANKED = os.path.join(ROOT, "docs", "runs", "amr", "diagnostics.csv")
+AMR_CAPS = ["precision=f32", "flow_max_iters=300", "T_final=120",
+            "corrosion_steps_per_check=10"]
+AMR_EXPLICIT_EVERY = 50
+AMR_EXPLICIT_CAPS = ["precision=f32", "use_implicit=0", "flow_max_iters=100",
+                     "corrosion_steps_per_check=1000",
+                     f"output_every_corr={AMR_EXPLICIT_EVERY}",
+                     "T_final=3.5e-3"]
+AMR_WARM_CAPS = ["flow_warm_start=2", "T_final=600"]
+AMR_WARM_ITERS = (49_800, 9_300)
+AMR_WARM_GATE = 0.10
+# the 3D block grid: params_3d.cfg at SMALL_3D's geometry with block AMR
+# (7,655 nodes, blocks 20 x 16 x 16 and 15 x 13 x 13), tests/test_torch_
+# 3d_slice.py's 21 s of physics
+AMR3D_CAPS = SMALL_3D + ["use_amr=1", "amr_ratio=2", "amr_buffer=16e-6",
+                         "T_final=21"]
 SEED = 20261016
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
-          "warm3d", "explicit3d", "subcell3d", "parity")
+          "warm3d", "explicit3d", "subcell3d", "amr", "amr3d", "parity")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
            "basis_axpy")
 PATH_EXPLICIT = ("ard2d",)
+PATH_AMR = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
+PATH_AMR_EXPLICIT = ("ns2d", "ard2d")
+PATH_AMR3D = ("ns3d", "matvec3d", "slots3d_f64", "basis_dots", "basis_axpy")
 PATH_LADDER = ("ns3d", "ns3d_chunked_xla", "ns3d_chunked_factored",
                "ns3d_chunked_jconv", "ns3d_jstat")
 CHUNKED_FORMS = (("ns3d_chunked_xla", False), ("ns3d_chunked_factored", True),
@@ -989,15 +1037,22 @@ def compare_rows(tag, what, g, c, loss_atol=0.0, limit=1e-4):
 
 
 def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
-    """run_cli on CUDA and on the CPU; compare_rows of the two."""
+    """run_cli on CUDA and on the CPU; compare_rows of the two. Returns the
+    CUDA run's solver and rows and the kernels' launches in that run."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
     t0 = time.time()
-    _, g = run_cli(os.path.join(tmp, f"{name}_cuda"), args + ["--device",
-                                                             "cuda"])
+    solver, g = run_cli(os.path.join(tmp, f"{name}_cuda"),
+                        args + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
     compare_rows(tag, f"{name} (cuda {t1 - t0:.2f} s, cpu "
                  f"{time.time() - t1:.2f} s)", g, c, loss_atol)
+    return solver, g, counts
 
 
 def phase_main(tmp):
@@ -1471,6 +1526,266 @@ def phase_explicit(tmp):
     return counts
 
 
+def amr_state(pkg, cfg, grid, device="cuda"):
+    """The block-AMR state of ``grid`` with FLUID and FICTITIOUS rho and vel
+    perturbed and C seeded (SOLID near 1, FLUID up to 0.92: some FLUID
+    nodes reach C_sat and salt-block their SOLID neighbours)."""
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+
+    st = pkg.initialize_state(grid, cfg, grains=ab.generate_grains_b(grid, cfg),
+                              device=device)
+    rng = np.random.default_rng(SEED)
+    moving = (st.node_type == pkg.FLUID) | (st.node_type == pkg.FICTITIOUS)
+    st.rho = torch.where(moving, st.rho + seeded(rng, st.rho.shape, 0.01),
+                         st.rho)
+    st.vel = torch.where(moving[..., None], st.vel + seeded(
+        rng, st.vel.shape, 0.02 * cfg.U_in), st.vel)
+    solid = st.node_type == pkg.SOLID_MG
+    u = torch.tensor(rng.random(st.C.shape), dtype=torch.float32,
+                     device=device)
+    st.C = torch.where(solid, 1.0 - 0.2 * u, torch.where(moving, 0.92 * u,
+                                                         0.0))
+    return st
+
+
+def amr_kernels(pkg):
+    """amr part 1: ns2d, matvec2d and ard2d on each block of
+    params_amr.cfg (views of the flat state), basis_dots / basis_axpy on
+    GMRES's (26, 39,920) basis, each against its twin as in phase
+    ``kernels``; returns {name@shape: JSON row fields}."""
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    cfg = pkg.Config.load(AMR_CFG)
+    grid = ab.build_amr_block_grid(cfg)
+    bkit = ab.build_bkit(grid, cfg, device="cuda")
+    st = amr_state(pkg, cfg, grid)
+    results = {}
+    record = recorder("amr", results)
+    clock = torch.cuda.clock_rate()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    other = torch.empty_like(st.vel)
+    for block, sb in zip(("fine", "coarse"), ab._split_state(bkit, st)):
+        kit = getattr(bkit, block)
+        tag = f"@amr_{block}"
+        n = math.prod(kit.shape)
+        fluid = sb.node_type == pkg.FLUID
+        solid = sb.node_type == pkg.SOLID_MG
+        nt_p = kit.pad(sb.node_type, pkg.OUTSIDE)
+        print(f"[amr] {block} block {kit.shape} = {n} nodes, S={kit.S}: "
+              f"{int(fluid.sum())} FLUID, {int(solid.sum())} SOLID, "
+              f"{int((sb.node_type == pkg.FICTITIOUS).sum())} FICTITIOUS")
+
+        # ns2d (bytes and flops as in phase kernels)
+        p = ns.tait_pressure(sb.rho, kit)
+        args = (sb.rho, sb.vel, p, sb.node_type, ns.compute_dt(sb, kit), kit)
+        (r, v), (rp, vp) = kernels.ns2d(*args), kernels.ns2d_plain(*args)
+        same = torch.equal(r, rp) and torch.equal(v, vp)
+        err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
+        act = bond_counts(kit, fluid, {"nt": nt_p},
+                          {"act": lambda nb: nb["nt"] != pkg.OUTSIDE})["act"]
+        diag = torch.tensor([ex != 0 and ey != 0 for ex, ey in kit.evec],
+                            device="cuda")
+        flops = float((act * torch.where(diag, 52.0, 37.0)).sum()
+                      + 26 * fluid.sum())
+        record("ns2d" + tag, err, same, lambda: kernels.ns2d(*args),
+               lambda: kernels.ns2d_plain(*args), "bit-equal", 29 * n, flops)
+        apart = apart_ms(lambda: kernels.ns2d(*args),
+                         lambda: torch.add(st.vel, st.vel, out=other))
+        results["ns2d" + tag]["apart_ms"] = apart
+        issue_ms = 1e3 * flops / (128 * sms * 1e6 * clock)
+        print(f"[amr] ns2d{tag} in situ {apart:.4f} ms; unfused issue floor "
+              f"{issue_ms:.4f} ms; bound share in situ "
+              f"{100 * results['ns2d' + tag]['bound_ms'] / apart:.1f} %")
+
+        # matvec2d on this block's operator
+        op = ab._block_operator(sb, kit, 0.05)
+        n_unk = int(op.unknown.sum())
+        x = torch.tensor(np.random.default_rng(SEED).random(kit.shape),
+                         dtype=torch.float32, device="cuda")
+        mv = (x, op.W, op.diag, op.unknown, kit)
+        y, yp = kernels.matvec2d(*mv), kernels.matvec2d_plain(*mv)
+        inside = bond_counts(kit, op.unknown, {"one": kit.pad(
+            torch.ones_like(x), 0.0)}, {"in": lambda nb: nb["one"] != 0})["in"]
+        A = csr_of(op.W, op.diag, op.unknown, kit)
+        xf = x.reshape(-1)
+        record("matvec2d" + tag, float((y - yp).abs().max()),
+               torch.equal(y, yp), lambda: (kernels.matvec2d(*mv),),
+               lambda: kernels.matvec2d_plain(*mv), "bit-equal",
+               n_unk * kit.S * 4 + 13 * n, float(2 * inside.sum() + n_unk),
+               library=lambda: torch.mv(A, xf).view(kit.shape))
+        results["matvec2d" + tag]["apart_ms"] = apart_ms(
+            lambda: kernels.matvec2d(*mv),
+            lambda: torch.add(st.vel, st.vel, out=other))
+        print(f"[amr] matvec2d{tag} in situ "
+              f"{results['matvec2d' + tag]['apart_ms']:.4f} ms; W "
+              f"{tuple(op.W.shape)}")
+        del A
+
+        # ard2d (bytes and flops as in phase kernels)
+        salt = ard_ops.compute_salt_blocked(sb, kit)
+        Ds = ard_ops.solid_diffusivity(sb.is_gb, sb.is_precip, kit.cfg,
+                                       ard_ops.micro_d_factor(
+                                           kit.cfg, 0.05, kit.dtype, "cuda"))
+        ard = (sb.C, sb.vel, ns.vel_magnitude(sb.vel), sb.node_type, Ds, salt,
+               float(ard_ops.compute_dt(sb, kit)), kit)
+        cn, cp = kernels.ard2d(*ard), kernels.ard2d_plain(*ard)
+        jf = (pkg.FLUID, pkg.INLET, pkg.OUTLET, pkg.FICTITIOUS)
+        counts = bond_counts(
+            kit, fluid | solid,
+            {"nt": nt_p, "salt": kit.pad(salt, False)},
+            {"ll": lambda nb: fluid & sum(nb["nt"] == t for t in jf).bool(),
+             "fs_open": lambda nb: fluid & (nb["nt"] == pkg.SOLID_MG)
+             & ~nb["salt"],
+             "fs_blocked": lambda nb: fluid & nb["salt"],
+             "sf": lambda nb: solid & sum(nb["nt"] == t for t in jf).bool()})
+        flops = float(17 * counts["ll"].sum() + 10 * counts["fs_open"].sum()
+                      + 6 * counts["fs_blocked"].sum()
+                      + 6 * counts["sf"].sum() + 4 * (fluid | solid).sum()
+                      + 4 * (solid & ~salt).sum())
+        print(f"[amr] ard2d{tag}: {int(salt.sum())} of {int(solid.sum())} "
+              f"SOLID nodes salt-blocked")
+        record("ard2d" + tag, float((cn - cp).abs().max()),
+               torch.equal(cn, cp), lambda: (kernels.ard2d(*ard),),
+               lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n, flops)
+        results["ard2d" + tag]["apart_ms"] = apart_ms(
+            lambda: kernels.ard2d(*ard),
+            lambda: torch.add(st.vel, st.vel, out=other))
+        print(f"[amr] ard2d{tag} in situ "
+              f"{results['ard2d' + tag]['apart_ms']:.4f} ms")
+
+    # the basis kernels on GMRES's pitched basis of the flat vector
+    n = grid.N_total
+    rng = np.random.default_rng(SEED)
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(seeded(rng, (26, n)))
+    w = seeded(rng, (n,))
+    c = seeded(rng, (26,), dtype=torch.float64)
+    print(f"[amr] basis: 26 rows of {n} floats, {V.stride(0)} apart")
+    record_basis_dots(record, "basis_dots@amr", V, w)
+    record_basis_dots(record, "basis_dots@amr_k1", w[None], w)
+    record_basis_axpy(record, "basis_axpy@amr", c, V, w)
+    return results
+
+
+def phase_amr(tmp, pkg):
+    """Phase amr: the kernels at the block shapes, CUDA against the CPU on
+    the full-size configuration (implicit and explicit), and the
+    warm-started run on the card. Returns ({name@shape: JSON row
+    fields}, launches of the warm-started run, launches of the explicit
+    run)."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, solvers
+
+    measured = amr_kernels(pkg)
+
+    # part 2: full size, CUDA against the CPU
+    solver, rows, imp_counts = run_cuda_and_cpu(
+        tmp, "amr", "amr_implicit", [AMR_CFG, *AMR_CAPS])
+    print(f"[amr] implicit capped: {solver.cycles} cycles, steps "
+          f"{solver.cycle_steps}, flow solves {solver.flow_results}, "
+          f"{solver.total_dissolved} dissolved; launches "
+          f"{json.dumps(imp_counts)}")
+    ex, ex_rows, ex_counts = run_cuda_and_cpu(
+        tmp, "amr", "amr_explicit", [AMR_CFG, *AMR_EXPLICIT_CAPS])
+    steps = ex.explicit_steps
+    print(f"[amr] explicit: {steps} steps in {ex.explicit_seconds:.3f} s "
+          f"({1e3 * ex.explicit_seconds / max(steps, 1):.4f} ms a step, "
+          f"VTU and rows included); launches {json.dumps(ex_counts)}")
+
+    # part 3: the warm-started run on the card
+    out_dir = os.path.join(tmp, "amr_warm")
+    coarse, fine = [], []
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with recording(solvers, "solve_steady", coarse), \
+            recording(coupling, "solve_steady", fine):
+        warm, warm_rows = run_cli(out_dir, [AMR_CFG, *AMR_WARM_CAPS,
+                                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    with open(os.path.join(out_dir, "run.log")) as f:
+        for line in f:
+            if any(k in line for k in ("AMR(blocks)", "Warm start", "Flow:",
+                                       "WARNING", "[Timer]")):
+                print(f"[amr] log: {line.rstrip()}")
+    (_, (_, c_iters, c_eps, c_conv, _), c_s, c_launch) = coarse[0]
+    (_, (_, f_iters, f_eps, f_conv, _), f_s, f_launch) = fine[0]
+    resolves = [(r[1][1], r[2]) for r in fine[1:]]
+    re_iters = sum(min(i, 200_000) for i, _ in resolves)
+    re_s = sum(s for _, s in resolves)
+    step_ms = 1e3 * warm.implicit_seconds / max(warm.total_implicit_steps, 1)
+    print(f"[amr] warm start: coarse {c_iters} iterations (eps {c_eps:.3e}, "
+          f"converged {c_conv}) in {c_s:.3f} s = "
+          f"{1e3 * c_s / max(c_iters, 1):.4f} ms an iteration, ns2d "
+          f"{c_launch['ns2d']}; fine {f_iters} iterations (eps {f_eps:.3e}, "
+          f"converged {f_conv}) in {f_s:.3f} s = "
+          f"{1e3 * f_s / max(f_iters, 1):.4f} ms an iteration, ns2d "
+          f"{f_launch['ns2d']} (two blocks); JAX package's record "
+          f"{AMR_WARM_ITERS[0]} / {AMR_WARM_ITERS[1]}")
+    print(f"[amr] warm run to {AMR_WARM_CAPS[-1]}: {warm.cycles} cycles, "
+          f"{len(resolves)} re-solves of {re_iters} iterations in "
+          f"{re_s:.3f} s, {warm.total_implicit_steps} implicit steps at "
+          f"{step_ms:.3f} ms a step ({warm.implicit_seconds:.3f} s), "
+          f"{warm.total_dissolved} dissolved, wall {wall:.2f} s")
+    banked = np.atleast_1d(np.genfromtxt(AMR_BANKED, delimiter=",",
+                                         names=True))
+    k = min(len(warm_rows), len(banked))
+    same_t = np.allclose(warm_rows["time_s"][:k], banked["time_s"][:k],
+                         rtol=1e-6)
+    diffs = {c: float((np.abs(warm_rows[c][:k] - banked[c][:k])
+                       / np.abs(banked[c][:k])).max())
+             for c in ("pin_mass_loss_pct", "v_max", "C_max_fluid")}
+    print(f"[amr] the warm run's {k} rows against the banked cold run's "
+          f"first {k} (docs/runs/amr; not a gate: the banked flow started "
+          f"cold): same times {same_t}, max rel diff {json.dumps(diffs)}")
+    print(f"[amr] launches {json.dumps(counts)}")
+    checks = {
+        "coarse iterations within 10 % of 49,800":
+            abs(c_iters - AMR_WARM_ITERS[0]) <= AMR_WARM_GATE * AMR_WARM_ITERS[0],
+        "fine iterations within 10 % of 9,300":
+            abs(f_iters - AMR_WARM_ITERS[1]) <= AMR_WARM_GATE * AMR_WARM_ITERS[1],
+        "both solves converged": bool(c_conv) and bool(f_conv),
+        "every kernel of the AMR path launched":
+            all(counts[k] > 0 for k in PATH_AMR),
+        "every kernel of the AMR explicit path launched":
+            all(ex_counts[k] > 0 for k in PATH_AMR_EXPLICIT),
+        "ard2d twice per explicit step (a launch a block)":
+            ex_counts["ard2d"] == 2 * steps and steps >= 200,
+        "finite rows, loss not decreasing": all(
+            np.isfinite(warm_rows[c]).all() for c in warm_rows.dtype.names)
+            and bool(np.all(np.diff(warm_rows["pin_mass_loss_pct"]) >= 0.0)),
+        "no GMRES non-convergence warning": warm.gmres_warnings == 0
+            and solver.gmres_warnings == 0,
+        "all state tensors on cuda": all(
+            t.is_cuda for t in warm.final_state.tensors()),
+    }
+    for what, ok in checks.items():
+        print(f"[amr] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail("amr checks")
+    return measured, counts, ex_counts
+
+
+def phase_amr3d(tmp):
+    """Phase amr3d: the 7,655-node 3D block grid, CUDA against the CPU, in
+    float32; returns the launch counts of the CUDA run."""
+    solver, rows, counts = run_cuda_and_cpu(
+        tmp, "amr3d", "amr3d", [FLAGSHIP, *AMR3D_CAPS])
+    print(f"[amr3d] {solver.cycles} cycles, steps {solver.cycle_steps}, "
+          f"{solver.flow_solve_count} flow solves, {solver.total_dissolved} "
+          f"dissolved, {len(rows)} rows; launches {json.dumps(counts)}")
+    ok = all(counts[k] > 0 for k in PATH_AMR3D)
+    print(f"[amr3d] check every kernel of the 3D AMR path launched: "
+          f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("amr3d checks")
+    return counts
+
+
 def phase_parity(tmp):
     """Phase 11: parity.cfg with the kernels on CUDA vs the plain twins on
     the CPU, implicit, explicit and gs_parity, in float32. Every column
@@ -1570,26 +1885,38 @@ def main():
             print(f"[ptxas] {entry}: {line.strip()}")
 
     measured, counts = {}, {}
-    if "kernels" in phases:
-        measured.update(phase_kernels(pkg))
-    if "kernels3d" in phases:
-        measured.update(phase_kernels3d(pkg))
     cold = None
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        print(f"[device] phase {name}: {time.time() - t0:.1f} s")
+        return out
+
     with tempfile.TemporaryDirectory() as tmp:
-        for name, run in (("ladder", phase_ladder),
-                          ("main", lambda: phase_main(tmp)),
-                          ("explicit", lambda: phase_explicit(tmp)),
-                          ("main3d", lambda: phase_main3d(tmp)),
-                          ("warm3d", lambda: phase_warm3d(tmp, cold)),
-                          ("explicit3d", lambda: phase_explicit3d(tmp))):
-            if name in phases:
-                counts[name] = run()
-                if name == "main3d":
-                    counts[name], cold = counts[name]
-        if "subcell3d" in phases:
-            phase_subcell3d(tmp)
-        if "parity" in phases:
-            phase_parity(tmp)
+        for name, run in (
+                ("kernels", lambda: measured.update(phase_kernels(pkg))),
+                ("kernels3d", lambda: measured.update(phase_kernels3d(pkg))),
+                ("ladder", phase_ladder),
+                ("main", lambda: phase_main(tmp)),
+                ("explicit", lambda: phase_explicit(tmp)),
+                ("main3d", lambda: phase_main3d(tmp)),
+                ("warm3d", lambda: phase_warm3d(tmp, cold)),
+                ("explicit3d", lambda: phase_explicit3d(tmp)),
+                ("subcell3d", lambda: phase_subcell3d(tmp)),
+                ("amr", lambda: phase_amr(tmp, pkg)),
+                ("amr3d", lambda: phase_amr3d(tmp)),
+                ("parity", lambda: phase_parity(tmp))):
+            if name not in phases:
+                continue
+            out = timed(name, run)
+            if name == "main3d":
+                counts[name], cold = out
+            elif name == "amr":
+                amr_measured, counts["amr"], counts["amr_explicit"] = out
+                measured.update(amr_measured)
+            elif out is not None:
+                counts[name] = out
 
     # each kernel's launches on the main path that runs it at the shape it
     # was timed at: the 2D one for the basis kernels, the 3D one (main3d,
@@ -1598,14 +1925,20 @@ def main():
              **{k: ("main3d", "warm3d") for k in PATH_3D},
              **{k: ("main",) for k in PATH_2D},
              **{k: ("explicit",) for k in PATH_EXPLICIT}}
+    # and at the block shapes (name@shape), on the block-AMR run: the
+    # warm-started one, the explicit one for ard2d
     rows = []
     for k in KERNELS:
-        if k.name in measured:
-            run = next((p for p in owner[k.name] if p in counts), None)
-            rows.append({"name": k.name, "route": "cuda", "source": k.source,
+        for name in sorted(m for m in measured
+                           if m.split("@")[0] == k.name):
+            if "@" in name:
+                run = "amr_explicit" if k.name == "ard2d" else "amr"
+            else:
+                run = next((p for p in owner[k.name] if p in counts), None)
+            rows.append({"name": name, "route": "cuda", "source": k.source,
                          "replaces": k.replaces,
                          "launches": counts.get(run, {}).get(k.name),
-                         **measured[k.name]})
+                         **measured[name]})
     print(f"[device] chip_smoke total {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -6,8 +6,9 @@ with the same module names so each counterpart is easy to find. It imports
 Hopper (``csrc/``, bound in ``kernels/``), each with a plain PyTorch twin
 that runs on the CPU.
 
-It runs the structured implicit-transport path in 2D and 3D and the
-explicit-transport path in 2D (``cli.main`` -> ``CoupledSolver.run``), with
+It runs the structured grid's implicit and explicit transport paths in 2D
+and 3D, and two-level block AMR (``amr_blocks``), through one coupling loop
+(``cli.main`` -> ``CoupledSolver.run``, ops from ``dispatch.ops_for``), with
 checkpoint/resume; see ``cli._UNSUPPORTED`` for the configurations it
 refuses.
 """

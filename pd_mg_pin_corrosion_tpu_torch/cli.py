@@ -21,9 +21,11 @@ import torch
 
 from .fields import DeviceUnavailable
 
-# configurations the port does not run yet, with the ROADMAP item that adds them
+# configurations the port does not run, with the ROADMAP item that says why
 _UNSUPPORTED = (
-    (lambda c: c.use_amr, "use_amr = 1", "block AMR"),
+    (lambda c: c.use_amr and c.amr_backend != "structured",
+     "use_amr = 1 with amr_backend != structured",
+     "left out: gather AMR backend"),
     (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
      "left out: implicit_extrapolate_x0"),
 )
@@ -83,20 +85,31 @@ def run(argv=None):
 
     t0 = time.time()
     print("Building grid...")
-    from .grid import build_grid
-    grid = build_grid(cfg)
-    counts = grid.type_counts()
-    print(f"Grid: Nx={grid.Nx} Ny={grid.Ny} Nz={grid.Nz}  N_total={grid.N_total}")
-    print("Node types: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    if cfg.use_amr:
+        from . import amr_blocks
+        grid = amr_blocks.build_amr_block_grid(cfg)
+    else:
+        from .grid import build_grid
+        grid = build_grid(cfg)
+        counts = grid.type_counts()
+        print(f"Grid: Nx={grid.Nx} Ny={grid.Ny} Nz={grid.Nz}  "
+              f"N_total={grid.N_total}")
+        print("Node types: " + " ".join(f"{k}={v}" for k, v in counts.items()))
 
     print("Generating grain structure...")
-    from . import grains as grains_mod
-    grains = grains_mod.generate(grid, cfg)
+    if cfg.use_amr:
+        grains = amr_blocks.generate_grains_b(grid, cfg)
+    else:
+        from . import grains as grains_mod
+        grains = grains_mod.generate(grid, cfg)
 
     print("Initializing fields...")
     from .fields import initialize_state
-    from .kit import build_kit
-    kit = build_kit(grid, cfg, device=dev)
+    if cfg.use_amr:
+        kit = amr_blocks.build_bkit(grid, cfg, device=dev)
+    else:
+        from .kit import build_kit
+        kit = build_kit(grid, cfg, device=dev)
     state = initialize_state(grid, cfg, grains=grains, dtype=kit.dtype,
                              device=dev)
     print(f"  [Timer] initialization: {time.time() - t0:.3f} s")

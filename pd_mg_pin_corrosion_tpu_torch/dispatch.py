@@ -1,0 +1,75 @@
+"""Backend dispatch: the uniform structured grid or block AMR.
+
+Port of ``pd_mg_pin_corrosion_tpu/dispatch.py`` without its gather branch
+(``amr_backend = gather`` is left out of the port). Both branches expose the
+same functions over (state, kit); the solvers and the coupling loop take
+them from ``ops_for(kit)``, so one loop drives both kinds of grid.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+
+def is_structured(kit) -> bool:
+    from .kit import Kit
+    return isinstance(kit, Kit)
+
+
+def is_block(kit) -> bool:
+    """A block-AMR kit (``amr_blocks.BKit``)."""
+    from .amr_blocks import BKit
+    return isinstance(kit, BKit)
+
+
+def _identity(state, kit):
+    return state
+
+
+def ops_for(kit) -> SimpleNamespace:
+    from . import boundary as bc
+
+    if is_block(kit):
+        from . import amr_blocks as b
+
+        return SimpleNamespace(
+            ns_step=b.ns_step,
+            compute_dt_ns=b.compute_dt_ns,
+            tait_pressure=b.tait_pressure,
+            apply_inlet_bc=b.apply_inlet_bc,
+            apply_outlet_bc=b.apply_outlet_bc,
+            apply_wall_bc=b.apply_wall_bc,
+            apply_wall_concentration_bc=b.apply_wall_concentration_bc,
+            apply_solid_surface_bc=bc.apply_solid_surface_bc,  # elementwise
+            smooth_boundary_concentration=b.smooth_boundary_concentration,
+            update_fictitious=b.update_fictitious,
+            ard_step=b.ard_step,
+            ard_compute_dt=b.ard_compute_dt,
+            apply_phase_change=b.apply_phase_change,
+            assemble=b.assemble,
+            implicit_step=b.implicit_step,
+            compute_adaptive_dt=b.compute_adaptive_dt,
+        )
+
+    if not is_structured(kit):
+        raise TypeError(f"no ops for a kit of type {type(kit).__name__}")
+    from .ops import ard, ard_implicit as ai, ns
+
+    return SimpleNamespace(
+        ns_step=ns.ns_step,
+        compute_dt_ns=ns.compute_dt,
+        tait_pressure=ns.tait_pressure,
+        apply_inlet_bc=bc.apply_inlet_bc,
+        apply_outlet_bc=bc.apply_outlet_bc,
+        apply_wall_bc=bc.apply_wall_bc,
+        apply_wall_concentration_bc=bc.apply_wall_concentration_bc,
+        apply_solid_surface_bc=bc.apply_solid_surface_bc,
+        smooth_boundary_concentration=bc.smooth_boundary_concentration,
+        update_fictitious=_identity,  # no AMR coupling
+        ard_step=ard.ard_step,
+        ard_compute_dt=ard.compute_dt,
+        apply_phase_change=ard.apply_phase_change,
+        assemble=ai.assemble,
+        implicit_step=ai.implicit_step,
+        compute_adaptive_dt=ai.compute_adaptive_dt,
+    )

@@ -1,7 +1,8 @@
-"""VTK output: ASCII or binary VTI (ImageData) and crash-safe PVD.
+"""VTK output: ASCII or binary VTI (ImageData), ASCII VTU of block-AMR
+grids, and crash-safe PVD.
 
-Port of the structured-grid part of ``pd_mg_pin_corrosion_tpu/io_vtk.py``
-(reference src/vtk_writer.cpp): the same 10 point-data arrays in the same
+Port of ``pd_mg_pin_corrosion_tpu/io_vtk.py`` (reference
+src/vtk_writer.cpp): the same 10 point-data arrays in the same
 order and names, WALL/OUTSIDE velocity zeroed for visualization, NaN audit,
 subnormal flush, and the PVD collection rewritten after every snapshot.
 The ASCII file is byte-identical to the JAX package's for the same state.
@@ -168,6 +169,65 @@ class VTKWriter:
             for chunk in payload:
                 f.write(chunk)
             f.write(b"\n  </AppendedData>\n</VTKFile>\n")
+
+    def write_vtu(self, filename: str, grid, state) -> None:
+        """ASCII VTU of a block-AMR grid (vtk_writer.cpp:199-346): one
+        VTK_VERTEX cell per node, OUTSIDE nodes left out, WALL velocity
+        zeroed, each node's grid_level and dx_local beside the state;
+        byte-identical to the JAX package's ``write_vtu``."""
+        arrays = {name: data for name, _, data in
+                  vti_arrays(grid, state, filename)}
+        idx = np.flatnonzero(arrays["node_type"] != 5)  # not OUTSIDE
+        n_out = idx.size
+        pos3 = np.zeros((n_out, 3))
+        pos3[:, :grid.dim] = grid.pos.reshape(-1, grid.dim)[idx]
+
+        out = io.StringIO()
+        out.write('<?xml version="1.0"?>\n')
+        out.write('<VTKFile type="UnstructuredGrid" version="1.0" '
+                  'byte_order="LittleEndian">\n')
+        out.write("  <UnstructuredGrid>\n")
+        out.write(f'    <Piece NumberOfPoints="{n_out}" '
+                  f'NumberOfCells="{n_out}">\n')
+        out.write("      <Points>\n")
+        out.write('        <DataArray type="Float64" NumberOfComponents="3" '
+                  'format="ascii">\n')
+        out.write(native.fmt_vec3_block(pos3))
+        out.write("        </DataArray>\n      </Points>\n")
+        out.write("      <Cells>\n")
+        for name, tag, data in (
+                ("connectivity", "Int32", np.arange(n_out)),
+                ("offsets", "Int32", np.arange(1, n_out + 1)),
+                ("types", "UInt8", np.ones(n_out))):
+            out.write(f'        <DataArray type="{tag}" Name="{name}" '
+                      'format="ascii">\n')
+            out.write(native.fmt_int_block(data.astype(np.int64)))
+            out.write("        </DataArray>\n")
+        out.write("      </Cells>\n")
+        out.write('      <PointData Scalars="phase" Vectors="velocity">\n')
+        out.write('        <DataArray type="Float64" Name="velocity" '
+                  'NumberOfComponents="3" format="ascii">\n')
+        out.write(native.fmt_vec3_block(arrays["velocity"][idx]))
+        out.write("        </DataArray>\n")
+        arrays["grid_level"] = grid.grid_level
+        arrays["dx_local"] = grid.dx_local
+        for name, tag in (("pressure", "Float64"),
+                          ("concentration", "Float64"), ("phase", "UInt8"),
+                          ("node_type", "UInt8"), ("grid_level", "Int32"),
+                          ("dx_local", "Float64"), ("grain_id", "Int32"),
+                          ("D_map", "Float64"), ("is_grain_boundary", "UInt8"),
+                          ("is_precipitate", "UInt8")):
+            data = arrays[name][idx]
+            out.write(f'        <DataArray type="{tag}" Name="{name}" '
+                      'format="ascii">\n')
+            out.write(native.fmt_scalar_block(data.astype(np.float64))
+                      if tag == "Float64"
+                      else native.fmt_int_block(data.astype(np.int64)))
+            out.write("        </DataArray>\n")
+        out.write("      </PointData>\n    </Piece>\n  </UnstructuredGrid>\n"
+                  "</VTKFile>\n")
+        with open(filename, "w") as f:
+            f.write(out.getvalue())
 
     # ------------------------------------------------------------------
     def set_pvd_path(self, path: str) -> None:

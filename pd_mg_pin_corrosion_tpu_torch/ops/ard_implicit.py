@@ -164,6 +164,20 @@ def matvec_M(op: ImplicitOperator, kit: Kit, x: torch.Tensor,
     return step(x, W, op.diag, op.unknown, kit)
 
 
+def matvec_M64(op: ImplicitOperator, kit: Kit, x64: torch.Tensor) -> torch.Tensor:
+    """M x in float64 over the float32 weights, the operator of the f32
+    refinement residual (the f32 W times an f64 x is an f64 product: no f64
+    copy of W, 1.5 GB at the flagship size). 2D: matvec2d's plain twin in
+    float64; 3D: the f64 slot sum (``slots3d_f64``, the kernel on the card
+    over the packed f32 weights), with diag and mask here."""
+    diag64 = op.diag.to(torch.float64)
+    if kit.dim == 2:
+        return matvec2d_plain(x64, op.W, diag64, op.unknown, kit)
+    W = op.W if op.packed is None else op.packed
+    y = diag64 * x64 + slots3d_f64(x64, W, kit)
+    return torch.where(op.unknown, y, 0.0)
+
+
 def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
                   tol: float | None = None, restart: int = 50,
                   maxiter: int = 200):
@@ -216,24 +230,11 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
         # eps32 * dt * ||M|| ~ 1e-4 at stiff dt, so the residual is formed
         # with the f64 operator and the correction solved in f32; two passes
         # at most (pd_ard_implicit.cpp:399-417 reaches 1e-10 in double).
-        # (the f32 W times an f64 x is an f64 product: no f64 copy of W,
-        # 1.5 GB at the flagship size)
-        diag64 = op.diag.to(torch.float64)
         dt64 = dt.to(torch.float64)
-        if kit.dim == 2:
-            def M64(x64):
-                return matvec2d_plain(x64, op.W, diag64, op.unknown, kit)
-        else:
-            # the f64 slot sum (kernel on the card, over the packed f32
-            # weights); diag and mask here
-            W = op.W if op.packed is None else op.packed
-
-            def M64(x64):
-                y = diag64 * x64 + slots3d_f64(x64, W, kit)
-                return torch.where(op.unknown, y, 0.0)
 
         def A64(x64):
-            return torch.where(op.unknown, x64 - dt64 * M64(x64), x64)
+            return torch.where(op.unknown,
+                               x64 - dt64 * matvec_M64(op, kit, x64), x64)
 
         b64 = b.to(torch.float64)
         b_norm = max(vector_norm(b64), 1e-300)

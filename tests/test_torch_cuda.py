@@ -719,3 +719,144 @@ def test_explicit_3d_step_on_cuda_equals_cpu():
     (g, nsalt_g), (c, nsalt_c) = res["cuda"], res["cpu"]
     assert nsalt_g == nsalt_c > 0
     torch.testing.assert_close(g.cpu(), c, rtol=1e-6, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# block AMR: the kernels at the blocks' shapes, and the block ops
+# ---------------------------------------------------------------------------
+
+AMR = os.path.join(os.path.dirname(PARITY), "..", "..", "config",
+                   "params_amr.cfg")
+# tests/test_torch_amr_blocks.py's 3D case: params_3d.cfg at chip_smoke.py's
+# SMALL_3D geometry with block AMR (7,655 nodes)
+AMR3D = ["dx=8e-6", "R_wire=16e-6", "L_wire=64e-6", "R_tube=48e-6",
+         "L_upstream=32e-6", "L_downstream=32e-6", "Q_flow=1.667e-10",
+         "use_amr=1", "amr_ratio=2", "amr_buffer=16e-6", "precision=f32"]
+
+
+def _amr_on(device, path=AMR, extra=(), seed_C=True):
+    """(grid, kit, state) of a block-AMR configuration on ``device``: FLUID
+    and FICTITIOUS velocities and rho perturbed; with ``seed_C`` C seeded
+    (SOLID 1, FLUID up to 0.92: some reach C_sat and salt-block their SOLID
+    neighbours), else C as initialized."""
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+
+    cfg = Config.load(path)
+    cfg.apply_overrides(list(extra))
+    grid = ab.build_amr_block_grid(cfg)
+    kit = ab.build_bkit(grid, cfg, device=device)
+    st = initialize_state(grid, cfg, grains=ab.generate_grains_b(grid, cfg),
+                          device=device)
+    rng = np.random.default_rng(23)
+    moving = (st.node_type == 0) | (st.node_type == 6)
+
+    def seeded(shape, scale):
+        return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32,
+                            device=device)
+    st.vel = torch.where(moving[..., None],
+                         st.vel + seeded(st.vel.shape, 0.05 * cfg.U_in), st.vel)
+    st.rho = torch.where(moving, st.rho + seeded(st.rho.shape, 1.0), st.rho)
+    if seed_C:
+        st.C = torch.where(st.node_type == 1, 1.0, torch.tensor(
+            0.92 * rng.random(st.C.shape), dtype=torch.float32,
+            device=device))
+    return grid, kit, st
+
+
+@pytest.fixture(scope="module")
+def amr():
+    _card()
+    return _amr_on("cuda")
+
+
+@pytest.mark.parametrize("block", ["fine", "coarse"])
+def test_amr_block_kernels_equal_plain(amr, block):
+    """ns2d, matvec2d and ard2d on one block of params_amr.cfg (fine
+    208 x 80, coarse 194 x 120; views of the flat state): two launches and
+    the twin give the same bits."""
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+
+    _, bkit, st = amr
+    kit = getattr(bkit, block)
+    sb = ab._split_state(bkit, st)[block == "coarse"]
+    assert sb.rho.shape == kit.shape and sb.rho.is_contiguous()
+    p = ns.tait_pressure(sb.rho, kit)
+    args = (sb.rho, sb.vel, p, sb.node_type, ns.compute_dt(sb, kit), kit)
+    (r1, v1), (r2, v2) = kernels.ns2d(*args), kernels.ns2d(*args)
+    rp, vp = kernels.ns2d_plain(*args)
+    for a, b in ((r1, r2), (v1, v2), (r1, rp), (v1, vp)):
+        assert torch.equal(_bits(a), _bits(b))
+
+    op = ab._block_operator(sb, kit, 0.05)
+    x = torch.tensor(np.random.default_rng(7).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
+    mv = (x, op.W, op.diag, op.unknown, kit)
+    assert op.W.shape == (kit.S,) + kit.shape
+    assert torch.equal(kernels.matvec2d(*mv), kernels.matvec2d_plain(*mv))
+
+    salt = ard_ops.compute_salt_blocked(sb, kit)
+    Ds = ard_ops.solid_diffusivity(sb.is_gb, sb.is_precip, kit.cfg,
+                                   ard_ops.micro_d_factor(kit.cfg, 0.05,
+                                                          kit.dtype, "cuda"))
+    ard = (sb.C, sb.vel, ns.vel_magnitude(sb.vel), sb.node_type, Ds, salt,
+           float(ard_ops.compute_dt(sb, kit)), kit)
+    c1, c2 = kernels.ard2d(*ard), kernels.ard2d(*ard)
+    assert torch.equal(_bits(c1), _bits(c2))
+    assert torch.equal(_bits(c1), _bits(kernels.ard2d_plain(*ard)))
+
+
+def test_amr_basis_kernels_at_the_flat_length(amr):
+    """basis_dots / basis_axpy on GMRES's pitched (26, 39,920) basis."""
+    _, bkit, st = amr
+    n = st.C.numel()
+    assert n == 39_920
+    rng = np.random.default_rng(29)
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(torch.tensor(rng.normal(0, 1, (26, n)), dtype=torch.float32))
+    w = torch.tensor(rng.normal(0, 1, n), dtype=torch.float32, device="cuda")
+    c = torch.tensor(rng.normal(0, 1, 26), dtype=torch.float64, device="cuda")
+    d = kernels.basis_dots(V, w)
+    torch.testing.assert_close(d, kernels.basis_dots_plain(V, w), rtol=2e-6,
+                               atol=0.0)
+    assert torch.equal(d, kernels.basis_dots(V, w))
+    for k in (1, 13, 26):
+        assert torch.equal(kernels.basis_axpy(c[:k], V[:k], w),
+                           kernels.basis_axpy_plain(c[:k], V[:k], w))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_amr_flow_and_implicit_step_on_cuda_equal_cpu(dim):
+    """One flow iteration (BCs, ns_step, the wall BC, the IDW refresh) and
+    one implicit step with its constraint rows on CUDA (the kernels)
+    against the CPU (the twins): params_amr.cfg in 2D, the 7,655-node 3D
+    block grid in 3D. C as initialized: a seeded C of random gradients
+    makes the 30 s step too stiff for GMRES(25) in 200 iterations (the
+    JAX package's block step gives the same residual, 7.3, on it)."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+
+    extra = dict(path=os.path.join(os.path.dirname(AMR), "params_3d.cfg"),
+                 extra=AMR3D) if dim == 3 else {}
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, kit, st = _amr_on(device, seed_C=False, **extra)
+        n0 = kernels.launch_counts()
+        dt = ab.compute_dt_ns(st, kit)
+        for op in (ab.apply_inlet_bc, ab.apply_outlet_bc, ab.apply_wall_bc):
+            st = op(st, kit)
+        st = ab.update_fictitious(ab.apply_wall_bc(ab.ns_step(st, kit, dt),
+                                                   kit), kit)
+        op = ab.assemble(st, kit, 0.05)
+        dt_c = ab.compute_adaptive_dt(st, op, kit)
+        st2, res = ab.implicit_step(st, op, kit, dt_c)
+        launched = {k: v - n0[k] for k, v in kernels.launch_counts().items()}
+        out[device] = (st, st2, float(dt_c), res, launched)
+    (g, g2, dg, rg, lg), (c, c2, dc, rc, lc) = out["cuda"], out["cpu"]
+    path = (("ns2d", "matvec2d") if dim == 2
+            else ("ns3d", "matvec3d", "slots3d_f64"))
+    assert all(lg[k] > 0 for k in path + ("basis_dots", "basis_axpy"))
+    assert not any(lc.values())
+    assert rg <= 1e-6 and rc <= 1e-6 and dg == pytest.approx(dc, rel=1e-5)
+    for a, b in ((g.rho, c.rho), (g.vel, c.vel), (g2.C, c2.C)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))

@@ -1,6 +1,6 @@
 """The port's public constructors put their tensors on the card unless the
-caller asks for the CPU: ``build_kit``, ``initialize_state`` and
-``state_from_numpy`` default to CUDA. Without a card they raise
+caller asks for the CPU: ``build_kit``, ``amr_blocks.build_bkit``,
+``initialize_state`` and ``state_from_numpy`` default to CUDA. Without a card they raise
 ``DeviceUnavailable``, whose message names ``device="cpu"``; they never fall
 back to the CPU quietly. Whether there is a card is decided inside each
 test (on the card the same calls must give CUDA tensors)."""
@@ -13,6 +13,8 @@ import torch
 
 from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
                                            initialize_state, state_from_numpy)
+from pd_mg_pin_corrosion_tpu_torch.amr_blocks import (build_amr_block_grid,
+                                                      build_bkit)
 from pd_mg_pin_corrosion_tpu_torch.fields import DeviceUnavailable
 
 PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -30,8 +32,16 @@ def _arrays(grid):
     return {name: t.numpy() for name, t in vars(st).items()}
 
 
+def _bkit(cfg, **kw):
+    """The block-AMR kit of parity.cfg with use_amr = 1."""
+    amr = Config.load(PARITY)
+    amr.apply_overrides(["use_amr=1", "amr_ratio=2"])
+    return build_bkit(build_amr_block_grid(amr), amr, **kw)
+
+
 CALLS = {
     "build_kit": lambda cfg, grid, **kw: build_kit(grid, cfg, **kw),
+    "build_bkit": lambda cfg, grid, **kw: _bkit(cfg, **kw),
     "initialize_state": lambda cfg, grid, **kw: initialize_state(grid, cfg,
                                                                  **kw),
     "state_from_numpy": lambda cfg, grid, **kw: state_from_numpy(

@@ -87,7 +87,9 @@ def test_slice_f32_first_cycle_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "use_amr=1", "implicit_extrapolate_x0=1"])
+    # block AMR runs since it was ported; the gather backend is left out
+    pytest.param("use_amr=1 amr_backend=gather", id="use_amr=1"),
+    "implicit_extrapolate_x0=1"])
 def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
     args = [PARITY, f"output_dir={tmp_path}", *override.split()]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
