@@ -17,7 +17,7 @@ argument all of them run, in this order):
    for identical bits, with median times of both, the bound (bytes
    over the HBM rate or flops over the peak rate, whichever is larger) and
    the time of one PyTorch library call that computes the same function,
-   where there is one (LIBRARY); basis_dots must be one device kernel a
+   where there is one (LIBRARY); basis_dots must be one device launch a
    call (counted in a torch.profiler window); ns2d's and ard2d's tile,
    staged bytes, halo factor, unfused issue floor and time behind another
    kernel; ard2d bit-equal to its twin on seeded C with salt-blocked SOLID
@@ -26,7 +26,7 @@ argument all of them run, in this order):
    (packed f32 and bf16 weights against the dense twin; the packing's
    nonzero count, padding, bytes and time on a line of its own),
    slots3d_f64 (packed f32 weights against the dense twin, one device
-   kernel a call, beside an f64 CSR torch.mv), basis_axpy and basis_dots
+   launch a call, beside an f64 CSR torch.mv), basis_axpy and basis_dots
    on a 26-row basis of that length
    (basis_dots also on its first 13 rows and as the k = 1 self-dot), ns3d's
    staged bytes and halo factor, and the four forms of
@@ -88,17 +88,30 @@ argument all of them run, in this order):
 12. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
    geometry with use_amr = 1), CUDA against the CPU within 1e-4; PATH_AMR3D
    must launch.
-13. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
+13. ``calib``, the calibration scripts' path: ns3d, matvec3d (f32, bf16),
+   slots3d_f64 and basis_dots / basis_axpy (26 rows and k = 1) at the
+   3D calibration grid's shapes (params_3d.cfg at dx = 8e-6: 45 x 45 x 82 =
+   166,050 nodes), ns2d, matvec2d and the basis kernels at the 2D one's
+   (params_implicit_test.cfg: 119 x 67 = 7,973 nodes), each against its
+   twin as in ``kernels3d`` / ``amr`` (``name@calib3d``, ``name@calib2d``
+   rows); then scripts/calibrate_3d_torch.py's run_one on twoanchor-c (with
+   the banked runs' grain draw) and scripts/calibrate_2d_torch.py's on
+   twoanchor-a, each to CALIB_T_FINAL
+   on the card, their rows against the first rows of
+   docs/runs/calib_3d/twoanchor-c and docs/runs/calib_2d/twoanchor-a
+   within BANKED_GATES (solid_nodes and time_s exact); PATH_3D / PATH_2D
+   must launch.
+14. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
    implicit and the explicit path and the gs_parity path in float32, on
    CUDA (kernels) and on the CPU (plain twins); diagnostics.csv must
-   agree. And the gs_parity run in float64 on CUDA against the C++
-   reference binary's tests/golden/parity_diagnostics_ref.csv, with
-   tests/test_parity.py's gates.
+   agree. And the whole gs_parity run in float64 on CUDA against the C++
+   reference binary's tests/golden/parity_diagnostics_ref.csv, byte for
+   byte and with tests/test_parity.py's gates.
 
 Launch counts are set to 0 just before each main path and read just after
-it. Then one JSON line about the kernels (the AMR phase's block shapes as
-``name@shape`` rows, with the launches of the block-AMR run), the nvidia-smi line, and the
-result line. Imports nothing of JAX. Exits non-zero without a CUDA device
+it. Then one JSON line about the kernels (the AMR and calib phases'
+shapes as ``name@shape`` rows, with the launches of the run at that
+shape), the nvidia-smi line, and the result line. Imports nothing of JAX. Exits non-zero without a CUDA device
 or without the repository beside it.
 """
 
@@ -215,9 +228,31 @@ AMR_WARM_GATE = 0.10
 # 3d_slice.py's 21 s of physics
 AMR3D_CAPS = SMALL_3D + ["use_amr=1", "amr_ratio=2", "amr_buffer=16e-6",
                          "T_final=21"]
+# the calibration scripts (scripts/calibrate_3d_torch.py, _2d_torch.py):
+# the ladder points twoanchor-c of docs/runs/calib_3d (params_3d.cfg at
+# dx = 8e-6, 166,050 nodes; label, dx, D_grain, D_gb, gb_width_cells,
+# grain_size_mean, corrosion_accel_l) and twoanchor-a of docs/runs/calib_2d
+# (params_implicit_test.cfg, 7,973 nodes; label, D_grain, D_gb, decay_l,
+# accel_l), each run by its script's run_one to CALIB_T_FINAL (20 implicit
+# steps at the 30 s dt ceiling) and held against the banked run's first
+# rows within BANKED_GATES. The 3D bank was made with the grain draw of
+# replay_banked_amr.py (the whole point on the card gives its 2,540 rows
+# with it, 2,523 without; NVIDIA H100 80GB HBM3 at 700.00 W), so the 3D
+# point runs with --grain-draw=banked; both draws give the 2D bank's run
+CALIB3D = os.path.join(ROOT, "scripts", "calibrate_3d_torch.py")
+CALIB2D = os.path.join(ROOT, "scripts", "calibrate_2d_torch.py")
+CALIB3D_POINT = ("twoanchor-c", 8e-6, 2.1609e-17, 2.1609e-15, 0, 40e-6,
+                 1.2790)
+CALIB2D_POINT = ("twoanchor-a", 5.826e-17, 5.826e-15, None, None)
+CALIB_T_FINAL = 600.0
+CALIB3D_CFG = ["dx=8e-6", "D_grain=2.1609e-17", "D_gb=2.1609e-15",
+               "gb_width_cells=0", "grain_size_mean=40e-6",
+               "corrosion_accel_l=1.2790"]
+CALIB2D_CFG = os.path.join(ROOT, "config", "params_implicit_test.cfg")
 SEED = 20261016
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
-          "warm3d", "explicit3d", "subcell3d", "amr", "amr3d", "parity")
+          "warm3d", "explicit3d", "subcell3d", "amr", "amr3d", "calib",
+          "parity")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -239,6 +274,15 @@ L2_BYTES = 50e6
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def load_script(path):
+    """The module of a script in scripts/, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def nvidia_smi():
@@ -292,23 +336,25 @@ def apart_ms(fn, other, reps=30):
 
 
 def device_launches(fn, calls=20):
-    """Kernels the device ran per fn() call, in a torch.profiler window
-    (CPU and CUDA activities) of ``calls`` calls queued behind a ~10 ms
-    spin kernel, rounded: a window of one call alone saw no kernel when it
-    was not the process's first (the activity tracing had not started when
-    the kernel ran)."""
+    """Device work items (kernel launches, memsets, copies) per fn() call:
+    the CUDA runtime and driver calls that enqueue them, in a
+    torch.profiler window (CPU and CUDA activities) of ``calls`` calls,
+    rounded. Counted from these host-side records, not from the device's
+    kernel records: in a process that has run for minutes a window loses a
+    growing share of its kernel records (none at all in the calib pass of
+    a whole run; scripts/profiler_windows_torch.py), while every launch
+    record stays."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(20_000_000)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return round(sum(e.device_type == torch.autograd.DeviceType.CUDA
-                     and "spin_kernel" not in e.name
-                     for e in prof.events()) / calls)
+    return round(sum(e.name.startswith("cu") and any(
+        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy"))
+        for e in prof.events()) / calls)
 
 
 def seeded(rng, shape, scale=1.0, dtype=torch.float32):
@@ -585,7 +631,7 @@ def phase_kernels(pkg):
     print(f"[kernels] basis: {k} rows of {n} floats, {V.stride(0)} apart")
     record_basis_dots(record, "basis_dots", V, w)
     n_dev = device_launches(lambda: kernels.basis_dots(V, w))
-    print(f"[kernels] basis_dots: {n_dev} device kernel(s) a call")
+    print(f"[kernels] basis_dots: {n_dev} device launch(es) a call")
     if n_dev != 1:
         fail("basis_dots is not one launch a call")
     record_basis_axpy(record, "basis_axpy", c, V, w)
@@ -679,79 +725,13 @@ def packed_traffic(packed, itemsize):
     return total
 
 
-def phase_kernels3d(pkg):
-    """Phase 3; returns {name: JSON row fields}."""
+def phase_chunked(kit, st, args, act, n_fluid, record, results):
+    """kernels3d part: the four forms of csrc/ns3d_chunked.cu on the
+    flagship's ns3d inputs ``args``, each bit-equal to its twin and
+    within the script's gate of ns3d."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
-    from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
-    from pd_mg_pin_corrosion_tpu_torch.ops import ns
 
-    t0 = time.time()
-    cfg = pkg.Config.load(FLAGSHIP)
-    grid = pkg.build_grid(cfg)
-    t1 = time.time()
-    kit = pkg.build_kit(grid, cfg, device="cuda")
-    st = pkg.initialize_state(grid, cfg,
-                              grains=pkg.grains.generate(grid, cfg),
-                              device="cuda")
-    torch.cuda.synchronize()
-    n, S = grid.N_total, kit.S
-    print(f"[kernels3d] flagship grid {kit.shape} = {n} nodes, S={S}, "
-          f"mext={kit.mext}, {kit.dtype}; grid built in {t1 - t0:.2f} s, "
-          f"grains + kit + state in {time.time() - t1:.2f} s")
-    rng = np.random.default_rng(SEED + 3)
-    fluid = st.node_type == 0
-    st.rho = torch.where(fluid, st.rho + seeded(rng, kit.shape, 0.01), st.rho)
-    st.vel = torch.where(fluid[..., None],
-                         st.vel + seeded(rng, st.vel.shape, 0.02 * cfg.U_in),
-                         st.vel)
-    st.C = torch.where(st.node_type == 1, 1.0 - 0.2 * torch.tensor(
-        rng.random(kit.shape), dtype=torch.float32, device="cuda"), 0.0)
-    results = {}
-    record = recorder("kernels3d", results, calls=10)
-
-    # ns3d: 53 B/node of unique HBM traffic (rho, vel[3], p, node_type and
-    # the four pure-act sums in; rho, vel[3] out); flops from the source:
-    # 29 per bond to an in-grid, non-OUTSIDE neighbour, 54 per FLUID node
-    p = ns.tait_pressure(st.rho, kit)
-    dt = ns.compute_dt(st, kit)
-    args = (st.rho, st.vel, p, st.node_type, dt, kit)
-    (r, v), (rp, vp) = kernels.ns3d(*args), kernels.ns3d_plain(*args)
-    torch.cuda.synchronize()
-    ok = (torch.allclose(r, rp, rtol=1e-6, atol=0.0)
-          and torch.allclose(v, vp, rtol=1e-4, atol=1e-9))
-    err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
-    print(f"[kernels3d] ns3d bit-equal to its plain twin: "
-          f"{torch.equal(r, rp) and torch.equal(v, vp)}")
-    del r, v, rp, vp
-    n_fluid = float(fluid.sum())
-    act = float(bond_counts(kit, fluid, {"nt": kit.pad(st.node_type,
-                                                       pkg.OUTSIDE)},
-                            {"act": lambda nb: nb["nt"] != pkg.OUTSIDE}
-                            )["act"].sum())
-    print(f"[kernels3d] {int(n_fluid)} FLUID nodes, {int(act)} bonds to "
-          f"active neighbours")
-    record("ns3d", err, ok, lambda: kernels.ns3d(*args),
-           lambda: kernels.ns3d_plain(*args),
-           "rho rtol 1e-6, v rtol 1e-4 atol 1e-9", 53 * n,
-           29 * act + 54 * n_fluid)
-    geo = kernels.ns3d_geometry()
-    tiles, busy, staged, halo = kernels.ns3d_staging(kit, st.node_type, geo)
-    issue_ms = 1e3 * 29 * S * n_fluid / (
-        128 * torch.cuda.get_device_properties(0).multi_processor_count
-        * 1e6 * torch.cuda.clock_rate())
-    print(f"[kernels3d] ns3d tile {geo.tx} x {geo.ty} x {geo.tz} (x, y, z), "
-          f"{geo.r} z nodes a thread, {geo.threads} threads, "
-          f"{geo.tile_bytes / 1e3:.1f} KB of staged fields a block: {busy} of "
-          f"{tiles} tiles hold a FLUID node and stage {geo.staged} positions "
-          f"each ({halo:.2f} per node of the tile, 5 floats and a node_type "
-          f"byte): {staged / 1e6:.1f} MB a launch from L2 / HBM, "
-          f"{staged / (results['ns3d']['ms'] * 1e-3) / 1e12:.3f} TB/s; 29 "
-          f"unfused instructions a bond on every slot of every FLUID node "
-          f"would take {issue_ms:.4f} ms of issue slots at "
-          f"{torch.cuda.clock_rate()} MHz "
-          f"({100 * issue_ms / results['ns3d']['ms']:.1f} % of the kernel's "
-          f"time)")
-
+    n = math.prod(kit.shape)
     # the four forms of csrc/ns3d_chunked.cu at the script's defaults
     # (NCHUNK 6, BZ 16), each against its twin and against ns3d at the
     # script's gate (rel 1e-4). 37 B/node (rho, vel[3], p, node_type in;
@@ -820,6 +800,93 @@ def phase_kernels3d(pkg):
               f"% behind another kernel)")
     del r0, v0, actconv
 
+
+def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d"):
+    """Phase 3 on params_3d.cfg with ``overrides``; returns {name: JSON row
+    fields}. With a ``suffix`` (the calibration grid, ``@calib3d``) the
+    path kernels are named ``name@shape``, and the ns3d_chunked forms,
+    which run only in the ladder, are left out."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    t0 = time.time()
+    cfg = pkg.Config.load(FLAGSHIP)
+    cfg.apply_overrides(list(overrides))
+    grid = pkg.build_grid(cfg)
+    t1 = time.time()
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    st = pkg.initialize_state(grid, cfg,
+                              grains=pkg.grains.generate(grid, cfg),
+                              device="cuda")
+    torch.cuda.synchronize()
+    n, S = grid.N_total, kit.S
+    print(f"[{tag}] grid {kit.shape} = {n} nodes, S={S}, "
+          f"mext={kit.mext}, {kit.dtype}; grid built in {t1 - t0:.2f} s, "
+          f"grains + kit + state in {time.time() - t1:.2f} s")
+    rng = np.random.default_rng(SEED + 3)
+    fluid = st.node_type == 0
+    st.rho = torch.where(fluid, st.rho + seeded(rng, kit.shape, 0.01), st.rho)
+    st.vel = torch.where(fluid[..., None],
+                         st.vel + seeded(rng, st.vel.shape, 0.02 * cfg.U_in),
+                         st.vel)
+    st.C = torch.where(st.node_type == 1, 1.0 - 0.2 * torch.tensor(
+        rng.random(kit.shape), dtype=torch.float32, device="cuda"), 0.0)
+    results = {}
+    record = recorder(tag, results, calls=10)
+
+    # ns3d: 53 B/node of unique HBM traffic (rho, vel[3], p, node_type and
+    # the four pure-act sums in; rho, vel[3] out); flops from the source:
+    # 29 per bond to an in-grid, non-OUTSIDE neighbour, 54 per FLUID node
+    p = ns.tait_pressure(st.rho, kit)
+    dt = ns.compute_dt(st, kit)
+    args = (st.rho, st.vel, p, st.node_type, dt, kit)
+    (r, v), (rp, vp) = kernels.ns3d(*args), kernels.ns3d_plain(*args)
+    torch.cuda.synchronize()
+    ok = (torch.allclose(r, rp, rtol=1e-6, atol=0.0)
+          and torch.allclose(v, vp, rtol=1e-4, atol=1e-9))
+    err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
+    print(f"[{tag}] ns3d bit-equal to its plain twin: "
+          f"{torch.equal(r, rp) and torch.equal(v, vp)}")
+    del r, v, rp, vp
+    n_fluid = float(fluid.sum())
+    act = float(bond_counts(kit, fluid, {"nt": kit.pad(st.node_type,
+                                                       pkg.OUTSIDE)},
+                            {"act": lambda nb: nb["nt"] != pkg.OUTSIDE}
+                            )["act"].sum())
+    print(f"[{tag}] {int(n_fluid)} FLUID nodes, {int(act)} bonds to "
+          f"active neighbours")
+    record("ns3d" + suffix, err, ok, lambda: kernels.ns3d(*args),
+           lambda: kernels.ns3d_plain(*args),
+           "rho rtol 1e-6, v rtol 1e-4 atol 1e-9", 53 * n,
+           29 * act + 54 * n_fluid)
+    geo = kernels.ns3d_geometry()
+    tiles, busy, staged, halo = kernels.ns3d_staging(kit, st.node_type, geo)
+    issue_ms = 1e3 * 29 * S * n_fluid / (
+        128 * torch.cuda.get_device_properties(0).multi_processor_count
+        * 1e6 * torch.cuda.clock_rate())
+    print(f"[{tag}] ns3d tile {geo.tx} x {geo.ty} x {geo.tz} (x, y, z), "
+          f"{geo.r} z nodes a thread, {geo.threads} threads, "
+          f"{geo.tile_bytes / 1e3:.1f} KB of staged fields a block: {busy} of "
+          f"{tiles} tiles hold a FLUID node and stage {geo.staged} positions "
+          f"each ({halo:.2f} per node of the tile, 5 floats and a node_type "
+          f"byte): {staged / 1e6:.1f} MB a launch from L2 / HBM, "
+          f"{staged / (results['ns3d' + suffix]['ms'] * 1e-3) / 1e12:.3f} TB/s; 29 "
+          f"unfused instructions a bond on every slot of every FLUID node "
+          f"would take {issue_ms:.4f} ms of issue slots at "
+          f"{torch.cuda.clock_rate()} MHz "
+          f"({100 * issue_ms / results['ns3d' + suffix]['ms']:.1f} % of the "
+          f"kernel's time)")
+    other = torch.empty_like(st.vel)
+    apart = apart_ms(lambda: kernels.ns3d(*args),
+                     lambda: torch.add(other, other, out=other))
+    results["ns3d" + suffix]["apart_ms"] = apart
+    print(f"[{tag}] ns3d behind another kernel (an elementwise add), one call "
+          f"at a time: {apart:.4f} ms")
+    del other
+    if not suffix:
+        phase_chunked(kit, st, args, act, n_fluid, record, results)
+
     # matvec3d on the operator of this state, packed f32 and bf16 weights
     # against the dense twin. The least the card must move, whatever the
     # encoding: the nonzero weights, one bit per slot of every unknown row
@@ -859,11 +926,11 @@ def phase_kernels3d(pkg):
     inside = float(bond_counts(kit, op.unknown, {"one": kit.pad(
         torch.ones_like(x), 0.0)}, {"in": lambda nb: nb["one"] != 0}
                                )["in"].sum())
-    print(f"[kernels3d] operator: {n_unk} unknown rows, {int(inside)} "
+    print(f"[{tag}] operator: {n_unk} unknown rows, {int(inside)} "
           f"in-grid bonds, {nnz} nonzero weights; dense W "
           f"{W.numel() * 4 / 1e6:.1f} MB f32 (built for the twins: the "
           f"operator holds none)")
-    print(f"[kernels3d] packed: {stored} stored values (slice padding "
+    print(f"[{tag}] packed: {stored} stored values (slice padding "
           f"{stored / max(nnz, 1):.4f} stored per nonzero), a slot byte "
           f"beside each; {op.packed.nbytes() / 1e6:.1f} MB with f32 "
           f"values, {op.W16.nbytes() / 1e6:.1f} MB with bf16 values (slot "
@@ -877,7 +944,7 @@ def phase_kernels3d(pkg):
         fail("pack_stencil: two packings of one operator differ")
     A = csr_of(W, op.diag, op.unknown, kit)
     xf = x.reshape(-1)
-    print(f"[kernels3d] CSR operator: {A.values().numel()} nonzeros")
+    print(f"[{tag}] CSR operator: {A.values().numel()} nonzeros")
     for name, packed, wbytes, lib in (
             ("matvec3d", op.packed, 4,
              lambda: torch.mv(A, xf).view(kit.shape)),
@@ -888,13 +955,13 @@ def phase_kernels3d(pkg):
         y, yp = kernels.matvec3d(*mv), kernels.matvec3d_plain(*twin)
         err = float((y - yp).abs().max())
         same = torch.equal(y, yp)
-        print(f"[kernels3d] {name} bit-equal to its dense twin: {same}")
+        print(f"[{tag}] {name} bit-equal to its dense twin: {same}")
         del y, yp
         dense_ms, _ = bound(n_unk * S * wbytes + 13 * n, 2 * inside + n_unk)
-        print(f"[kernels3d] {name} bound of the dense stream "
+        print(f"[{tag}] {name} bound of the dense stream "
               f"({(n_unk * S * wbytes + 13 * n) / 1e6:.1f} MB): "
               f"{dense_ms:.4f} ms")
-        record(name, err, same,
+        record(name + suffix, err, same,
                lambda mv=mv: (kernels.matvec3d(*mv),),
                lambda twin=twin: kernels.matvec3d_plain(*twin),
                "bit-equal", nnz * wbytes + 4 * words * n_unk + 13 * n,
@@ -902,12 +969,14 @@ def phase_kernels3d(pkg):
         other = torch.empty_like(x)
         apart = apart_ms(lambda: kernels.matvec3d(*mv),
                          lambda: torch.add(x, x, out=other))
+        results[name + suffix]["apart_ms"] = apart
         moved = packed_traffic(packed, wbytes) + 15 * n
-        print(f"[kernels3d] {name} behind another kernel (an elementwise "
+        print(f"[{tag}] {name} behind another kernel (an elementwise "
               f"add), one call at a time: {apart:.4f} ms; its streams ask "
               f"for {moved / 1e6:.1f} MB in whole sectors (slot bytes, "
               f"counts and vectors included): "
-              f"{moved / (results[name]['ms'] * 1e-3) / 1e12:.3f} TB/s")
+              f"{moved / (results[name + suffix]['ms'] * 1e-3) / 1e12:.3f} "
+              f"TB/s")
         del W_dense, twin, other
     # the f64 slot sum's library call: the same nonzeros (no diagonal) as
     # one float64 CSR matrix, the f32 weights widened exactly
@@ -917,18 +986,23 @@ def phase_kernels3d(pkg):
                                   A_slots.values().double(), size=A.shape)
     del A, A_slots
 
-    # basis_axpy on a 26-row basis of flagship-long vectors (110 MB: from
-    # HBM, not the L2)
+    # basis_axpy on a 26-row basis of grid-long vectors (flagship: 110 MB,
+    # from HBM, not the L2)
     V = kernels.pitched_basis(26, n, torch.float32, "cuda")
     V.copy_(seeded(rng, (26, n)))
     w = seeded(rng, (n,))
-    record_basis_axpy(record, "basis_axpy_3d",
-                      seeded(rng, (26,), dtype=torch.float64), V, w)
-    # basis_dots on the same basis (from HBM), on its first 13 rows, and the
-    # k = 1 self-dot that is every GMRES norm
-    record_basis_dots(record, "basis_dots_3d", V, w)
-    record_basis_dots(record, "basis_dots_3d_k13", V[:13], w)
-    record_basis_dots(record, "basis_norm_3d", w[None], w)
+    c = seeded(rng, (26,), dtype=torch.float64)
+    # basis_dots on the same basis, on its first 13 rows (flagship only),
+    # and the k = 1 self-dot that is every GMRES norm
+    if suffix:
+        record_basis_axpy(record, "basis_axpy" + suffix, c, V, w)
+        record_basis_dots(record, "basis_dots" + suffix, V, w)
+        record_basis_dots(record, f"basis_dots{suffix}_k1", w[None], w)
+    else:
+        record_basis_axpy(record, "basis_axpy_3d", c, V, w)
+        record_basis_dots(record, "basis_dots_3d", V, w)
+        record_basis_dots(record, "basis_dots_3d_k13", V[:13], w)
+        record_basis_dots(record, "basis_norm_3d", w[None], w)
     del V, w
 
     # slots3d_f64 over the packed f32 weights against the dense twin, x of
@@ -943,20 +1017,20 @@ def phase_kernels3d(pkg):
     yp = kernels.slots3d_f64_plain(x64, W, kit)
     err = float((y - yp).abs().max())
     same = torch.equal(y, yp)
-    print(f"[kernels3d] slots3d_f64 (packed f32 weights) bit-equal to its "
+    print(f"[{tag}] slots3d_f64 (packed f32 weights) bit-equal to its "
           f"dense plain twin: {same}")
     del y, yp
     n_dev = device_launches(lambda: kernels.slots3d_f64(x64, op.packed, kit))
-    print(f"[kernels3d] slots3d_f64: {n_dev} device kernel(s) a call")
+    print(f"[{tag}] slots3d_f64: {n_dev} device launch(es) a call")
     if n_dev != 1:
         fail("slots3d_f64 is not one launch a call")
     nbytes = nnz * 4 + 4 * words * n_unk + 17 * n
     dense_ms, _ = bound(n * S * 4 + 16 * n, 2.0 * nnz, F64_RATE)
-    print(f"[kernels3d] slots3d_f64: {nbytes / 1e6:.1f} MB on the nonzeros "
+    print(f"[{tag}] slots3d_f64: {nbytes / 1e6:.1f} MB on the nonzeros "
           f"(the dense W and its vectors, {(n * S * 4 + 16 * n) / 1e6:.1f} "
           f"MB, would bound it at {dense_ms:.4f} ms)")
     x64f = x64.reshape(-1)
-    record("slots3d_f64", err, same,
+    record("slots3d_f64" + suffix, err, same,
            lambda: (kernels.slots3d_f64(x64, op.packed, kit),),
            lambda: kernels.slots3d_f64_plain(x64, W, kit), "bit-equal",
            nbytes, 2.0 * nnz, rate=F64_RATE,
@@ -964,14 +1038,15 @@ def phase_kernels3d(pkg):
     other = torch.empty_like(x64)
     apart = apart_ms(lambda: kernels.slots3d_f64(x64, op.packed, kit),
                      lambda: torch.add(x64, x64, out=other))
+    results["slots3d_f64" + suffix]["apart_ms"] = apart
     moved = packed_traffic(op.packed, 4) + 19 * n
-    print(f"[kernels3d] slots3d_f64 behind another kernel (an elementwise "
+    print(f"[{tag}] slots3d_f64 behind another kernel (an elementwise "
           f"add), one call at a time: {apart:.4f} ms "
-          f"({100 * results['slots3d_f64']['bound_ms'] / apart:.1f} % of the "
+          f"({100 * results['slots3d_f64' + suffix]['bound_ms'] / apart:.1f} % of the "
           f"bound); its streams ask for {moved / 1e6:.1f} MB in whole "
           f"sectors (slot bytes, counts and vectors included)")
     del A64, other, W
-    print(f"[kernels3d] peak device memory "
+    print(f"[{tag}] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return results
 
@@ -1372,9 +1447,7 @@ def phase_explicit3d(tmp):
 
     # a window of explicit steps on the run's final state, timed and
     # profiled (scripts/profile_torch_3d.py's window)
-    spec = importlib.util.spec_from_file_location("profile_torch_3d", PROFILE)
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = load_script(PROFILE)
     (_, kit, dt, vol, _), *_ = chunks[0]
     n = EXPLICIT3D_PROFILE_STEPS
     with open(os.path.join(out_dir, "profile.txt"), "w") as out:
@@ -1425,10 +1498,7 @@ def phase_ladder():
     grid; returns its launch counts."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
 
-    spec = importlib.util.spec_from_file_location("exp_ns3d_chunked_torch",
-                                                  LADDER)
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
+    script = load_script(LADDER)
     torch.cuda.empty_cache()
     kit, state, dt = script.build(4.0e-6)
     kernels.reset_launch_counts()
@@ -1509,9 +1579,7 @@ def phase_explicit(tmp):
 
     # a window of explicit steps on the run's final state, timed and
     # profiled (scripts/profile_torch_3d.py's window)
-    spec = importlib.util.spec_from_file_location("profile_torch_3d", PROFILE)
-    prof = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(prof)
+    prof = load_script(PROFILE)
     import pd_mg_pin_corrosion_tpu_torch as pkg
     cfg = pkg.Config.load(FINE)
     cfg.apply_overrides(EXPLICIT_CAPS)
@@ -1526,14 +1594,12 @@ def phase_explicit(tmp):
     return counts
 
 
-def amr_state(pkg, cfg, grid, device="cuda"):
-    """The block-AMR state of ``grid`` with FLUID and FICTITIOUS rho and vel
-    perturbed and C seeded (SOLID near 1, FLUID up to 0.92: some FLUID
-    nodes reach C_sat and salt-block their SOLID neighbours)."""
-    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
-
-    st = pkg.initialize_state(grid, cfg, grains=ab.generate_grains_b(grid, cfg),
-                              device=device)
+def seeded_state(pkg, cfg, grid, grains, device="cuda"):
+    """The state of ``grid`` (uniform or block AMR) with FLUID and
+    FICTITIOUS rho and vel perturbed and C seeded (SOLID near 1, FLUID up
+    to 0.92: some FLUID nodes reach C_sat and salt-block their SOLID
+    neighbours)."""
+    st = pkg.initialize_state(grid, cfg, grains=grains, device=device)
     rng = np.random.default_rng(SEED)
     moving = (st.node_type == pkg.FLUID) | (st.node_type == pkg.FICTITIOUS)
     st.rho = torch.where(moving, st.rho + seeded(rng, st.rho.shape, 0.01),
@@ -1548,125 +1614,144 @@ def amr_state(pkg, cfg, grid, device="cuda"):
     return st
 
 
+def kernels2d_at(pkg, kit, sb, tag, record, results, other, op,
+                 ard=True):
+    """ns2d, matvec2d (on the operator ``op``) and, with ``ard``, ard2d on
+    the state ``sb`` of one 2D grid ``kit`` against their twins, with times,
+    in-situ times (behind ``other``'s add), bounds and library calls as in
+    phase ``kernels``; rows named ``name@tag`` in ``results``."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
+    from pd_mg_pin_corrosion_tpu_torch.ops import ns
+
+    log = f"[{tag.split('_')[0]}]"
+    tag = "@" + tag
+    clock = torch.cuda.clock_rate()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = math.prod(kit.shape)
+    fluid = sb.node_type == pkg.FLUID
+    solid = sb.node_type == pkg.SOLID_MG
+    nt_p = kit.pad(sb.node_type, pkg.OUTSIDE)
+    print(f"{log} {tag[1:]} {kit.shape} = {n} nodes, S={kit.S}: "
+          f"{int(fluid.sum())} FLUID, {int(solid.sum())} SOLID, "
+          f"{int((sb.node_type == pkg.FICTITIOUS).sum())} FICTITIOUS")
+
+    # ns2d (bytes and flops as in phase kernels)
+    p = ns.tait_pressure(sb.rho, kit)
+    args = (sb.rho, sb.vel, p, sb.node_type, ns.compute_dt(sb, kit), kit)
+    (r, v), (rp, vp) = kernels.ns2d(*args), kernels.ns2d_plain(*args)
+    same = torch.equal(r, rp) and torch.equal(v, vp)
+    err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
+    act = bond_counts(kit, fluid, {"nt": nt_p},
+                      {"act": lambda nb: nb["nt"] != pkg.OUTSIDE})["act"]
+    diag = torch.tensor([ex != 0 and ey != 0 for ex, ey in kit.evec],
+                        device="cuda")
+    flops = float((act * torch.where(diag, 52.0, 37.0)).sum()
+                  + 26 * fluid.sum())
+    record("ns2d" + tag, err, same, lambda: kernels.ns2d(*args),
+           lambda: kernels.ns2d_plain(*args), "bit-equal", 29 * n, flops)
+    apart = apart_ms(lambda: kernels.ns2d(*args),
+                     lambda: torch.add(other, other, out=other))
+    results["ns2d" + tag]["apart_ms"] = apart
+    issue_ms = 1e3 * flops / (128 * sms * 1e6 * clock)
+    print(f"{log} ns2d{tag} in situ {apart:.4f} ms; unfused issue floor "
+          f"{issue_ms:.4f} ms; bound share in situ "
+          f"{100 * results['ns2d' + tag]['bound_ms'] / apart:.1f} %")
+
+    # matvec2d on the operator
+    n_unk = int(op.unknown.sum())
+    x = torch.tensor(np.random.default_rng(SEED).random(kit.shape),
+                     dtype=torch.float32, device="cuda")
+    mv = (x, op.W, op.diag, op.unknown, kit)
+    y, yp = kernels.matvec2d(*mv), kernels.matvec2d_plain(*mv)
+    inside = bond_counts(kit, op.unknown, {"one": kit.pad(
+        torch.ones_like(x), 0.0)}, {"in": lambda nb: nb["one"] != 0})["in"]
+    A = csr_of(op.W, op.diag, op.unknown, kit)
+    xf = x.reshape(-1)
+    record("matvec2d" + tag, float((y - yp).abs().max()),
+           torch.equal(y, yp), lambda: (kernels.matvec2d(*mv),),
+           lambda: kernels.matvec2d_plain(*mv), "bit-equal",
+           n_unk * kit.S * 4 + 13 * n, float(2 * inside.sum() + n_unk),
+           library=lambda: torch.mv(A, xf).view(kit.shape))
+    results["matvec2d" + tag]["apart_ms"] = apart_ms(
+        lambda: kernels.matvec2d(*mv),
+        lambda: torch.add(other, other, out=other))
+    print(f"{log} matvec2d{tag} in situ "
+          f"{results['matvec2d' + tag]['apart_ms']:.4f} ms; W "
+          f"{tuple(op.W.shape)}")
+    del A
+    if not ard:
+        return
+
+    # ard2d (bytes and flops as in phase kernels)
+    salt = ard_ops.compute_salt_blocked(sb, kit)
+    Ds = ard_ops.solid_diffusivity(sb.is_gb, sb.is_precip, kit.cfg,
+                                   ard_ops.micro_d_factor(
+                                       kit.cfg, 0.05, kit.dtype, "cuda"))
+    ard = (sb.C, sb.vel, ns.vel_magnitude(sb.vel), sb.node_type, Ds, salt,
+           float(ard_ops.compute_dt(sb, kit)), kit)
+    cn, cp = kernels.ard2d(*ard), kernels.ard2d_plain(*ard)
+    jf = (pkg.FLUID, pkg.INLET, pkg.OUTLET, pkg.FICTITIOUS)
+    counts = bond_counts(
+        kit, fluid | solid,
+        {"nt": nt_p, "salt": kit.pad(salt, False)},
+        {"ll": lambda nb: fluid & sum(nb["nt"] == t for t in jf).bool(),
+         "fs_open": lambda nb: fluid & (nb["nt"] == pkg.SOLID_MG)
+         & ~nb["salt"],
+         "fs_blocked": lambda nb: fluid & nb["salt"],
+         "sf": lambda nb: solid & sum(nb["nt"] == t for t in jf).bool()})
+    flops = float(17 * counts["ll"].sum() + 10 * counts["fs_open"].sum()
+                  + 6 * counts["fs_blocked"].sum()
+                  + 6 * counts["sf"].sum() + 4 * (fluid | solid).sum()
+                  + 4 * (solid & ~salt).sum())
+    print(f"{log} ard2d{tag}: {int(salt.sum())} of {int(solid.sum())} "
+          f"SOLID nodes salt-blocked")
+    record("ard2d" + tag, float((cn - cp).abs().max()),
+           torch.equal(cn, cp), lambda: (kernels.ard2d(*ard),),
+           lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n, flops)
+    results["ard2d" + tag]["apart_ms"] = apart_ms(
+        lambda: kernels.ard2d(*ard),
+        lambda: torch.add(other, other, out=other))
+    print(f"{log} ard2d{tag} in situ "
+          f"{results['ard2d' + tag]['apart_ms']:.4f} ms")
+
+
+def record_basis_at(record, tag, n):
+    """basis_dots (26 rows and the k = 1 self-dot) and basis_axpy on
+    GMRES's pitched (26, n) basis, rows named ``name@tag``."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    rng = np.random.default_rng(SEED)
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(seeded(rng, (26, n)))
+    w = seeded(rng, (n,))
+    c = seeded(rng, (26,), dtype=torch.float64)
+    print(f"[{tag.split('_')[0]}] basis: 26 rows of {n} floats, "
+          f"{V.stride(0)} apart")
+    record_basis_dots(record, f"basis_dots@{tag}", V, w)
+    record_basis_dots(record, f"basis_dots@{tag}_k1", w[None], w)
+    record_basis_axpy(record, f"basis_axpy@{tag}", c, V, w)
+
+
 def amr_kernels(pkg):
     """amr part 1: ns2d, matvec2d and ard2d on each block of
     params_amr.cfg (views of the flat state), basis_dots / basis_axpy on
     GMRES's (26, 39,920) basis, each against its twin as in phase
     ``kernels``; returns {name@shape: JSON row fields}."""
     from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
-    from pd_mg_pin_corrosion_tpu_torch import kernels
-    from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
-    from pd_mg_pin_corrosion_tpu_torch.ops import ns
 
     cfg = pkg.Config.load(AMR_CFG)
     grid = ab.build_amr_block_grid(cfg)
     bkit = ab.build_bkit(grid, cfg, device="cuda")
-    st = amr_state(pkg, cfg, grid)
+    st = seeded_state(pkg, cfg, grid, ab.generate_grains_b(grid, cfg))
     results = {}
     record = recorder("amr", results)
-    clock = torch.cuda.clock_rate()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     other = torch.empty_like(st.vel)
     for block, sb in zip(("fine", "coarse"), ab._split_state(bkit, st)):
         kit = getattr(bkit, block)
-        tag = f"@amr_{block}"
-        n = math.prod(kit.shape)
-        fluid = sb.node_type == pkg.FLUID
-        solid = sb.node_type == pkg.SOLID_MG
-        nt_p = kit.pad(sb.node_type, pkg.OUTSIDE)
-        print(f"[amr] {block} block {kit.shape} = {n} nodes, S={kit.S}: "
-              f"{int(fluid.sum())} FLUID, {int(solid.sum())} SOLID, "
-              f"{int((sb.node_type == pkg.FICTITIOUS).sum())} FICTITIOUS")
-
-        # ns2d (bytes and flops as in phase kernels)
-        p = ns.tait_pressure(sb.rho, kit)
-        args = (sb.rho, sb.vel, p, sb.node_type, ns.compute_dt(sb, kit), kit)
-        (r, v), (rp, vp) = kernels.ns2d(*args), kernels.ns2d_plain(*args)
-        same = torch.equal(r, rp) and torch.equal(v, vp)
-        err = max(float((r - rp).abs().max()), float((v - vp).abs().max()))
-        act = bond_counts(kit, fluid, {"nt": nt_p},
-                          {"act": lambda nb: nb["nt"] != pkg.OUTSIDE})["act"]
-        diag = torch.tensor([ex != 0 and ey != 0 for ex, ey in kit.evec],
-                            device="cuda")
-        flops = float((act * torch.where(diag, 52.0, 37.0)).sum()
-                      + 26 * fluid.sum())
-        record("ns2d" + tag, err, same, lambda: kernels.ns2d(*args),
-               lambda: kernels.ns2d_plain(*args), "bit-equal", 29 * n, flops)
-        apart = apart_ms(lambda: kernels.ns2d(*args),
-                         lambda: torch.add(st.vel, st.vel, out=other))
-        results["ns2d" + tag]["apart_ms"] = apart
-        issue_ms = 1e3 * flops / (128 * sms * 1e6 * clock)
-        print(f"[amr] ns2d{tag} in situ {apart:.4f} ms; unfused issue floor "
-              f"{issue_ms:.4f} ms; bound share in situ "
-              f"{100 * results['ns2d' + tag]['bound_ms'] / apart:.1f} %")
-
-        # matvec2d on this block's operator
-        op = ab._block_operator(sb, kit, 0.05)
-        n_unk = int(op.unknown.sum())
-        x = torch.tensor(np.random.default_rng(SEED).random(kit.shape),
-                         dtype=torch.float32, device="cuda")
-        mv = (x, op.W, op.diag, op.unknown, kit)
-        y, yp = kernels.matvec2d(*mv), kernels.matvec2d_plain(*mv)
-        inside = bond_counts(kit, op.unknown, {"one": kit.pad(
-            torch.ones_like(x), 0.0)}, {"in": lambda nb: nb["one"] != 0})["in"]
-        A = csr_of(op.W, op.diag, op.unknown, kit)
-        xf = x.reshape(-1)
-        record("matvec2d" + tag, float((y - yp).abs().max()),
-               torch.equal(y, yp), lambda: (kernels.matvec2d(*mv),),
-               lambda: kernels.matvec2d_plain(*mv), "bit-equal",
-               n_unk * kit.S * 4 + 13 * n, float(2 * inside.sum() + n_unk),
-               library=lambda: torch.mv(A, xf).view(kit.shape))
-        results["matvec2d" + tag]["apart_ms"] = apart_ms(
-            lambda: kernels.matvec2d(*mv),
-            lambda: torch.add(st.vel, st.vel, out=other))
-        print(f"[amr] matvec2d{tag} in situ "
-              f"{results['matvec2d' + tag]['apart_ms']:.4f} ms; W "
-              f"{tuple(op.W.shape)}")
-        del A
-
-        # ard2d (bytes and flops as in phase kernels)
-        salt = ard_ops.compute_salt_blocked(sb, kit)
-        Ds = ard_ops.solid_diffusivity(sb.is_gb, sb.is_precip, kit.cfg,
-                                       ard_ops.micro_d_factor(
-                                           kit.cfg, 0.05, kit.dtype, "cuda"))
-        ard = (sb.C, sb.vel, ns.vel_magnitude(sb.vel), sb.node_type, Ds, salt,
-               float(ard_ops.compute_dt(sb, kit)), kit)
-        cn, cp = kernels.ard2d(*ard), kernels.ard2d_plain(*ard)
-        jf = (pkg.FLUID, pkg.INLET, pkg.OUTLET, pkg.FICTITIOUS)
-        counts = bond_counts(
-            kit, fluid | solid,
-            {"nt": nt_p, "salt": kit.pad(salt, False)},
-            {"ll": lambda nb: fluid & sum(nb["nt"] == t for t in jf).bool(),
-             "fs_open": lambda nb: fluid & (nb["nt"] == pkg.SOLID_MG)
-             & ~nb["salt"],
-             "fs_blocked": lambda nb: fluid & nb["salt"],
-             "sf": lambda nb: solid & sum(nb["nt"] == t for t in jf).bool()})
-        flops = float(17 * counts["ll"].sum() + 10 * counts["fs_open"].sum()
-                      + 6 * counts["fs_blocked"].sum()
-                      + 6 * counts["sf"].sum() + 4 * (fluid | solid).sum()
-                      + 4 * (solid & ~salt).sum())
-        print(f"[amr] ard2d{tag}: {int(salt.sum())} of {int(solid.sum())} "
-              f"SOLID nodes salt-blocked")
-        record("ard2d" + tag, float((cn - cp).abs().max()),
-               torch.equal(cn, cp), lambda: (kernels.ard2d(*ard),),
-               lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n, flops)
-        results["ard2d" + tag]["apart_ms"] = apart_ms(
-            lambda: kernels.ard2d(*ard),
-            lambda: torch.add(st.vel, st.vel, out=other))
-        print(f"[amr] ard2d{tag} in situ "
-              f"{results['ard2d' + tag]['apart_ms']:.4f} ms")
-
-    # the basis kernels on GMRES's pitched basis of the flat vector
-    n = grid.N_total
-    rng = np.random.default_rng(SEED)
-    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
-    V.copy_(seeded(rng, (26, n)))
-    w = seeded(rng, (n,))
-    c = seeded(rng, (26,), dtype=torch.float64)
-    print(f"[amr] basis: 26 rows of {n} floats, {V.stride(0)} apart")
-    record_basis_dots(record, "basis_dots@amr", V, w)
-    record_basis_dots(record, "basis_dots@amr_k1", w[None], w)
-    record_basis_axpy(record, "basis_axpy@amr", c, V, w)
+        kernels2d_at(pkg, kit, sb, f"amr_{block}", record, results, other,
+                     ab._block_operator(sb, kit, 0.05))
+    record_basis_at(record, "amr", grid.N_total)
     return results
 
 
@@ -1786,6 +1871,108 @@ def phase_amr3d(tmp):
     return counts
 
 
+def calib_point(tmp, tag, label, run, bank, path):
+    """One ladder point, ``run(outdir)`` (its script's run_one on the card
+    to CALIB_T_FINAL), its console in tmp/<tag>/run.log; holds the rows
+    against the first rows of the banked run (solid_nodes and time_s
+    exact, the rest within BANKED_GATES). Returns the run's launch
+    counts."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+
+    out_dir = os.path.join(tmp, tag)
+    os.makedirs(out_dir, exist_ok=True)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with open(os.path.join(out_dir, "run.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        rows, solver = run(os.path.join(out_dir, label))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernels.launch_counts()
+    with open(os.path.join(out_dir, "run.log")) as f:
+        for line in f:
+            if any(k in line for k in ("===", "Grid:", "Flow:",
+                                       "Implicit cycle", "WARNING",
+                                       "[Timer]")):
+                print(f"[calib] {tag} log: {line.rstrip()}")
+    ref = np.loadtxt(bank, delimiter=",", skiprows=1)[:len(rows)]
+    same = len(ref) == len(rows)
+    diffs = {}
+    if same:
+        for col, name in ((2, "pin_mass_loss_pct"), (4, "v_max"),
+                          (5, "C_max_fluid")):
+            diffs[name] = float(np.abs(rows[:, col] / ref[:, col] - 1).max())
+    step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps, 1)
+    rate = solver.flow_iters / max(solver.flow_seconds, 1e-9)
+    print(f"[calib] {tag} {label}: {len(rows)} rows, flow solves "
+          f"{solver.flow_results} at {rate:.1f} iterations/s, "
+          f"{solver.total_implicit_steps} implicit steps at {step_ms:.3f} ms, "
+          f"wall {wall:.2f} s; launches {json.dumps(counts)}")
+    print(f"[calib] {tag} vs {os.path.relpath(bank, ROOT)}, first {len(rows)} "
+          f"rows: max rel diff {json.dumps(diffs)} (gates "
+          f"{json.dumps(BANKED_GATES)})")
+    checks = {
+        "the initial flow solve converged": bool(solver.flow_results)
+            and bool(solver.flow_results[0][2]),
+        "20 rows, all finite": len(rows) == 20 and bool(
+            np.isfinite(rows).all()),
+        "solid_nodes and time_s equal to the banked run's": same
+            and np.array_equal(rows[:, 3], ref[:, 3])
+            and np.allclose(rows[:, 0], ref[:, 0], rtol=1e-9),
+        "the banked-run gates": bool(diffs) and all(
+            diffs[c] <= g for c, g in BANKED_GATES.items()),
+        "no GMRES non-convergence warning": solver.gmres_warnings == 0,
+        "every kernel of the path launched":
+            all(counts[k] > 0 for k in path),
+        "all state tensors on cuda": all(
+            t.is_cuda for t in solver.final_state.tensors()),
+    }
+    for what, ok in checks.items():
+        print(f"[calib] {tag} check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail(f"calib {tag} checks")
+    return counts
+
+
+def phase_calib(tmp, pkg):
+    """Phase calib: the path kernels at the calibration grids' shapes
+    against their twins, then a capped ladder point of each calibration
+    script on the card against its banked run. Returns ({name@shape: JSON
+    row fields}, launches of the 3D run, launches of the 2D run)."""
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
+
+    measured = phase_kernels3d(pkg, CALIB3D_CFG, "@calib3d", "calib3d")
+    torch.cuda.empty_cache()
+    cfg = pkg.Config.load(CALIB2D_CFG)
+    cfg.apply_overrides([f"D_grain={CALIB2D_POINT[1]}",
+                         f"D_gb={CALIB2D_POINT[2]}"])
+    grid = pkg.build_grid(cfg)
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    st = seeded_state(pkg, cfg, grid, pkg.grains.generate(grid, cfg))
+    record = recorder("calib2d", measured)
+    kernels2d_at(pkg, kit, st, "calib2d", record, measured,
+                 torch.empty_like(st.vel), ai.assemble(st, kit), ard=False)
+    record_basis_at(record, "calib2d", grid.N_total)
+    del kit, st
+    drv = load_script(CALIB3D)
+    label, dx, dg, dgb, gbw, gsm, accel = CALIB3D_POINT
+    counts3d = calib_point(
+        tmp, "calib3d", label, lambda out: drv.run_one(
+            label, dx, dg, dgb, gbw, out, gsm=gsm, accel=accel,
+            t_final=CALIB_T_FINAL, device="cuda", draw="banked"),
+        os.path.join(ROOT, "docs", "runs", "calib_3d", label,
+                     "diagnostics.csv"), PATH_3D)
+    drv2 = load_script(CALIB2D)
+    label2, dg2, dgb2, dl2, al2 = CALIB2D_POINT
+    counts2d = calib_point(
+        tmp, "calib2d", label2, lambda out: drv2.run_one(
+            label2, dg2, dgb2, dl2, out, accel_l=al2, t_final=CALIB_T_FINAL,
+            device="cuda"),
+        os.path.join(ROOT, "docs", "runs", "calib_2d", label2,
+                     "diagnostics.csv"), PATH_2D)
+    return measured, counts3d, counts2d
+
+
 def phase_parity(tmp):
     """Phase 11: parity.cfg with the kernels on CUDA vs the plain twins on
     the CPU, implicit, explicit and gs_parity, in float32. Every column
@@ -1793,8 +1980,9 @@ def phase_parity(tmp):
     / n0) over the n0 = 180 initially solid nodes, may instead differ by
     LOSS_ATOL: after its 151 steps it is ~1e-2 % and keeps only the last
     bits of the float32 sum, which CUDA and the CPU take in different
-    orders. Then the whole gs_parity run in float64 on CUDA against the C++
-    reference binary's diagnostics.csv."""
+    orders. Then the whole gs_parity run in float64 on CUDA against the
+    C++ reference binary's diagnostics.csv, byte for byte and within
+    tests/test_parity.py's gates."""
     for tag, caps, loss_atol in (
             ("implicit", PARITY_CAPS, 0.0),
             ("explicit", PARITY_EXPLICIT_CAPS, LOSS_ATOL),
@@ -1825,7 +2013,8 @@ def phase_parity(tmp):
           f"{solver.flow_seconds:.2f} s, wall {wall:.2f} s; solid_nodes "
           f"equal: {ok}; max rel diff {json.dumps(diffs)} (gates "
           f"{json.dumps(gates)}); byte-identical: {identical}")
-    if not ok or any(diffs[c] > g for c, g in gates.items()):
+    if not ok or not identical or any(diffs[c] > g
+                                      for c, g in gates.items()):
         fail("parity.cfg gs_parity f64 on CUDA vs the reference binary")
 
 
@@ -1906,6 +2095,7 @@ def main():
                 ("subcell3d", lambda: phase_subcell3d(tmp)),
                 ("amr", lambda: phase_amr(tmp, pkg)),
                 ("amr3d", lambda: phase_amr3d(tmp)),
+                ("calib", lambda: phase_calib(tmp, pkg)),
                 ("parity", lambda: phase_parity(tmp))):
             if name not in phases:
                 continue
@@ -1915,6 +2105,9 @@ def main():
             elif name == "amr":
                 amr_measured, counts["amr"], counts["amr_explicit"] = out
                 measured.update(amr_measured)
+            elif name == "calib":
+                calib_measured, counts["calib3d"], counts["calib2d"] = out
+                measured.update(calib_measured)
             elif out is not None:
                 counts[name] = out
 
@@ -1925,14 +2118,17 @@ def main():
              **{k: ("main3d", "warm3d") for k in PATH_3D},
              **{k: ("main",) for k in PATH_2D},
              **{k: ("explicit",) for k in PATH_EXPLICIT}}
-    # and at the block shapes (name@shape), on the block-AMR run: the
-    # warm-started one, the explicit one for ard2d
+    # and at other shapes (name@shape), on the run at that shape: the
+    # block-AMR runs (the warm-started one, the explicit one for ard2d),
+    # the calibration points (calib3d, calib2d)
     rows = []
     for k in KERNELS:
         for name in sorted(m for m in measured
                            if m.split("@")[0] == k.name):
             if "@" in name:
-                run = "amr_explicit" if k.name == "ard2d" else "amr"
+                run = name.split("@")[1].split("_")[0]
+                if run == "amr" and k.name == "ard2d":
+                    run = "amr_explicit"
             else:
                 run = next((p for p in owner[k.name] if p in counts), None)
             rows.append({"name": name, "route": "cuda", "source": k.source,

@@ -9,10 +9,16 @@ Same argv contract, console lines and output files as the JAX package's
 and runs the coupled solver. The device comes from ``--device``, else
 ``$PD_TORCH_DEVICE``, else ``cuda``; without a CUDA device the run stops
 with an error unless ``cpu`` was asked for explicitly.
+
+``PD_TPU_PROFILE=<dir>`` traces the whole run with ``torch.profiler`` (CPU
+and, on the card, CUDA activities) and writes one Chrome trace into
+``<dir>`` when the run ends, as the JAX package's hook writes its
+``jax.profiler`` trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -25,9 +31,9 @@ from .fields import DeviceUnavailable
 _UNSUPPORTED = (
     (lambda c: c.use_amr and c.amr_backend != "structured",
      "use_amr = 1 with amr_backend != structured",
-     "left out: gather AMR backend"),
+     "gather AMR backend"),
     (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
-     "left out: implicit_extrapolate_x0"),
+     "implicit_extrapolate_x0"),
 )
 
 
@@ -61,6 +67,39 @@ def parse_args(argv):
     return cfg_path, overrides, device
 
 
+def device_of(device) -> torch.device:
+    """The torch.device named ``device``; DeviceUnavailable for a CUDA
+    device on a host without one (no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceUnavailable("no CUDA device available; pass --device cpu"
+                                " (or PD_TORCH_DEVICE=cpu) to run on the CPU")
+    return dev
+
+
+@contextlib.contextmanager
+def profiled(profile_dir, dev):
+    """A torch.profiler trace of the block, written into ``profile_dir`` as
+    one Chrome trace when the block ends (nothing when it is empty)."""
+    if not profile_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(profile_dir, f"pd_torch_{os.getpid()}_"
+                            f"{time.strftime('%Y%m%d_%H%M%S')}.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"  Profile: {path}")
+
+
 def run(argv=None):
     """Run one simulation; returns the CoupledSolver (its run totals and
     final_state)."""
@@ -68,11 +107,12 @@ def run(argv=None):
     cfg_path, overrides, device = parse_args(argv)
 
     print("=== Peridynamic Mg-Pin Corrosion Simulation (PyTorch/CUDA port) ===")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise DeviceUnavailable("no CUDA device available; pass --device cpu"
-                                " (or PD_TORCH_DEVICE=cpu) to run on the CPU")
+    dev = device_of(device)
+    with profiled(os.environ.get("PD_TPU_PROFILE", ""), dev):
+        return _run(cfg_path, overrides, dev)
 
+
+def _run(cfg_path, overrides, dev):
     from .config import Config
     cfg = Config.load(cfg_path)
     if overrides:
@@ -84,6 +124,21 @@ def run(argv=None):
     print(f"  Device: {dev} ({name})")
 
     t0 = time.time()
+    grid, kit, state = build(cfg, dev)
+    print(f"  [Timer] initialization: {time.time() - t0:.3f} s")
+
+    from .coupling import CoupledSolver
+    solver = CoupledSolver()
+    solver.run(grid, state, kit, cfg)
+    return solver
+
+
+def build(cfg, dev):
+    """(grid, kit, initial state) of a loaded Config on ``dev``: the grid
+    (uniform, or block AMR for ``use_amr = 1``), the grains, the kit and
+    the state, with the CLI's console lines. NotImplementedError for a
+    configuration outside the port (``check_supported``)."""
+    check_supported(cfg)
     print("Building grid...")
     if cfg.use_amr:
         from . import amr_blocks
@@ -112,12 +167,7 @@ def run(argv=None):
         kit = build_kit(grid, cfg, device=dev)
     state = initialize_state(grid, cfg, grains=grains, dtype=kit.dtype,
                              device=dev)
-    print(f"  [Timer] initialization: {time.time() - t0:.3f} s")
-
-    from .coupling import CoupledSolver
-    solver = CoupledSolver()
-    solver.run(grid, state, kit, cfg)
-    return solver
+    return grid, kit, state
 
 
 def main(argv=None) -> int:

@@ -12,6 +12,12 @@ two-division downscaling, which moves some precipitates, and with them the
 solid's diffusivity map, from the first step on. This script puts that
 draw back for one run, so the rest of a trajectory can be held against the
 bank with compare_banked.py; everything else is ``cli.run`` as it is.
+
+``two_division_uniform_int`` also serves the calibration banks: the port's
+calibration scripts install it for one run with ``--grain-draw=banked``
+(scripts/calibration_torch.py). docs/runs/calib_3d was banked with it (the
+whole twoanchor-c point gives the bank's rows with it, not without);
+docs/runs/calib_2d gives the same run under either draw.
 """
 
 import os

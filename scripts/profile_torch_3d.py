@@ -14,8 +14,11 @@ two windows of the main path:
   assembled operator, after 2 warm-up steps.
 
 For each window it prints the wall time per unit (timed without the
-profiler), the device busy time per unit, the busy share, the kernels
-launched per unit and the largest kernels by device time, and writes the
+profiler), the device busy time per unit, the busy share, the device
+ops per unit beside the host's kernel launch records per unit (fewer
+device ops than launches: the window lost device records, as
+scripts/profiler_windows_torch.py shows for long-running processes) and
+the largest kernels by device time, and writes the
 profiler tables to ``out.txt`` (default build/profile_3d.txt). Needs a
 CUDA device; imports nothing of JAX.
 """
@@ -60,6 +63,7 @@ def window(name, fn, units, out, show=()):
         fn()
         torch.cuda.synchronize()
     ev = device_events(prof)
+    launched = sum("LaunchKernel" in e.name for e in prof.events())
     busy_us = sum(e.device_time_total if hasattr(e, "device_time_total")
                   else e.cuda_time_total for e in ev)
     by_name = {}
@@ -73,7 +77,8 @@ def window(name, fn, units, out, show=()):
     busy = busy_us * 1e-3 / units
     line = (f"[{name}] wall {wall * 1e3:.4f} ms per unit, device busy "
             f"{busy:.4f} ms per unit ({100 * busy / (wall * 1e3):.1f} %), "
-            f"{len(ev) / units:.1f} device ops per unit")
+            f"{len(ev) / units:.1f} device ops per unit, "
+            f"{launched / units:.1f} kernel launches per unit")
     print(line)
     for k, t in top:
         print(f"[{name}]   {100 * t / max(busy_us, 1e-9):5.1f} %  "

@@ -189,7 +189,7 @@ def test_cli_refuses_the_gather_backend(tmp_path, capsys):
     args = [os.devnull, *COUPLED, "amr_backend=gather",
             f"output_dir={tmp_path}"]
     with pytest.raises(NotImplementedError,
-                       match="left out: gather AMR backend"):
+                       match="port order: 'gather AMR backend'"):
         cli.run(args + ["--device", "cpu"])
     assert cli.main(args + ["--device=cpu"]) == 1
     assert "gather AMR backend" in capsys.readouterr().err

@@ -13,7 +13,9 @@ are the ones chip_smoke.py states, the exact checks are this file's own.
 """
 
 import dataclasses
+import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -642,6 +644,42 @@ def test_gs_parity_f64_on_cuda_matches_reference_binary(tmp_path):
     for col in ("pin_mass_loss_pct", "v_max", "C_max_fluid"):
         np.testing.assert_allclose(ours[col], ref[col], rtol=1e-6,
                                    err_msg=col)
+
+
+def test_profile_hook_traces_the_port_kernels(tmp_path):
+    """PD_TPU_PROFILE=<dir> on the card: the CLI, run as a user runs it (a
+    process of its own), on two steps of parity.cfg writes one Chrome
+    trace holding a device record for every kernel launch of the run
+    (a process that has run for minutes loses some device records,
+    scripts/profiler_windows_torch.py), among them those of the port's
+    kernels: ns2d in the flow solve, matvec2d and the basis kernels in
+    the implicit steps."""
+    _card()
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prof = tmp_path / "prof"
+    subprocess.run(
+        [sys.executable, "-m", "pd_mg_pin_corrosion_tpu_torch", PARITY,
+         "precision=f32", "flow_max_iters=100", "T_final=1.2",
+         f"output_dir={tmp_path / 'out'}", "--device", "cuda"],
+        cwd=root, env={**os.environ, "PD_TPU_PROFILE": str(prof)},
+        check=True)
+    files = os.listdir(prof)
+    assert len(files) == 1
+    with open(prof / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    launched = sum("LaunchKernel" in e.get("name", "") for e in events)
+    traced = {k: sum(bool(re.search(rf"\b{fn}[<(]", n)) for n in names)
+              for k, fn in (
+        ("ns2d", "ns2d_kernel"), ("matvec2d", "matvec2d_kernel"),
+        ("basis_dots", "dots_kernel"), ("basis_axpy", "axpy_kernel"))}
+    print(f"port kernels traced {traced}; {len(names)} kernel records, "
+          f"{launched} launch records")
+    assert len(names) == launched
+    assert all(n > 0 for n in traced.values()), traced
 
 
 def _small3d_on(device, extra=()):
