@@ -85,10 +85,23 @@ argument all of them run, in this order):
    and per implicit step, and its rows beside the banked
    docs/runs/amr/diagnostics.csv (printed, not a gate). PATH_AMR must
    launch in the warm run, PATH_AMR_EXPLICIT in the explicit one.
-12. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
+12. ``amrg``, the gather AMR backend (``amr_backend = gather``) on
+   params_amr.cfg at full size (38,976 nodes, padded degree K = 40; its
+   flow, BCs, transport and matvec are plain PyTorch gathers, as in the
+   JAX package): basis_dots / basis_axpy on GMRES's (26, 38,976) basis
+   against their twins with times, bounds and library calls; the capped
+   implicit (AMR_CAPS) and explicit (AMR_EXPLICIT_CAPS) runs and
+   parity.cfg with implicit_extrapolate_x0 = 1 on CUDA against the CPU
+   within 1e-4 (the AMR runs' mass loss, whose float32 sum over 5,120
+   solid nodes keeps only its last bits, may instead differ by
+   AMRG_LOSS_ATOL); the gather run on the card against the block run on the
+   card within BANKED_GATES (solid_nodes and time_s exact); PATH_AMRG
+   must launch, the run must print the JAX package's AMR line, and no
+   GMRES warning may appear.
+13. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
    geometry with use_amr = 1), CUDA against the CPU within 1e-4; PATH_AMR3D
    must launch.
-13. ``calib``, the calibration scripts' path: ns3d, matvec3d (f32, bf16),
+14. ``calib``, the calibration scripts' path: ns3d, matvec3d (f32, bf16),
    slots3d_f64 and basis_dots / basis_axpy (26 rows and k = 1) at the
    3D calibration grid's shapes (params_3d.cfg at dx = 8e-6: 45 x 45 x 82 =
    166,050 nodes), ns2d, matvec2d and the basis kernels at the 2D one's
@@ -101,7 +114,7 @@ argument all of them run, in this order):
    docs/runs/calib_3d/twoanchor-c and docs/runs/calib_2d/twoanchor-a
    within BANKED_GATES (solid_nodes and time_s exact); PATH_3D / PATH_2D
    must launch.
-14. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
+15. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
    implicit and the explicit path and the gs_parity path in float32, on
    CUDA (kernels) and on the CPU (plain twins); diagnostics.csv must
    agree. And the whole gs_parity run in float64 on CUDA against the C++
@@ -109,9 +122,9 @@ argument all of them run, in this order):
    byte and with tests/test_parity.py's gates.
 
 Launch counts are set to 0 just before each main path and read just after
-it. Then one JSON line about the kernels (the AMR and calib phases'
-shapes as ``name@shape`` rows, with the launches of the run at that
-shape), the nvidia-smi line, and the result line. Imports nothing of JAX. Exits non-zero without a CUDA device
+it. Then one JSON line about the kernels (the AMR, gather AMR and calib
+phases' shapes as ``name@shape`` rows, with the launches of the run at
+that shape), the nvidia-smi line, and the result line. Imports nothing of JAX. Exits non-zero without a CUDA device
 or without the repository beside it.
 """
 
@@ -220,6 +233,22 @@ AMR_EXPLICIT_CAPS = ["precision=f32", "use_implicit=0", "flow_max_iters=100",
                      "corrosion_steps_per_check=1000",
                      f"output_every_corr={AMR_EXPLICIT_EVERY}",
                      "T_final=3.5e-3"]
+# the gather AMR backend on the same configuration (amr_backend = gather:
+# 14,400 fine, 21,672 coarse and 2,904 fictitious nodes, 38,976 in all,
+# padded degree K = 40): AMR_CAPS and AMR_EXPLICIT_CAPS, CUDA against the
+# CPU, and the gather run on the card against the block run on the card
+# within BANKED_GATES (the grids hold the same nodes and the same grain
+# draw); parity.cfg with implicit_extrapolate_x0 = 1, CUDA against the CPU
+GATHER = ["amr_backend=gather"]
+# the mass loss 100 (1 - sum C / n0) over params_amr.cfg's n0 = 5,120
+# initially solid nodes keeps only the last bits of the float32 sum near
+# n0, which CUDA and the CPU take in different orders: after the first
+# 30 s step one ulp of it is 2.2e-4 of the 0.0423 % loss; CUDA against the
+# CPU it may differ by 4 such ulps (the gather runs' other columns keep
+# the 1e-4 limit)
+AMRG_LOSS_ATOL = 4 * 100.0 * float(np.spacing(np.float32(5120))) / 5120
+AMRG_LINE = ("AMR: 14400 fine, 21672 coarse, 2904 fictitious nodes "
+             "(total 38976); K=40")
 AMR_WARM_CAPS = ["flow_warm_start=2", "T_final=600"]
 AMR_WARM_ITERS = (49_800, 9_300)
 AMR_WARM_GATE = 0.10
@@ -251,8 +280,8 @@ CALIB3D_CFG = ["dx=8e-6", "D_grain=2.1609e-17", "D_gb=2.1609e-15",
 CALIB2D_CFG = os.path.join(ROOT, "config", "params_implicit_test.cfg")
 SEED = 20261016
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
-          "warm3d", "explicit3d", "subcell3d", "amr", "amr3d", "calib",
-          "parity")
+          "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
+          "calib", "parity")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -260,6 +289,7 @@ PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
 PATH_EXPLICIT = ("ard2d",)
 PATH_AMR = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_AMR_EXPLICIT = ("ns2d", "ard2d")
+PATH_AMRG = ("basis_dots", "basis_axpy")
 PATH_AMR3D = ("ns3d", "matvec3d", "slots3d_f64", "basis_dots", "basis_axpy")
 PATH_LADDER = ("ns3d", "ns3d_chunked_xla", "ns3d_chunked_factored",
                "ns3d_chunked_jconv", "ns3d_jstat")
@@ -1855,6 +1885,80 @@ def phase_amr(tmp, pkg):
     return measured, counts, ex_counts
 
 
+def phase_amrg(tmp):
+    """Phase amrg: the gather AMR backend on params_amr.cfg at full size.
+    Part 1: basis_dots (26 rows and k = 1) and basis_axpy on GMRES's
+    (26, 38,976) basis against their twins. Part 2: the capped implicit
+    and explicit runs and parity.cfg with implicit_extrapolate_x0 = 1, on
+    CUDA against the CPU. Part 3: the gather run on the card (part 2's
+    CUDA implicit run, whose launches are the phase's) against the block
+    run on the card at AMR_CAPS. Returns ({name@amrg: JSON row fields},
+    launches of the gather run)."""
+    results = {}
+    record_basis_at(recorder("amrg", results), "amrg", 38_976)
+
+    # part 2: full size, CUDA against the CPU
+    solver, rows, counts = run_cuda_and_cpu(
+        tmp, "amrg", "amrg_implicit", [AMR_CFG, *GATHER, *AMR_CAPS],
+        AMRG_LOSS_ATOL)
+    with open(os.path.join(tmp, "amrg_implicit_cuda", "run.log")) as f:
+        log = f.read().splitlines()
+    for line in log:
+        if any(k in line for k in ("AMR:", "Flow:", "Implicit cycle",
+                                   "WARNING", "[Timer]")):
+            print(f"[amrg] log: {line.rstrip()}")
+    step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps,
+                                                  1)
+    print(f"[amrg] implicit capped: {solver.cycles} cycles, steps "
+          f"{solver.cycle_steps}, flow solves {solver.flow_results}, "
+          f"{solver.flow_iters} flow iterations in {solver.flow_seconds:.3f} "
+          f"s ({1e3 * solver.flow_seconds / max(solver.flow_iters, 1):.4f} ms "
+          f"an iteration), {solver.total_implicit_steps} implicit steps at "
+          f"{step_ms:.3f} ms; launches {json.dumps(counts)}")
+    ex, _, ex_counts = run_cuda_and_cpu(
+        tmp, "amrg", "amrg_explicit", [AMR_CFG, *GATHER, *AMR_EXPLICIT_CAPS],
+        AMRG_LOSS_ATOL)
+    steps = ex.explicit_steps
+    print(f"[amrg] explicit: {steps} steps in {ex.explicit_seconds:.3f} s "
+          f"({1e3 * ex.explicit_seconds / max(steps, 1):.4f} ms a step, VTU "
+          f"and rows included); launches {json.dumps(ex_counts)}")
+    x0, _, _ = run_cuda_and_cpu(
+        tmp, "amrg", "parity_extrapolate_x0",
+        [PARITY, *PARITY_CAPS, "implicit_extrapolate_x0=1"])
+
+    # part 3: the block run on the card; the gather run is part 2's
+    block, block_rows = run_cli(os.path.join(tmp, "amrg_block"),
+                                [AMR_CFG, *AMR_CAPS, "--device", "cuda"])
+    same = (len(rows) == len(block_rows)
+            and np.array_equal(rows["solid_nodes"], block_rows["solid_nodes"])
+            and np.array_equal(rows["time_s"], block_rows["time_s"]))
+    diffs = {c: float(np.abs(rows[c] / block_rows[c] - 1.0).max())
+             for c in BANKED_GATES} if same else {}
+    print(f"[amrg] gather against block, both on the card at AMR_CAPS: "
+          f"{len(rows)} rows; solid_nodes and time_s equal: {same}; max rel "
+          f"diff {json.dumps(diffs)} (gates {json.dumps(BANKED_GATES)})")
+    last = rows[-1]
+    print(f"[amrg] last gather row: t={last['time_s']:.1f} s loss="
+          f"{last['pin_mass_loss_pct']:.6e} % solid={int(last['solid_nodes'])}"
+          f" v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
+    checks = {
+        "the run printed the JAX package's AMR line": AMRG_LINE in log,
+        "both path kernels launched": all(counts[k] > 0 for k in PATH_AMRG),
+        "no GMRES non-convergence warning": solver.gmres_warnings == 0
+            and x0.gmres_warnings == 0 and block.gmres_warnings == 0,
+        "all state tensors on cuda": all(
+            t.is_cuda for t in solver.final_state.tensors()),
+        "the explicit run took its steps": steps >= 200,
+        "gather within BANKED_GATES of block": bool(diffs) and all(
+            diffs[c] <= g for c, g in BANKED_GATES.items()),
+    }
+    for what, ok in checks.items():
+        print(f"[amrg] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail("amrg checks")
+    return results, counts
+
+
 def phase_amr3d(tmp):
     """Phase amr3d: the 7,655-node 3D block grid, CUDA against the CPU, in
     float32; returns the launch counts of the CUDA run."""
@@ -2094,6 +2198,7 @@ def main():
                 ("explicit3d", lambda: phase_explicit3d(tmp)),
                 ("subcell3d", lambda: phase_subcell3d(tmp)),
                 ("amr", lambda: phase_amr(tmp, pkg)),
+                ("amrg", lambda: phase_amrg(tmp)),
                 ("amr3d", lambda: phase_amr3d(tmp)),
                 ("calib", lambda: phase_calib(tmp, pkg)),
                 ("parity", lambda: phase_parity(tmp))):
@@ -2105,6 +2210,9 @@ def main():
             elif name == "amr":
                 amr_measured, counts["amr"], counts["amr_explicit"] = out
                 measured.update(amr_measured)
+            elif name == "amrg":
+                amrg_measured, counts["amrg"] = out
+                measured.update(amrg_measured)
             elif name == "calib":
                 calib_measured, counts["calib3d"], counts["calib2d"] = out
                 measured.update(calib_measured)

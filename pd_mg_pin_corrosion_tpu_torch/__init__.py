@@ -7,10 +7,10 @@ Hopper (``csrc/``, bound in ``kernels/``), each with a plain PyTorch twin
 that runs on the CPU.
 
 It runs the structured grid's implicit and explicit transport paths in 2D
-and 3D, and two-level block AMR (``amr_blocks``), through one coupling loop
-(``cli.main`` -> ``CoupledSolver.run``, ops from ``dispatch.ops_for``), with
-checkpoint/resume; see ``cli._UNSUPPORTED`` for the configurations it
-refuses.
+and 3D, and two-level AMR with either backend (``amr_blocks``, the dense
+blocks; ``amr`` / ``unstructured``, the gather backend), through one
+coupling loop (``cli.main`` -> ``CoupledSolver.run``, ops from
+``dispatch.ops_for``), with checkpoint/resume.
 """
 
 import torch

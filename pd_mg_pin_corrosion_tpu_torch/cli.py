@@ -27,24 +27,6 @@ import torch
 
 from .fields import DeviceUnavailable
 
-# configurations the port does not run, with the ROADMAP item that says why
-_UNSUPPORTED = (
-    (lambda c: c.use_amr and c.amr_backend != "structured",
-     "use_amr = 1 with amr_backend != structured",
-     "gather AMR backend"),
-    (lambda c: c.implicit_extrapolate_x0, "implicit_extrapolate_x0 = 1",
-     "implicit_extrapolate_x0"),
-)
-
-
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a configuration outside this slice."""
-    for test, what, item in _UNSUPPORTED:
-        if test(cfg):
-            raise NotImplementedError(
-                f"pd_mg_pin_corrosion_tpu_torch does not run {what} yet "
-                f"(ROADMAP.md, port order: '{item}')")
-
 
 def parse_args(argv):
     """(cfg_path, overrides, device) from the argv contract."""
@@ -117,7 +99,6 @@ def _run(cfg_path, overrides, dev):
     cfg = Config.load(cfg_path)
     if overrides:
         cfg.apply_overrides(overrides)
-    check_supported(cfg)
     print(f"  Dimension: {cfg.dim}D\n")
     cfg.print()
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host")
@@ -135,14 +116,17 @@ def _run(cfg_path, overrides, dev):
 
 def build(cfg, dev):
     """(grid, kit, initial state) of a loaded Config on ``dev``: the grid
-    (uniform, or block AMR for ``use_amr = 1``), the grains, the kit and
-    the state, with the CLI's console lines. NotImplementedError for a
-    configuration outside the port (``check_supported``)."""
-    check_supported(cfg)
+    (uniform; for ``use_amr = 1`` block AMR, or the gather backend's
+    unstructured grid with ``amr_backend = gather``), the grains, the kit
+    and the state, with the CLI's console lines."""
+    blocks = cfg.use_amr and cfg.amr_backend == "structured"
     print("Building grid...")
-    if cfg.use_amr:
+    if blocks:
         from . import amr_blocks
         grid = amr_blocks.build_amr_block_grid(cfg)
+    elif cfg.use_amr:
+        from .amr import build_amr_grid
+        grid = build_amr_grid(cfg)
     else:
         from .grid import build_grid
         grid = build_grid(cfg)
@@ -152,7 +136,7 @@ def build(cfg, dev):
         print("Node types: " + " ".join(f"{k}={v}" for k, v in counts.items()))
 
     print("Generating grain structure...")
-    if cfg.use_amr:
+    if blocks:
         grains = amr_blocks.generate_grains_b(grid, cfg)
     else:
         from . import grains as grains_mod
@@ -160,8 +144,11 @@ def build(cfg, dev):
 
     print("Initializing fields...")
     from .fields import initialize_state
-    if cfg.use_amr:
+    if blocks:
         kit = amr_blocks.build_bkit(grid, cfg, device=dev)
+    elif cfg.use_amr:
+        from .unstructured import build_ukit
+        kit = build_ukit(grid, cfg, device=dev)
     else:
         from .kit import build_kit
         kit = build_kit(grid, cfg, device=dev)
@@ -173,7 +160,7 @@ def build(cfg, dev):
 def main(argv=None) -> int:
     try:
         run(argv)
-    except (DeviceUnavailable, NotImplementedError) as e:
+    except DeviceUnavailable as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
     return 0

@@ -1,9 +1,9 @@
-"""Backend dispatch: the uniform structured grid or block AMR.
+"""Backend dispatch: the uniform structured grid, block AMR, or the gather
+AMR backend.
 
-Port of ``pd_mg_pin_corrosion_tpu/dispatch.py`` without its gather branch
-(``amr_backend = gather`` is left out of the port). Both branches expose the
+Port of ``pd_mg_pin_corrosion_tpu/dispatch.py``. Every branch exposes the
 same functions over (state, kit); the solvers and the coupling loop take
-them from ``ops_for(kit)``, so one loop drives both kinds of grid.
+them from ``ops_for(kit)``, so one loop drives every kind of grid.
 """
 
 from __future__ import annotations
@@ -52,7 +52,27 @@ def ops_for(kit) -> SimpleNamespace:
         )
 
     if not is_structured(kit):
-        raise TypeError(f"no ops for a kit of type {type(kit).__name__}")
+        from . import unstructured as u
+
+        return SimpleNamespace(
+            ns_step=u.ns_step,
+            compute_dt_ns=u.compute_dt_ns,
+            tait_pressure=u.tait_pressure,
+            apply_inlet_bc=u.apply_inlet_bc,
+            apply_outlet_bc=u.apply_outlet_bc,
+            apply_wall_bc=u.apply_wall_bc,
+            apply_wall_concentration_bc=u.apply_wall_concentration_bc,
+            apply_solid_surface_bc=u.apply_solid_surface_bc,
+            smooth_boundary_concentration=u.smooth_boundary_concentration,
+            update_fictitious=u.update_fictitious,
+            ard_step=u.ard_step,
+            ard_compute_dt=u.ard_compute_dt,
+            apply_phase_change=u.apply_phase_change,
+            assemble=u.assemble,
+            implicit_step=u.implicit_step,
+            compute_adaptive_dt=u.compute_adaptive_dt,
+        )
+
     from .ops import ard, ard_implicit as ai, ns
 
     return SimpleNamespace(

@@ -18,10 +18,16 @@ calibration scripts install it for one run with ``--grain-draw=banked``
 (scripts/calibration_torch.py). docs/runs/calib_3d was banked with it (the
 whole twoanchor-c point gives the bank's rows with it, not without);
 docs/runs/calib_2d gives the same run under either draw.
+
+After the run it prints one JSON line of the run's totals: wall seconds,
+flow solves, iterations and seconds, implicit steps and seconds, and the
+launches of each CUDA kernel in the run.
 """
 
+import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -42,10 +48,25 @@ def two_division_uniform_int(self, b: int) -> int:
 
 def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
-    from pd_mg_pin_corrosion_tpu_torch import cli, grains
+    from pd_mg_pin_corrosion_tpu_torch import cli, grains, kernels
+    from pd_mg_pin_corrosion_tpu_torch.fields import DeviceUnavailable
 
     grains._MT19937Stream.uniform_int = two_division_uniform_int
-    return cli.main(argv)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    try:
+        s = cli.run(argv)
+    except DeviceUnavailable as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({
+        "wall_s": time.time() - t0, "cycles": s.cycles,
+        "flow_solves": s.flow_solve_count, "flow_iters": s.flow_iters,
+        "flow_s": s.flow_seconds, "implicit_steps": s.total_implicit_steps,
+        "implicit_s": s.implicit_seconds, "assemble_s": s.assemble_seconds,
+        "dissolved": s.total_dissolved,
+        "launches": kernels.launch_counts()}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -898,3 +898,117 @@ def test_amr_flow_and_implicit_step_on_cuda_equal_cpu(dim):
     for a, b in ((g.rho, c.rho), (g.vel, c.vel), (g2.C, c2.C)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the gather AMR backend (plain PyTorch but GMRES's basis kernels) and the
+# extrapolated GMRES start
+# ---------------------------------------------------------------------------
+
+def _gather_on(device, perturb=True):
+    """(grid, kit, state) of params_amr.cfg with amr_backend = gather on
+    ``device`` (38,976 nodes, K = 40), as initialized; with ``perturb``
+    the FLUID and FICTITIOUS velocities and rho perturbed."""
+    from pd_mg_pin_corrosion_tpu_torch import amr, unstructured as u
+
+    cfg = Config.load(AMR)
+    cfg.apply_overrides(["amr_backend=gather"])
+    grid = amr.build_amr_grid(cfg)
+    kit = u.build_ukit(grid, cfg, device=device)
+    st = initialize_state(grid, cfg, grains=grains.generate(grid, cfg),
+                          device=device)
+    if not perturb:
+        return grid, kit, st
+    rng = np.random.default_rng(31)
+    moving = (st.node_type == 0) | (st.node_type == 6)
+
+    def seeded(shape, scale):
+        return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32,
+                            device=device)
+    st.vel = torch.where(moving[..., None],
+                         st.vel + seeded(st.vel.shape, 0.05 * cfg.U_in), st.vel)
+    st.rho = torch.where(moving, st.rho + seeded(st.rho.shape, 1.0), st.rho)
+    return grid, kit, st
+
+
+def test_gather_basis_kernels_at_the_flat_length():
+    """basis_dots / basis_axpy on GMRES's pitched (26, 38,976) basis."""
+    _card()
+    n = 38_976
+    rng = np.random.default_rng(37)
+    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
+    V.copy_(torch.tensor(rng.normal(0, 1, (26, n)), dtype=torch.float32))
+    w = torch.tensor(rng.normal(0, 1, n), dtype=torch.float32, device="cuda")
+    c = torch.tensor(rng.normal(0, 1, 26), dtype=torch.float64, device="cuda")
+    d = kernels.basis_dots(V, w)
+    torch.testing.assert_close(d, kernels.basis_dots_plain(V, w), rtol=2e-6,
+                               atol=0.0)
+    assert torch.equal(d, kernels.basis_dots(V, w))
+    for k in (1, 13, 26):
+        assert torch.equal(kernels.basis_axpy(c[:k], V[:k], w),
+                           kernels.basis_axpy_plain(c[:k], V[:k], w))
+
+
+def test_gather_flow_and_implicit_step_on_cuda_equal_cpu():
+    """params_amr.cfg with the gather backend: one flow iteration (BCs,
+    ns_step, the wall BC, the IDW refresh) on perturbed fields, and two
+    implicit steps with their constraint rows, the second from an
+    extrapolated start, on CUDA (GMRES on the basis kernels) against the
+    CPU (the twins). The steps start from the initialized fields, as the
+    CLI's first cycle does: on the perturbed velocities the 30 s step is
+    too stiff for GMRES(25) in 200 iterations (residual 4.2e-3 on the
+    CPU)."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch import unstructured as u
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, kit, st = _gather_on(device)
+        assert kit.N == 38_976 and kit.K == 40
+        n0 = kernels.launch_counts()
+        dt = u.compute_dt_ns(st, kit)
+        for op in (u.apply_inlet_bc, u.apply_outlet_bc, u.apply_wall_bc,
+                   u.apply_solid_surface_bc):
+            st = op(st, kit)
+        st = u.update_fictitious(u.apply_wall_bc(u.ns_step(st, kit, dt),
+                                                 kit), kit)
+        fields = st
+        st = _gather_on(device, perturb=False)[2]
+        op = u.assemble(st, kit, 0.05)
+        dt_c = u.compute_adaptive_dt(st, op, kit)
+        st2, res = u.implicit_step(st, op, kit, dt_c)
+        st3, res3 = u.implicit_step(st2, op, kit, dt_c,
+                                    x0=2.0 * st2.C - st.C)
+        launched = {k: v - n0[k] for k, v in kernels.launch_counts().items()}
+        out[device] = (fields, st2, st3, float(dt_c), (res, res3), launched)
+    (g, g2, g3, dg, rg, lg), (c, c2, c3, dc, rc, lc) = (out["cuda"],
+                                                        out["cpu"])
+    assert lg["basis_dots"] > 0 and lg["basis_axpy"] > 0
+    assert not any(lc.values())
+    assert max(rg + rc) <= 1e-6 and dg == pytest.approx(dc, rel=1e-5)
+    assert all(t.is_cuda for t in g3.tensors())
+    for a, b in ((g.rho, c.rho), (g.vel, c.vel), (g2.C, c2.C), (g3.C, c3.C)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_extrapolated_start_runs_on_cuda_equal_cpu(tmp_path):
+    """parity.cfg in float32 with implicit_extrapolate_x0 = 1, the first
+    cycle (two implicit steps): the CLI on CUDA against the CPU, within
+    1e-4."""
+    _card()
+    from pd_mg_pin_corrosion_tpu_torch import cli
+
+    rows = {}
+    for device in ("cuda", "cpu"):
+        solver = cli.run([PARITY, f"output_dir={tmp_path / device}",
+                          "precision=f32", "flow_max_iters=300",
+                          "T_final=1.2", "implicit_extrapolate_x0=1",
+                          "--device", device])
+        assert solver.cycle_steps == [2] and solver.gmres_warnings == 0
+        rows[device] = np.atleast_1d(np.genfromtxt(
+            tmp_path / device / "diagnostics.csv", delimiter=",", names=True))
+    g, c = rows["cuda"], rows["cpu"]
+    np.testing.assert_array_equal(g["solid_nodes"], c["solid_nodes"])
+    for col in ("time_s", "pin_mass_loss_pct", "v_max", "C_max_fluid"):
+        np.testing.assert_allclose(g[col], c[col], rtol=1e-4, err_msg=col)

@@ -1,6 +1,7 @@
 """The port's public constructors put their tensors on the card unless the
 caller asks for the CPU: ``build_kit``, ``amr_blocks.build_bkit``,
-``initialize_state`` and ``state_from_numpy`` default to CUDA. Without a card they raise
+``unstructured.build_ukit``, ``initialize_state`` and ``state_from_numpy``
+default to CUDA. Without a card they raise
 ``DeviceUnavailable``, whose message names ``device="cpu"``; they never fall
 back to the CPU quietly. Whether there is a card is decided inside each
 test (on the card the same calls must give CUDA tensors)."""
@@ -15,7 +16,9 @@ from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
                                            initialize_state, state_from_numpy)
 from pd_mg_pin_corrosion_tpu_torch.amr_blocks import (build_amr_block_grid,
                                                       build_bkit)
+from pd_mg_pin_corrosion_tpu_torch.amr import build_amr_grid
 from pd_mg_pin_corrosion_tpu_torch.fields import DeviceUnavailable
+from pd_mg_pin_corrosion_tpu_torch.unstructured import build_ukit
 
 PARITY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "parity.cfg")
@@ -39,9 +42,17 @@ def _bkit(cfg, **kw):
     return build_bkit(build_amr_block_grid(amr), amr, **kw)
 
 
+def _ukit(cfg, **kw):
+    """The gather kit of parity.cfg with use_amr = 1, amr_backend = gather."""
+    amr = Config.load(PARITY)
+    amr.apply_overrides(["use_amr=1", "amr_ratio=2", "amr_backend=gather"])
+    return build_ukit(build_amr_grid(amr), amr, **kw)
+
+
 CALLS = {
     "build_kit": lambda cfg, grid, **kw: build_kit(grid, cfg, **kw),
     "build_bkit": lambda cfg, grid, **kw: _bkit(cfg, **kw),
+    "build_ukit": lambda cfg, grid, **kw: _ukit(cfg, **kw),
     "initialize_state": lambda cfg, grid, **kw: initialize_state(grid, cfg,
                                                                  **kw),
     "state_from_numpy": lambda cfg, grid, **kw: state_from_numpy(

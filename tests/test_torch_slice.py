@@ -1,9 +1,10 @@
 """The port's whole slice against the JAX package: ``cli.run`` (the
 ``python -m pd_mg_pin_corrosion_tpu_torch`` path, on the CPU) and the JAX
 ``CoupledSolver.run`` on tests/golden/parity.cfg, capped the same way, give
-the same diagnostics.csv; plus the CLI's refusals, the configurations it
-runs since gs_parity, the warm start, the sub-cell mirror and 3D explicit
-transport were ported, and the VTI writer."""
+the same diagnostics.csv; plus the configurations the CLI runs since
+gs_parity, the warm start, the sub-cell mirror, 3D explicit transport, the
+gather AMR backend and implicit_extrapolate_x0 were ported, and the VTI
+writer."""
 
 import dataclasses
 import os
@@ -86,18 +87,6 @@ def test_slice_f32_first_cycle_matches_jax(tmp_path):
         np.testing.assert_allclose(ours[col], ref[col], rtol=1e-4, err_msg=col)
 
 
-@pytest.mark.parametrize("override", [
-    # block AMR runs since it was ported; the gather backend is left out
-    pytest.param("use_amr=1 amr_backend=gather", id="use_amr=1"),
-    "implicit_extrapolate_x0=1"])
-def test_cli_refuses_configs_outside_the_slice(override, tmp_path, capsys):
-    args = [PARITY, f"output_dir={tmp_path}", *override.split()]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.run(args + ["--device", "cpu"])
-    assert cli.main(args + ["--device=cpu"]) == 1
-    assert "ROADMAP" in capsys.readouterr().err
-
-
 # tests/test_pallas_interpret.py's 3D geometry for the 3D cases
 GRID_3D = ("dim=3 dx=8e-6 R_wire=16e-6 L_wire=64e-6 R_tube=48e-6 "
            "L_upstream=32e-6 L_downstream=32e-6")
@@ -111,12 +100,13 @@ RUNS = ["gs_parity=1", "flow_warm_start=2", "dim=3 wall_mirror_subcell=1",
     ov.replace("dim=3", GRID_3D) for ov in RUNS], ids=RUNS)
 def test_cli_runs_configs_of_the_uniform_grid(override, tmp_path):
     """The configurations the CLI refused before gs_parity, the warm start,
-    the sub-cell mirror and 3D explicit transport were ported: accepted,
-    and a short run (20 flow iterations a solve, one coupling cycle)
-    writes its diagnostics."""
-    cfg = TConfig.load(PARITY)
-    cfg.apply_overrides(override.split())
-    cli.check_supported(cfg)
+    the sub-cell mirror and 3D explicit transport were ported: a short run
+    (20 flow iterations a solve, one coupling cycle) writes its
+    diagnostics."""
+    _short_run(override, tmp_path)
+
+
+def _short_run(override, tmp_path):
     t_final = "T_final=1e-5" if "use_implicit=0" in override else "T_final=0.6"
     assert cli.main([PARITY, f"output_dir={tmp_path}", *override.split(),
                      "flow_max_iters=20", t_final, "--device", "cpu"]) == 0
@@ -124,6 +114,18 @@ def test_cli_runs_configs_of_the_uniform_grid(override, tmp_path):
                                        delimiter=",", names=True))
     assert len(rows) >= 1 and all(np.isfinite(rows[c]).all()
                                   for c in rows.dtype.names)
+
+
+@pytest.mark.parametrize("override", [
+    pytest.param("use_amr=1 amr_backend=gather", id="use_amr=1"),
+    "implicit_extrapolate_x0=1"])
+def test_cli_runs_the_configs_it_refused(override, tmp_path):
+    """The two configurations the CLI refused until the gather AMR backend
+    and implicit_extrapolate_x0 were ported (the cases of the former
+    test_cli_refuses_configs_outside_the_slice): a short run writes its
+    diagnostics. The CLI now refuses no configuration the JAX package
+    runs."""
+    _short_run(override, tmp_path)
 
 
 def test_cli_names_the_flow_warm_start_item(tmp_path, capsys):
