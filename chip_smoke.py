@@ -120,6 +120,23 @@ argument all of them run, in this order):
    agree. And the whole gs_parity run in float64 on CUDA against the C++
    reference binary's tests/golden/parity_diagnostics_ref.csv, byte for
    byte and with tests/test_parity.py's gates.
+16. ``shard``, the flagship over a mesh: params_3d.cfg at full size
+   padded to 158 axial rows (157 is prime), SHARD_RANKS = 2 ranks on this
+   one card (``parallel.launch.spawn`` over gloo: the halo rows staged
+   through pinned host memory; NCCL refuses two ranks on one card). The
+   3D path kernels at a rank's shapes (its extended slab of 87 x 82 x 82,
+   the basis kernels over its 79 own rows) against their twins, as in
+   ``kernels3d`` (``name@shard`` rows); one rank's capped flow solve
+   (SHARD_FLOW_ITERS) and coupled run (SHARD_CAPS: one cycle of five
+   implicit steps and a checkpoint) on the same padded grid; the ranks'
+   (``parallel.checks.coupled``): the flow state must equal one rank's
+   bit for bit, with ns3d launched every iteration on each rank, the rows
+   within 1e-4 (the loss within 4 ulps of its float32 sum), every kernel
+   of the 3D path launched on each rank; the checkpoint (rank 0 writes
+   the single rank's file) loads equal to the ranks' final state and one
+   rank resumes it for two steps. Prints ms per flow iteration and per
+   implicit step of each rank beside one rank's, and each rank's
+   launches (``launches_per_rank`` in the JSON line).
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -278,10 +295,23 @@ CALIB3D_CFG = ["dx=8e-6", "D_grain=2.1609e-17", "D_gb=2.1609e-15",
                "gb_width_cells=0", "grain_size_mean=40e-6",
                "corrosion_accel_l=1.2790"]
 CALIB2D_CFG = os.path.join(ROOT, "config", "params_implicit_test.cfg")
+# the mesh: params_3d.cfg at full size padded to 158 axial rows, two ranks
+# on this one card over gloo (halos staged through pinned host memory):
+# a capped flow solve held bit for bit against one rank on the same padded
+# grid, then one cycle of five implicit steps at the 30 s dt ceiling and
+# a checkpoint, whose rows must come within 1e-4 of the one rank's (the
+# mass loss within 4 ulps of its float32 sum, as AMRG_LOSS_ATOL; GMRES's
+# dots are summed over the ranks); one rank then resumes the checkpoint
+# for two steps more
+SHARD_RANKS = 2
+SHARD_FLOW_ITERS = 1000
+SHARD_CAPS = [f"flow_max_iters={SHARD_FLOW_ITERS}", "T_final=150",
+              "corrosion_steps_per_check=5", "checkpoint_every=1"]
+SHARD_RESUME_T_FINAL = 210
 SEED = 20261016
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
-          "calib", "parity")
+          "calib", "parity", "shard")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -831,11 +861,17 @@ def phase_chunked(kit, st, args, act, n_fluid, record, results):
     del r0, v0, actconv
 
 
-def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d"):
+def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
+                    slab=None):
     """Phase 3 on params_3d.cfg with ``overrides``; returns {name: JSON row
     fields}. With a ``suffix`` (the calibration grid, ``@calib3d``) the
     path kernels are named ``name@shape``, and the ns3d_chunked forms,
-    which run only in the ladder, are left out."""
+    which run only in the ladder, are left out. With ``slab`` (a rank
+    count) the grid is padded for that many ranks and the kernels run on
+    rank 0's extended slab (own rows and a halo of mext rows a side), the
+    basis kernels on its own rows: the shapes each rank of the ``shard``
+    phase gives them (its operator keeps the halo rows' weights, which the
+    sharded path zeroes: the same shapes, a few more unknown rows)."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
     from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
     from pd_mg_pin_corrosion_tpu_torch.ops import ns
@@ -844,13 +880,19 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d"):
     cfg = pkg.Config.load(FLAGSHIP)
     cfg.apply_overrides(list(overrides))
     grid = pkg.build_grid(cfg)
+    if slab:
+        from pd_mg_pin_corrosion_tpu_torch.grid import pad_grid_axial
+        grid = pad_grid_axial(grid, slab)
     t1 = time.time()
     kit = pkg.build_kit(grid, cfg, device="cuda")
     st = pkg.initialize_state(grid, cfg,
                               grains=pkg.grains.generate(grid, cfg),
                               device="cuda")
+    n_basis = grid.N_total
+    if slab:
+        kit, st, n_basis = rank0_slab(kit, st, slab)
     torch.cuda.synchronize()
-    n, S = grid.N_total, kit.S
+    n, S = math.prod(kit.shape), kit.S
     print(f"[{tag}] grid {kit.shape} = {n} nodes, S={S}, "
           f"mext={kit.mext}, {kit.dtype}; grid built in {t1 - t0:.2f} s, "
           f"grains + kit + state in {time.time() - t1:.2f} s")
@@ -1018,9 +1060,9 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d"):
 
     # basis_axpy on a 26-row basis of grid-long vectors (flagship: 110 MB,
     # from HBM, not the L2)
-    V = kernels.pitched_basis(26, n, torch.float32, "cuda")
-    V.copy_(seeded(rng, (26, n)))
-    w = seeded(rng, (n,))
+    V = kernels.pitched_basis(26, n_basis, torch.float32, "cuda")
+    V.copy_(seeded(rng, (26, n_basis)))
+    w = seeded(rng, (n_basis,))
     c = seeded(rng, (26,), dtype=torch.float64)
     # basis_dots on the same basis, on its first 13 rows (flagship only),
     # and the k = 1 self-dot that is every GMRES norm
@@ -1624,6 +1666,32 @@ def phase_explicit(tmp):
     return counts
 
 
+def rank0_slab(kit, st, ranks):
+    """(kit, state, own nodes) of rank 0 of ``ranks`` on the padded grid:
+    the kit ``shard_kit`` gives it, without its slab (so the single-rank ops
+    run at the slab's shapes), the state's rows it holds after a halo
+    exchange (OUTSIDE / 0 below the domain), and its own node count."""
+    import dataclasses
+
+    from pd_mg_pin_corrosion_tpu_torch.fields import State
+    from pd_mg_pin_corrosion_tpu_torch.grid import OUTSIDE
+    from pd_mg_pin_corrosion_tpu_torch.parallel.sharding import (Mesh,
+                                                                 shard_kit)
+
+    sk = shard_kit(kit, Mesh(rank=0, size=ranks, group=None, backend="gloo",
+                             device=kit.device))
+    h, rows = sk.slab.h, sk.slab.rows
+
+    def cut(name, t):
+        fill = OUTSIDE if name == "node_type" else 0
+        return torch.cat([torch.full((h,) + tuple(t.shape[1:]), fill,
+                                     dtype=t.dtype, device=t.device),
+                          t[:rows + h]])
+    ext = State(**{k: cut(k, v) for k, v in vars(st).items()})
+    return (dataclasses.replace(sk, slab=None), ext,
+            rows * math.prod(kit.shape[1:]))
+
+
 def seeded_state(pkg, cfg, grid, grains, device="cuda"):
     """The state of ``grid`` (uniform or block AMR) with FLUID and
     FICTITIOUS rho and vel perturbed and C seeded (SOLID near 1, FLUID up
@@ -2077,6 +2145,168 @@ def phase_calib(tmp, pkg):
     return measured, counts3d, counts2d
 
 
+def phase_shard(tmp, pkg):
+    """Phase shard: the flagship split over SHARD_RANKS ranks on this card.
+    The path kernels at a rank's shapes against their twins (``name@shard``
+    rows); one rank's reference on the padded grid; the ranks'
+    (``parallel.launch.spawn`` of ``parallel.checks.coupled``): the capped
+    flow solve bit for bit, the coupled cycle's rows, the checkpoint and a
+    one-rank resume of it. Returns ({name@shard: JSON row fields}, the
+    ranks' summed launches in the coupled run, each rank's)."""
+    import shutil
+
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.checkpoint import load_checkpoint
+    from pd_mg_pin_corrosion_tpu_torch.coupling import CoupledSolver
+    from pd_mg_pin_corrosion_tpu_torch.grid import pad_grid_axial
+    from pd_mg_pin_corrosion_tpu_torch.parallel import checks
+    from pd_mg_pin_corrosion_tpu_torch.parallel.launch import spawn
+    from pd_mg_pin_corrosion_tpu_torch.solvers import solve_steady
+
+    measured = phase_kernels3d(pkg, (), "@shard", "shard", slab=SHARD_RANKS)
+    torch.cuda.empty_cache()
+
+    def cfg_for(out, *extra):
+        cfg = pkg.Config.load(FLAGSHIP)
+        cfg.apply_overrides(SHARD_CAPS + [f"output_dir={out}", *extra])
+        return cfg
+
+    t0 = time.time()
+    cfg = cfg_for(os.path.join(tmp, "shard_one"))
+    grid = pad_grid_axial(pkg.build_grid(cfg), SHARD_RANKS)
+    g = pkg.grains.generate(grid, cfg)
+    print(f"[shard] params_3d.cfg padded to {grid.shape} = {grid.N_total} "
+          f"nodes ({SHARD_RANKS} slabs of {grid.shape[0] // SHARD_RANKS} "
+          f"rows), grid and grains in {time.time() - t0:.2f} s")
+
+    # one rank on the same padded grid: the capped flow solve, then the run
+    kit = pkg.build_kit(grid, cfg, device="cuda")
+    st0 = pkg.initialize_state(grid, cfg, grains=g, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    flow1, it1, eps1, _, _ = solve_steady(st0, kit,
+                                          max_iters=SHARD_FLOW_ITERS)
+    torch.cuda.synchronize()
+    flow1_s = time.time() - t0
+    flow1 = [t.cpu().numpy() for t in (flow1.rho, flow1.vel, flow1.pressure)]
+    kernels.reset_launch_counts()
+    one = CoupledSolver()
+    t0 = time.time()
+    with open(os.path.join(tmp, "shard_one.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        final1 = one.run(grid, st0, kit, cfg)
+    torch.cuda.synchronize()
+    one_wall = time.time() - t0
+    counts1 = kernels.launch_counts()
+    rows1 = checks.rows(f"{cfg.output_dir}/diagnostics.csv")
+    del kit, st0
+
+    # the ranks
+    mesh_dir = os.path.join(tmp, "shard_mesh")
+    t0 = time.time()
+    with open(os.path.join(tmp, "shard_mesh.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        out = spawn(checks.coupled, SHARD_RANKS, "gloo", "cuda", grid,
+                    cfg_for(mesh_dir), g, SHARD_FLOW_ITERS)
+    spawn_s = time.time() - t0
+    rows_m = checks.rows(f"{mesh_dir}/diagnostics.csv")
+    r0 = out[0]
+    flow_same = all(np.array_equal(a, b) for a, b in zip(r0["flow"], flow1))
+    per_rank = [r["launches"] for r in out]
+    summed = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    flow_ms = [1e3 * r["flow_seconds"] / SHARD_FLOW_ITERS for r in out]
+    step_ms = [1e3 * r["implicit_seconds"] / max(r["total_implicit_steps"], 1)
+               for r in out]
+    one_flow_ms = 1e3 * flow1_s / SHARD_FLOW_ITERS
+    one_step_ms = 1e3 * one.implicit_seconds / max(one.total_implicit_steps, 1)
+    print(f"[shard] spawn of {SHARD_RANKS} ranks and their whole drive "
+          f"{spawn_s:.2f} s; rank 0's coupled run {r0['wall']:.2f} s, one "
+          f"rank's {one_wall:.2f} s")
+    print(f"[shard] capped flow solve ({SHARD_FLOW_ITERS} iterations): ms "
+          f"per iteration {json.dumps([round(v, 4) for v in flow_ms])} "
+          f"(ranks) against one rank's {one_flow_ms:.4f}; flow state equal "
+          f"to one rank's bit for bit: {flow_same}; eps {r0['flow_result'][1]:.6e}"
+          f" (one rank {eps1:.6e})")
+    print(f"[shard] implicit steps: ms per step "
+          f"{json.dumps([round(v, 3) for v in step_ms])} (ranks) against one "
+          f"rank's {one_step_ms:.3f}; assemble {1e3 * r0['assemble_seconds']:.2f}"
+          f" ms (one rank {1e3 * one.assemble_seconds:.2f})")
+    print(f"[shard] flow launches per rank "
+          f"{json.dumps([r['flow_launches'] for r in out])}")
+    # the mesh's traffic (parallel.sharding.TRAFFIC): the capped solve's
+    # a flow iteration, and the coupled run's less its flow iterations at
+    # that rate, a step
+    for r in out:
+        f, c = r["flow_traffic"], r["traffic"]
+        steps = max(r["total_implicit_steps"], 1)
+        flow_share = r["flow_iters"] / SHARD_FLOW_ITERS
+        per_step = {k: (c[k] - flow_share * f[k]) / steps for k in c}
+        print(f"[shard] rank {r['rank']} traffic: a flow iteration "
+              f"{f['exchanges'] / SHARD_FLOW_ITERS:.2f} halo exchanges, "
+              f"{f['bytes'] / SHARD_FLOW_ITERS / 1e3:.1f} kB sent, "
+              f"{1e3 * f['seconds'] / SHARD_FLOW_ITERS:.4f} ms of host time "
+              f"in them (staging and the wait for the neighbour included), "
+              f"{f['all_reduces'] / SHARD_FLOW_ITERS:.2f} all-reduces; an "
+              f"implicit step {per_step['exchanges']:.1f} exchanges, "
+              f"{per_step['bytes'] / 1e6:.2f} MB sent, "
+              f"{1e3 * per_step['seconds']:.2f} ms of host time in them, "
+              f"{per_step['all_reduces']:.1f} all-reduces "
+              f"({r['launches']['basis_dots'] / steps:.1f} basis_dots "
+              f"launches, each summed by one)")
+    print(f"[shard] coupled-run launches per rank {json.dumps(per_rank)}; one "
+          f"rank {json.dumps(counts1)}")
+    n0 = int((grid.node_type == pkg.SOLID_MG).sum())
+    loss_atol = 4 * 100.0 * float(np.spacing(np.float32(n0))) / n0
+    compare_rows("shard", f"{SHARD_RANKS} ranks against one rank", rows_m,
+                 rows1, loss_atol)
+
+    # the checkpoint is the single rank's file: it loads whole, equal to
+    # the ranks' gathered final state, and one rank resumes it
+    ck_path = f"{mesh_dir}/checkpoint.npz"
+    ck, t_ck, _ = load_checkpoint(ck_path, final1)
+    ck_same = all(np.array_equal(getattr(ck, k).cpu().numpy(), v)
+                  for k, v in r0["final"].items())
+    res_dir = os.path.join(tmp, "shard_resume")
+    shutil.copytree(mesh_dir, res_dir)
+    rcfg = cfg_for(res_dir, f"resume_from={res_dir}/checkpoint.npz",
+                   f"T_final={SHARD_RESUME_T_FINAL}")
+    kit = pkg.build_kit(grid, rcfg, device="cuda")
+    st = pkg.initialize_state(grid, rcfg, grains=g, device="cuda")
+    with open(os.path.join(tmp, "shard_resume.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        resumed = CoupledSolver()
+        resumed.run(grid, st, kit, rcfg)
+    rows_r = checks.rows(f"{res_dir}/diagnostics.csv")
+    del kit, st
+    print(f"[shard] checkpoint at t={t_ck:.1f} s equal to the ranks' final "
+          f"state: {ck_same}; one rank resumed it to "
+          f"{rows_r['time_s'][-1]:.1f} s: {len(rows_r)} rows")
+    checks_ = {
+        "the flow state equals one rank's bit for bit": flow_same,
+        "the flow solve ran its iterations on every rank": all(
+            r["flow_result"][0] == it1 for r in out),
+        f"every kernel of the 3D path launched on each of the "
+        f"{SHARD_RANKS} ranks": all(c[k] > 0 for c in per_rank
+                                    for k in PATH_3D),
+        "ns3d launched once per flow iteration on each rank": all(
+            r["flow_launches"]["ns3d"] == SHARD_FLOW_ITERS for r in out),
+        "five rows, all finite": len(rows_m) == 5 and all(
+            np.isfinite(rows_m[c]).all() for c in rows_m.dtype.names),
+        "no GMRES non-convergence warning": all(
+            r["gmres_warnings"] == 0 for r in out),
+        "the checkpoint loads equal to the ranks' final state": ck_same,
+        "the resumed run kept the ranks' rows and added two": len(rows_r)
+            == len(rows_m) + 2 and np.array_equal(rows_r[:len(rows_m)],
+                                                   rows_m) and all(
+            np.isfinite(rows_r[c]).all() for c in rows_r.dtype.names),
+    }
+    for what, ok in checks_.items():
+        print(f"[shard] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks_.values()):
+        fail("shard checks")
+    return measured, summed, per_rank
+
+
 def phase_parity(tmp):
     """Phase 11: parity.cfg with the kernels on CUDA vs the plain twins on
     the CPU, implicit, explicit and gs_parity, in float32. Every column
@@ -2178,7 +2408,7 @@ def main():
             print(f"[ptxas] {entry}: {line.strip()}")
 
     measured, counts = {}, {}
-    cold = None
+    cold = shard_ranks = None
 
     def timed(name, fn):
         t0 = time.time()
@@ -2201,7 +2431,8 @@ def main():
                 ("amrg", lambda: phase_amrg(tmp)),
                 ("amr3d", lambda: phase_amr3d(tmp)),
                 ("calib", lambda: phase_calib(tmp, pkg)),
-                ("parity", lambda: phase_parity(tmp))):
+                ("parity", lambda: phase_parity(tmp)),
+                ("shard", lambda: phase_shard(tmp, pkg))):
             if name not in phases:
                 continue
             out = timed(name, run)
@@ -2216,6 +2447,9 @@ def main():
             elif name == "calib":
                 calib_measured, counts["calib3d"], counts["calib2d"] = out
                 measured.update(calib_measured)
+            elif name == "shard":
+                shard_measured, counts["shard"], shard_ranks = out
+                measured.update(shard_measured)
             elif out is not None:
                 counts[name] = out
 
@@ -2239,10 +2473,14 @@ def main():
                     run = "amr_explicit"
             else:
                 run = next((p for p in owner[k.name] if p in counts), None)
-            rows.append({"name": name, "route": "cuda", "source": k.source,
-                         "replaces": k.replaces,
-                         "launches": counts.get(run, {}).get(k.name),
-                         **measured[name]})
+            row = {"name": name, "route": "cuda", "source": k.source,
+                   "replaces": k.replaces,
+                   "launches": counts.get(run, {}).get(k.name),
+                   **measured[name]}
+            if run == "shard":
+                # launches: both ranks' together; each rank's beside them
+                row["launches_per_rank"] = [c[k.name] for c in shard_ranks]
+            rows.append(row)
     print(f"[device] chip_smoke total {time.time() - T_START:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -29,7 +29,7 @@ def _band_sums(kit: Kit, values, pred, lo: int, hi: int):
     """Neighbour sums over rows [lo, hi): ([sum_s value_j * pred_j ...],
     count_s pred_j). The INLET/OUTLET ghost layers occupy fixed axial rows
     (kit.inlet_rows / kit.outlet_rows), so these flow-loop BCs only touch a
-    thin slab of rows."""
+    thin slab of rows (on a mesh's slab, of its own rows: ``kit.band_rows``)."""
     pads = [kit.pad(f, 0.0) for f in [pred, *values]]
     shape = (hi - lo,) + kit.shape[1:]
     totals = [torch.zeros(shape, dtype=kit.dtype, device=kit.device)
@@ -46,22 +46,22 @@ def apply_inlet_bc(state: State, kit: Kit) -> State:
     """Prescribed Poiseuille velocity, rho extrapolated from FLUID
     neighbours, fresh SBF C (boundary.cpp:31-75)."""
     cfg = kit.cfg
-    hi = kit.inlet_rows
-    if hi == 0:
+    lo, hi = kit.band_rows[0], kit.inlet_rows
+    if hi <= lo:
         return state
     fluid = (state.node_type == FLUID).to(kit.dtype)
-    (tot,), cnt = _band_sums(kit, [state.rho], fluid, 0, hi)
-    inlet_b = kit.inlet_mask[:hi]
+    (tot,), cnt = _band_sums(kit, [state.rho], fluid, lo, hi)
+    inlet_b = kit.inlet_mask[lo:hi]
 
     rho = state.rho.clone()
     rho_avg = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1.0), cfg.rho_f)
-    rho[:hi] = torch.where(inlet_b, rho_avg, state.rho[:hi])
+    rho[lo:hi] = torch.where(inlet_b, rho_avg, state.rho[lo:hi])
     vel = state.vel.clone()
-    v_in = torch.zeros_like(vel[:hi])
-    v_in[..., kit.axial_comp] = kit.v_pois[:hi]
-    vel[:hi] = torch.where(inlet_b[..., None], v_in, state.vel[:hi])
+    v_in = torch.zeros_like(vel[lo:hi])
+    v_in[..., kit.axial_comp] = kit.v_pois[lo:hi]
+    vel[lo:hi] = torch.where(inlet_b[..., None], v_in, state.vel[lo:hi])
     C = state.C.clone()
-    C[:hi] = torch.where(inlet_b, cfg.C_liquid_init, state.C[:hi])
+    C[lo:hi] = torch.where(inlet_b, cfg.C_liquid_init, state.C[lo:hi])
     return replace(state, rho=rho, vel=vel, C=C)
 
 
@@ -71,7 +71,7 @@ def apply_outlet_bc(state: State, kit: Kit) -> State:
     cfg = kit.cfg
     if kit.gs is not None:
         return _gs_outlet_bc(state, kit)
-    lo, n0 = kit.outlet_rows, kit.shape[0]
+    lo, n0 = kit.outlet_rows, kit.band_rows[1]
     if lo >= n0:
         return state
     ax = kit.axial_comp
@@ -79,19 +79,19 @@ def apply_outlet_bc(state: State, kit: Kit) -> State:
     pred = ((nt == FLUID) | (nt == OUTLET)).to(kit.dtype)
     (v_tot, C_tot), cnt = _band_sums(kit, [state.vel[..., ax], state.C],
                                      pred, lo, n0)
-    outlet_b = kit.outlet_mask[lo:]
+    outlet_b = kit.outlet_mask[lo:n0]
     safe_cnt = torch.clamp(cnt, min=1.0)
     v_ax = torch.where(cnt > 0, v_tot / safe_cnt, cfg.U_in)
     C_avg = torch.where(cnt > 0, C_tot / safe_cnt, 0.0)
 
     rho = state.rho.clone()
-    rho[lo:] = torch.where(outlet_b, cfg.rho_f, state.rho[lo:])
+    rho[lo:n0] = torch.where(outlet_b, cfg.rho_f, state.rho[lo:n0])
     vel = state.vel.clone()
-    v_out = torch.zeros_like(vel[lo:])
+    v_out = torch.zeros_like(vel[lo:n0])
     v_out[..., ax] = v_ax
-    vel[lo:] = torch.where(outlet_b[..., None], v_out, state.vel[lo:])
+    vel[lo:n0] = torch.where(outlet_b[..., None], v_out, state.vel[lo:n0])
     C = state.C.clone()
-    C[lo:] = torch.where(outlet_b, C_avg, state.C[lo:])
+    C[lo:n0] = torch.where(outlet_b, C_avg, state.C[lo:n0])
     return replace(state, rho=rho, vel=vel, C=C)
 
 

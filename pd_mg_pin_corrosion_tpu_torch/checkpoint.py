@@ -96,9 +96,10 @@ def save_checkpoint(path: str, state: State, t_corr: float, meta: dict,
 
 def load_checkpoint(path: str, template: State, fp: str = "",
                     force: bool = False, fp_grid: str = "",
-                    cfg_json: str = ""):
+                    cfg_json: str = "", rows: slice | None = None):
     """Returns (state, t_corr, meta); ``template`` supplies dtypes and the
-    device.
+    device. ``rows`` cuts every field to those rows of the leading (axial)
+    axis: a rank of a mesh reads its slab of the single-rank file.
 
     If both the checkpoint and the caller give a fingerprint, they must
     match. ``force`` turns a config mismatch into a warning with a key
@@ -127,7 +128,8 @@ def load_checkpoint(path: str, template: State, fp: str = "",
         kwargs = {}
         for f in dataclasses.fields(State):
             ref = getattr(template, f.name)
-            kwargs[f.name] = torch.as_tensor(z[f.name]).to(
+            a = z[f.name] if rows is None else z[f.name][rows]
+            kwargs[f.name] = torch.as_tensor(a).to(
                 device=ref.device, dtype=ref.dtype)
         t_corr = float(z["t_corr"])
         meta = json.loads(str(z["meta"]))

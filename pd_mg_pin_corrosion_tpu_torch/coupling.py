@@ -47,6 +47,7 @@ from .fields import State
 from .grid import FLUID, SOLID_MG
 from .io_vtk import VTKWriter
 from .ops.ns import vel_magnitude
+from .parallel.sharding import all_reduce, gather_state, own_rows
 from .solvers import coarse_warm_start, poiseuille_l2_error, solve_steady
 
 # the two CSVs (coupling.cpp:55-80): file name, header, seconds per unit of
@@ -56,25 +57,31 @@ CSVS = (("diagnostics.csv",
         ("mass_loss.csv", "time_h,pin_mass_loss_pct\n", 3600.0))
 
 
-def diagnostics(state: State, kit):
-    """(pin_mass_loss_pct, solid_nodes, v_max, C_max_fluid) as 0-d tensors
-    (coupling.cpp:20-53)."""
-    init_solid = kit.initial_solid_mask
+def _solid_sums(state: State, kit):
+    """(n0, sum of C) over the initially-solid nodes, summed over the ranks
+    of a mesh."""
+    init_solid = own_rows(kit, kit.initial_solid_mask)
     n0 = init_solid.to(kit.dtype).sum()
     C_solid_sum = torch.where(init_solid, state.C, 0.0).sum()
+    return all_reduce(kit, (n0, C_solid_sum))
+
+
+def diagnostics(state: State, kit):
+    """(pin_mass_loss_pct, solid_nodes, v_max, C_max_fluid) as 0-d tensors
+    (coupling.cpp:20-53), over the whole grid under a mesh."""
+    n0, C_solid_sum = _solid_sums(state, kit)
     loss = torch.clamp((1.0 - C_solid_sum / (n0 + 1e-30)) * 100.0, min=0.0)
-    solid_count = (state.node_type == SOLID_MG).sum()
+    solid_count = all_reduce(kit, (state.node_type == SOLID_MG).sum())
     fluid = state.node_type == FLUID
-    v_max = torch.where(fluid, vel_magnitude(state.vel), 0.0).max()
-    C_max = torch.where(fluid, state.C, 0.0).max()
+    v_max, C_max = all_reduce(kit, (
+        torch.where(fluid, vel_magnitude(state.vel), 0.0).max(),
+        torch.where(fluid, state.C, 0.0).max()), "max")
     return loss, solid_count, v_max, C_max
 
 
 def volume_loss_fraction(state: State, kit) -> torch.Tensor:
     """Normalized volume loss over initially-solid nodes (coupling.cpp:157-163)."""
-    init_solid = kit.initial_solid_mask
-    n0 = init_solid.to(kit.dtype).sum()
-    C_solid_sum = torch.where(init_solid, state.C, 0.0).sum()
+    n0, C_solid_sum = _solid_sums(state, kit)
     return torch.clamp(1.0 - C_solid_sum / (n0 + 1e-30), min=0.0)
 
 
@@ -98,8 +105,8 @@ def implicit_inner_step(state: State, op, kit, C_prev=None):
     state, res = ops.implicit_step(state, op, kit, dt, x0=x0)
     state = ops.smooth_boundary_concentration(state, kit)
     state = ops.update_fictitious(state, kit)
-    n_below = ((state.node_type == SOLID_MG)
-               & (state.C < kit.cfg.C_thresh)).sum()
+    n_below = all_reduce(kit, ((state.node_type == SOLID_MG)
+                               & (state.C < kit.cfg.C_thresh)).sum())
     return state, dt, n_below, res, diagnostics(state, kit)
 
 
@@ -129,6 +136,7 @@ class CoupledSolver:
         self.gmres_warnings = 0
         self._prof = False
         self._device = None
+        self._mesh = None
         self.phase_s = {}
         # run totals read by chip_smoke.py and the phase report
         self.flow_iters = 0
@@ -154,18 +162,33 @@ class CoupledSolver:
         self.writer.flush()
         self.flow_writer.flush()
 
+    def _global(self, state: State):
+        """The whole grid's state: itself on one rank; under a mesh the
+        ranks' slabs gathered on rank 0 (None on the others)."""
+        return state if self._mesh is None else gather_state(state,
+                                                             self._mesh)
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of a mesh."""
+        return self._mesh is None or self._mesh.rank == 0
+
     def _write_state(self, cfg, grid, state, prefix, t, pvd_writer):
         t_ph = time.time()
         fname = self._filename(cfg, prefix, t)
-        if cfg.use_amr:
-            self.writer.write_vtu(fname, grid, state)
-        else:
-            self.writer.write(fname, grid, state, cfg)
-        pvd_writer.add_timestep(t, fname)
+        state = self._global(state)
+        if self._writes:
+            if cfg.use_amr:
+                self.writer.write_vtu(fname, grid, state)
+            else:
+                self.writer.write(fname, grid, state, cfg)
+            pvd_writer.add_timestep(t, fname)
         self.frame_count += 1
         self._phase("io_vtk", t_ph)
 
     def _init_csv(self, cfg):
+        if not self._writes:
+            return
         for name, header, _ in CSVS:
             with open(f"{cfg.output_dir}/{name}", "w") as f:
                 f.write(header)
@@ -174,6 +197,8 @@ class CoupledSolver:
         """On resume, keep every CSV row at or before the checkpoint time
         and drop the rows written after it, so appending continues a
         gap-free curve; a missing file just gets its header."""
+        if not self._writes:
+            return
         for name, header, t_div in CSVS:
             path = f"{cfg.output_dir}/{name}"
             kept = []
@@ -195,6 +220,8 @@ class CoupledSolver:
                       f"t={t_corr:.1f} s")
 
     def _write_diagnostics(self, cfg, t, diag):
+        if not self._writes:
+            return
         loss, solid, v_max, C_max = torch.stack(
             [d.to(torch.float64) for d in diag]).tolist()
         solid = int(solid)
@@ -323,6 +350,7 @@ class CoupledSolver:
         t_start = time.time()
         self._prof = bool(os.environ.get("PD_TPU_PHASE_TIMERS"))
         self._device = kit.device
+        self._mesh = getattr(kit, "mesh", None)
         self.phase_s = {}
         os.makedirs(cfg.output_dir, exist_ok=True)
         self.writer.set_pvd_path(f"{cfg.output_dir}/simulation.pvd")
@@ -336,10 +364,12 @@ class CoupledSolver:
         if cfg.resume_from:
             # PD_TPU_RESUME_FORCE turns a config-hash mismatch into a
             # warning with a key diff; the grid is still verified
+            # under a mesh each rank reads its own rows of the file
             state, t_corr, meta = load_checkpoint(
                 cfg.resume_from, state, fp,
                 force=bool(os.environ.get("PD_TPU_RESUME_FORCE")),
-                fp_grid=fp_grid, cfg_json=cfg_json)
+                fp_grid=fp_grid, cfg_json=cfg_json,
+                rows=None if self._mesh is None else kit.slab.global_rows)
             self.total_implicit_steps = meta.get("total_implicit_steps", 0)
             self.total_dissolved = meta.get("total_dissolved", 0)
             self.cycles = meta.get("cycle", 0)
@@ -357,7 +387,8 @@ class CoupledSolver:
         else:
             self._init_csv(cfg)
 
-        n_init_solid = int(kit.initial_solid_mask.sum())
+        n_init_solid = int(all_reduce(
+            kit, own_rows(kit, kit.initial_solid_mask).sum()))
         print(f"Initial solid nodes: {n_init_solid}")
         if cfg.use_implicit:
             print(f"Using IMPLICIT ARD solver (dt_max={cfg.implicit_dt_max:.1f} s, "
@@ -407,7 +438,9 @@ class CoupledSolver:
                 # in-path Poiseuille validation (pd_ns.cpp:341-368), a 2D
                 # check of the uniform grid as in the JAX package
                 if cfg.dim == 2 and not cfg.use_amr and not div:
-                    err = poiseuille_l2_error(state, grid, cfg)
+                    whole = self._global(state)
+                    err = (poiseuille_l2_error(whole, grid, cfg)
+                           if self._writes else math.nan)
                     if math.isfinite(err):
                         print(f"  Poiseuille validation (upstream): "
                               f"L2 rel error = {err:.3e}")
@@ -447,17 +480,20 @@ class CoupledSolver:
             if cfg.checkpoint_every and cycle % cfg.checkpoint_every == 0:
                 t_ph = time.time()
                 self._flush_writers()  # async VTI writes land before the save
-                save_checkpoint(
-                    f"{cfg.output_dir}/checkpoint.npz", state, t_corr,
-                    {"cycle": cycle,
-                     "total_implicit_steps": self.total_implicit_steps,
-                     "total_dissolved": self.total_dissolved,
-                     "frame_count": self.frame_count,
-                     "flow_solve_count": self.flow_solve_count},
-                    fp, fp_grid=fp_grid, cfg_json=cfg_json)
+                # the single rank's file: a mesh gathers it on rank 0
+                whole = self._global(state)
+                if self._writes:
+                    save_checkpoint(
+                        f"{cfg.output_dir}/checkpoint.npz", whole, t_corr,
+                        {"cycle": cycle,
+                         "total_implicit_steps": self.total_implicit_steps,
+                         "total_dissolved": self.total_dissolved,
+                         "frame_count": self.frame_count,
+                         "flow_solve_count": self.flow_solve_count},
+                        fp, fp_grid=fp_grid, cfg_json=cfg_json)
                 self._phase("checkpoint", t_ph)
 
-            if int((state.node_type == SOLID_MG).sum()) == 0:
+            if int(all_reduce(kit, (state.node_type == SOLID_MG).sum())) == 0:
                 print(f"\n=== All solid nodes dissolved at t={t_corr:.1f} s "
                       f"({t_corr / 3600.0:.2f} h) ===")
                 break

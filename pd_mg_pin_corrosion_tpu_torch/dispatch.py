@@ -1,9 +1,12 @@
-"""Backend dispatch: the uniform structured grid, block AMR, or the gather
-AMR backend.
+"""Backend dispatch: the uniform structured grid (on one rank or a slab of
+a mesh), block AMR, or the gather AMR backend.
 
 Port of ``pd_mg_pin_corrosion_tpu/dispatch.py``. Every branch exposes the
 same functions over (state, kit); the solvers and the coupling loop take
-them from ``ops_for(kit)``, so one loop drives every kind of grid.
+them from ``ops_for(kit)``, so one loop drives every kind of grid. A kit
+that carries a slab (``parallel.sharding.shard_kit``) gets the ops that
+exchange halo rows and reduce over the mesh
+(``parallel.shard_kernels.sharded_ops``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ def _identity(state, kit):
 
 def ops_for(kit) -> SimpleNamespace:
     from . import boundary as bc
+
+    if getattr(kit, "slab", None) is not None:
+        from .parallel.shard_kernels import sharded_ops
+        return sharded_ops()
 
     if is_block(kit):
         from . import amr_blocks as b

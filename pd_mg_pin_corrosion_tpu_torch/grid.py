@@ -226,6 +226,41 @@ def build_grid(cfg: Config) -> Grid:
     )
 
 
+def pad_grid_axial(grid: Grid, multiple: int) -> Grid:
+    """Pad the leading (axial) array axis with OUTSIDE rows so it divides
+    evenly into ``multiple`` slabs (a copy of JAX ``grid.pad_grid_axial``).
+    OUTSIDE nodes are inert in every PD sum and BC (excluded by node-type
+    masks), so padding does not perturb physics.
+    """
+    shape = grid.shape
+    n0 = shape[0]
+    target = ((n0 + multiple - 1) // multiple) * multiple
+    extra = target - n0
+    if extra == 0:
+        return grid
+
+    pads = [(0, extra)] + [(0, 0)] * (len(shape) - 1)
+    node_type = np.pad(grid.node_type, pads, constant_values=OUTSIDE)
+    pos = np.pad(grid.pos, pads + [(0, 0)], mode="edge")
+    # extend axial coordinate monotonically in the padded rows
+    ax = grid.axial_axis
+    for k in range(extra):
+        pos[n0 + k, ..., ax] = pos[n0 - 1, ..., ax] + (k + 1) * grid.dx
+    mirror_idx = np.pad(grid.mirror_idx, pads, constant_values=-1)
+
+    kwargs = dict(
+        dim=grid.dim, Nx=grid.Nx, Ny=grid.Ny, Nz=grid.Nz, dx=grid.dx,
+        delta=grid.delta, m=grid.m, origin=grid.origin, R_wire=grid.R_wire,
+        L_wire=grid.L_wire, R_tube=grid.R_tube, node_type=node_type, pos=pos,
+        stencil=grid.stencil, mirror_idx=mirror_idx,
+    )
+    if grid.dim == 2:
+        kwargs["Ny"] = target
+    else:
+        kwargs["Nz"] = target
+    return Grid(**kwargs)
+
+
 def _build_mirror_table(cfg, node_type, pos, origin, Nx, Ny, Nz, stencil) -> np.ndarray:
     """FNM wall-mirror source index per node, flat int32, -1 where unused.
 

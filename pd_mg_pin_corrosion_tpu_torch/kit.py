@@ -99,6 +99,22 @@ class Kit:
     # OUTLET nodes in rows [outlet_rows, end) of the leading array axis
     inlet_rows: int
     outlet_rows: int
+    # this rank's slab under a mesh (``parallel.sharding.shard_kit``): the
+    # kit then describes the extended slab, own rows plus halo rows
+    slab: "Slab | None" = None
+
+    @property
+    def mesh(self):
+        return None if self.slab is None else self.slab.mesh
+
+    @property
+    def band_rows(self) -> tuple:
+        """(first, end) of the rows the inlet and outlet bands may occupy:
+        every row, or a slab's own rows. A band's sums then run over the
+        single rank's shapes, whose order of sums is the single rank's."""
+        if self.slab is None:
+            return 0, self.shape[0]
+        return self.slab.h, self.slab.h + self.slab.rows
 
     # ------------------------------------------------------------------
     @property

@@ -73,13 +73,16 @@ def compute_dt(state: State, kit: Kit) -> torch.Tensor:
     return cfg.cfl_factor_corr * torch.minimum(dt_diff, dt_adv)
 
 
-def ard_step(state: State, kit: Kit, dt, volume_loss_fraction=0.0) -> State:
+def ard_step(state: State, kit: Kit, dt, volume_loss_fraction=0.0,
+             salt=None) -> State:
     """One explicit forward-Euler transport step (pd_ard.cpp:55-191). The
     salt-blocking pass, the volume-loss factor, the solid-side
     micro-diffusivity and |v| are formed here, as the JAX package's Pallas
     wrapper forms them in XLA; the bond sums are ``ard2d``'s in 2D float32
-    and ``explicit_step``'s otherwise."""
-    salt = compute_salt_blocked(state, kit)
+    and ``explicit_step``'s otherwise. ``salt`` is the salt-blocking mask
+    when the caller has formed it (a mesh exchanges its halo rows)."""
+    if salt is None:
+        salt = compute_salt_blocked(state, kit)
     decay = micro_d_factor(kit.cfg, volume_loss_fraction, kit.dtype,
                            kit.device)
     Ds = solid_diffusivity(state.is_gb, state.is_precip, kit.cfg, decay)

@@ -38,6 +38,7 @@ from ..grid import (FICTITIOUS, FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG,
 from ..kernels import (PackedStencil, matvec2d, matvec2d_plain, matvec3d,
                        matvec3d_plain, pack_stencil, slots3d_f64)
 from ..kit import Kit
+from ..parallel.sharding import all_reduce, reducer
 from .ard import compute_salt_blocked, micro_d_factor, solid_diffusivity
 from .gmres import gmres, vector_norm
 
@@ -59,6 +60,10 @@ class ImplicitOperator:
     # 3D float32 on the card: W's nonzero weights, packed for the matvec3d
     # and slots3d_f64 kernels (W16 shares its slot numbers and counts)
     packed: PackedStencil | None = None
+    # under a mesh: the operator on the rank's extended slab, which the
+    # matvecs read (``parallel.shard_kernels.assemble_sharded``); diag and
+    # unknown above are then its own rows, W / W16 / packed its weights
+    ext: "ImplicitOperator | None" = None
 
 
 def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperator:
@@ -69,31 +74,46 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
     assemble. 3D float32 operators also get the weights the
     preconditioner streams in bfloat16 and, on the card, the packed forms
     of both (made after the dense pass has released its temporaries; the
-    dense W goes before the bf16 copy is made, as nothing reads it)."""
-    W, diag, unknown = _dense_operator(state, kit, volume_loss_fraction)
-    packed = W16 = None
+    dense W goes before the bf16 copy is made, as nothing reads it).
+    Under a mesh, the operator of the rank's own rows
+    (``parallel.shard_kernels.assemble_sharded``)."""
+    if kit.slab is not None:
+        from ..parallel.shard_kernels import assemble_sharded
+        return assemble_sharded(state, kit, volume_loss_fraction)
+    return finish_operator(ImplicitOperator(
+        *_dense_operator(state, kit, volume_loss_fraction)), kit)
+
+
+def finish_operator(op: ImplicitOperator, kit: Kit) -> ImplicitOperator:
+    """``op`` (dense weights) finished in place: 3D float32 operators also
+    get the bf16 copy the preconditioner streams and, on the card, the
+    packed forms of both (``op.W``, the dense W's only reference, is
+    dropped once packed)."""
     if kit.dim == 3 and kit.dtype == torch.float32:
-        if W.is_cuda:
-            packed = pack_stencil(W, unknown, kit)
-            W = None
-            W16 = packed.to(torch.bfloat16)
+        if op.W.is_cuda:
+            op.packed = pack_stencil(op.W, op.unknown, kit)
+            op.W = None
+            op.W16 = op.packed.to(torch.bfloat16)
         else:
-            W16 = W.to(torch.bfloat16)
-    return ImplicitOperator(W=W, diag=diag, unknown=unknown, W16=W16,
-                            packed=packed)
+            op.W16 = op.W.to(torch.bfloat16)
+    return op
 
 
-def _dense_operator(state: State, kit: Kit, volume_loss_fraction):
+def _dense_operator(state: State, kit: Kit, volume_loss_fraction,
+                    salt=None):
     """(W, diag, unknown) of M. The weights are formed over slot chunks,
     written into one [S, *shape] tensor, and the diagonal accumulates in
-    stencil order, so the result does not depend on the chunking."""
+    stencil order, so the result does not depend on the chunking. ``salt``
+    is the salt-blocking mask when the caller has formed it (a mesh
+    exchanges its halo rows)."""
     cfg = kit.cfg
     nt = state.node_type
     i_fluid = nt == FLUID
     i_solid = nt == SOLID_MG
     unknown = i_fluid | i_solid
 
-    salt_blocked = compute_salt_blocked(state, kit)
+    salt_blocked = (compute_salt_blocked(state, kit) if salt is None
+                    else salt)
     decay = micro_d_factor(cfg, volume_loss_fraction, kit.dtype, kit.device)
 
     vel_i = torch.where(i_fluid[..., None], state.vel, 0.0)
@@ -153,7 +173,11 @@ def matvec_M(op: ImplicitOperator, kit: Kit, x: torch.Tensor,
     """y = M x over unknown rows (zero elsewhere): GMRES's hot op, the
     matvec2d / matvec3d kernel for float32 on the card. ``W`` replaces the
     operator's weights (the preconditioner passes ``op.W16``); by default
-    they are the packed ones where the operator has them."""
+    they are the packed ones where the operator has them. Under a mesh, the
+    matvec of the extended slab after a halo exchange of x."""
+    if op.ext is not None:
+        from ..parallel.shard_kernels import matvec_M_sharded
+        return matvec_M_sharded(op, kit, x, W)
     f32 = x.dtype == torch.float32
     if W is None:
         W = op.packed if f32 and op.packed is not None else op.W
@@ -170,6 +194,9 @@ def matvec_M64(op: ImplicitOperator, kit: Kit, x64: torch.Tensor) -> torch.Tenso
     copy of W, 1.5 GB at the flagship size). 2D: matvec2d's plain twin in
     float64; 3D: the f64 slot sum (``slots3d_f64``, the kernel on the card
     over the packed f32 weights), with diag and mask here."""
+    if op.ext is not None:
+        from ..parallel.shard_kernels import matvec_M64_sharded
+        return matvec_M64_sharded(op, kit, x64)
     diag64 = op.diag.to(torch.float64)
     if kit.dim == 2:
         return matvec2d_plain(x64, op.W, diag64, op.unknown, kit)
@@ -202,6 +229,8 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
         restart = 25
     dt = torch.as_tensor(dt, dtype=kit.dtype, device=kit.device)
     C_old = state.C
+    # under a mesh, GMRES's dots and the norms are summed over the ranks
+    allreduce = reducer(kit)
 
     def A(x, W=None):
         return torch.where(op.unknown, x - dt * matvec_M(op, kit, x, W), x)
@@ -229,7 +258,8 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
     x0 = C_old if x0 is None else torch.where(
         op.unknown, torch.clamp(x0, 0.0, cfg.C_solid_init), C_old)
     x, (res, _) = gmres(A, b, x0, tol=inner_tol, restart=restart,
-                        maxiter=maxiter, M=precond, flat_kernels=flat)
+                        maxiter=maxiter, M=precond, flat_kernels=flat,
+                        allreduce=allreduce)
 
     if refine:
         # Mixed-precision iterative refinement: the f32 residual floors near
@@ -243,20 +273,20 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
                                x64 - dt64 * matvec_M64(op, kit, x64), x64)
 
         b64 = b.to(torch.float64)
-        b_norm = max(vector_norm(b64), 1e-300)
+        b_norm = max(vector_norm(b64, allreduce), 1e-300)
         x64 = x.to(torch.float64)
         r64 = b64 - A64(x64)
-        res = vector_norm(r64) / b_norm
+        res = vector_norm(r64, allreduce) / b_norm
         for _ in range(2):
             if not res > tol:
                 break
             tol_c = min(max(0.5 * tol / max(res, 1e-300), 1e-4), 0.5)
             e, _ = gmres(A, r64.to(kit.dtype), torch.zeros_like(b), tol=tol_c,
                          restart=restart, maxiter=restart * 2, M=precond,
-                         flat_kernels=flat)
+                         flat_kernels=flat, allreduce=allreduce)
             x64 = x64 + e.to(torch.float64)
             r64 = b64 - A64(x64)
-            res = vector_norm(r64) / b_norm
+            res = vector_norm(r64, allreduce) / b_norm
         x = x64.to(kit.dtype)
 
     C_new = torch.where(op.unknown, torch.clamp(x, 0.0, cfg.C_solid_init), C_old)
@@ -265,7 +295,8 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
 
 def compute_adaptive_dt(state: State, op: ImplicitOperator, kit: Kit) -> torch.Tensor:
     """Adaptive dt from per-solid time-to-threshold
-    (pd_ard_implicit.cpp:438-489); a 0-d tensor of the run dtype."""
+    (pd_ard_implicit.cpp:438-489); a 0-d tensor of the run dtype. Under a
+    mesh the least time-to-threshold is the minimum over the ranks."""
     cfg = kit.cfg
     MC = matvec_M(op, kit, state.C)
 
@@ -275,7 +306,8 @@ def compute_adaptive_dt(state: State, op: ImplicitOperator, kit: Kit) -> torch.T
     t_phase = (state.C - cfg.C_thresh) / torch.clamp(rate, min=1e-30)
     t_phase = torch.where(eligible & (t_phase > 0.0) & (rate >= 1e-30),
                           t_phase, cfg.implicit_dt_max)
-    min_t = torch.clamp(t_phase.min(), max=cfg.implicit_dt_max)
+    min_t = torch.clamp(all_reduce(kit, t_phase.min(), "min"),
+                        max=cfg.implicit_dt_max)
     dt = cfg.implicit_dt_fraction * min_t
     dt = torch.clamp(dt, max=cfg.implicit_dt_max)
     return torch.clamp(dt, min=cfg.implicit_dt_max * cfg.implicit_dt_min_frac)

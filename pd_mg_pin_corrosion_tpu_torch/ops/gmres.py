@@ -35,9 +35,14 @@ from ..kernels import (basis_axpy, basis_axpy_plain, basis_dots,
                        basis_dots_plain, pitched_basis)
 
 
-def vector_norm(x: torch.Tensor) -> float:
-    """2-norm as a Python float (float64 accumulation)."""
-    return float(torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64))
+def vector_norm(x: torch.Tensor, allreduce=None) -> float:
+    """2-norm as a Python float (float64 accumulation); with ``allreduce``
+    (a mesh's float64 sum) the norm of the vector split over the ranks."""
+    if allreduce is None:
+        return float(torch.linalg.vector_norm(x.reshape(-1),
+                                              dtype=torch.float64))
+    x64 = x.reshape(-1).to(torch.float64)
+    return float(torch.sqrt(allreduce(torch.dot(x64, x64))))
 
 
 def _givens(hcol: np.ndarray, cs: np.ndarray, sn: np.ndarray, j: int):
@@ -65,17 +70,26 @@ def _back_substitute(R: np.ndarray, g: np.ndarray, n: int) -> np.ndarray:
 
 
 def gmres(A, b, x0, *, tol: float, restart: int, maxiter: int, M=None,
-          flat_kernels: bool = False):
+          flat_kernels: bool = False, allreduce=None):
     """Solve A x = b. Returns (x, (residual, n_cycles)) with the relative
     residual ||b - A x|| / ||b|| as a float.
 
     A: linear operator (function), M: right preconditioner (function).
     ``maxiter`` counts total inner iterations as in Eigen
     (pd_ard_implicit.cpp:399-401): cycles = ceil(maxiter / restart).
+    ``allreduce`` sums a float64 tensor over the ranks of a mesh whose
+    ranks each hold a slab of the vectors: every dot (CGS2 coefficients,
+    norms) is the local ``basis_dots`` summed by it before its
+    ``basis_axpy``, so every rank takes the same Arnoldi steps.
     """
     if M is None:
         M = lambda v: v  # noqa: E731
     dots = basis_dots if flat_kernels else basis_dots_plain
+    if allreduce is not None:
+        local_dots = dots
+
+        def dots(V, w):
+            return allreduce(local_dots(V, w))
     axpy = basis_axpy if flat_kernels else basis_axpy_plain
     shape = b.shape
     m = restart

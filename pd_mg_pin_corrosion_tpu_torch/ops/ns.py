@@ -15,6 +15,7 @@ from ..fields import State
 from ..grid import FLUID
 from ..kernels import ns2d, ns2d_plain, ns3d, ns3d_plain
 from ..kit import Kit
+from ..parallel.sharding import all_reduce
 
 
 def tait_pressure(rho: torch.Tensor, kit: Kit) -> torch.Tensor:
@@ -32,9 +33,12 @@ def vel_magnitude(vel: torch.Tensor) -> torch.Tensor:
 
 
 def fluid_vmax(state: State, kit: Kit) -> torch.Tensor:
-    """max |v| over FLUID nodes (pd_ns.cpp:52-62)."""
+    """max |v| over FLUID nodes (pd_ns.cpp:52-62); under a mesh the
+    maximum over the ranks (exact in any order, so dt is the single
+    rank's)."""
     fluid = state.node_type == FLUID
-    return torch.where(fluid, vel_magnitude(state.vel), 0.0).max()
+    return all_reduce(kit, torch.where(fluid, vel_magnitude(state.vel),
+                                       0.0).max(), "max")
 
 
 def compute_dt(state: State, kit: Kit) -> torch.Tensor:

@@ -25,6 +25,7 @@ from .fields import State
 from .grid import FLUID
 from .kit import Kit
 from .ops.ns import vel_magnitude
+from .parallel.sharding import all_reduce
 
 
 def _channel_flow_corrections(state: State, kit: Kit) -> State:
@@ -55,13 +56,17 @@ def _pre_bcs(st: State, kit, ops) -> State:
 
 def _check(st_bc: State, st_new: State, kit):
     """(eps, v_max, rho_min, rho_max, converged-if-past-100, diverged),
-    computed on the device in the run dtype and read in ONE transfer."""
+    computed on the device in the run dtype and read in ONE transfer.
+    Under a mesh the sums of eps and the extremes are reduced over the
+    ranks first (the extremes exactly; eps rounds as the ranks' order of
+    sums does)."""
     cfg = kit.cfg
     fluid = st_bc.node_type == FLUID
     f2 = fluid[..., None]
     dv = st_new.vel - st_bc.vel
     num = torch.where(f2, dv * dv, 0.0).sum()
     den = torch.where(f2, st_bc.vel * st_bc.vel, 0.0).sum()
+    num, den = all_reduce(kit, (num, den))
     eps = torch.where(den > 1e-30,
                       torch.sqrt(num / torch.clamp(den, min=1e-300)),
                       torch.sqrt(num))
@@ -69,7 +74,10 @@ def _check(st_bc: State, st_new: State, kit):
     has_nan = (torch.where(f2, torch.isnan(st_new.vel), False).any()
                | torch.where(fluid, torch.isnan(st_new.rho), False).any())
     rho_fl = torch.where(fluid, st_new.rho, cfg.rho_f)
-    flags = torch.stack([eps, v_max, rho_fl.min(), rho_fl.max(),
+    v_max, has_nan, rho_max = all_reduce(
+        kit, (v_max, has_nan, rho_fl.max()), "max")
+    rho_min = all_reduce(kit, rho_fl.min(), "min")
+    flags = torch.stack([eps, v_max, rho_min, rho_max,
                          (eps < cfg.flow_conv_tol).to(eps.dtype),
                          (has_nan | (v_max > 100.0 * cfg.U_in)).to(eps.dtype)])
     e, vm, rmin, rmax, conv, div = flags.tolist()

@@ -1012,3 +1012,99 @@ def test_extrapolated_start_runs_on_cuda_equal_cpu(tmp_path):
     np.testing.assert_array_equal(g["solid_nodes"], c["solid_nodes"])
     for col in ("time_s", "pin_mass_loss_pct", "v_max", "C_max_fluid"):
         np.testing.assert_allclose(g[col], c[col], rtol=1e-4, err_msg=col)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: two ranks on this one card over gloo (halos staged through
+# pinned host memory), each running the kernels on its extended slab
+
+def _seeded_arrays(grid, cfg, seed):
+    """Initial fields with perturbed FLUID velocities and a developed C, as
+    numpy arrays by field name (the ranks build their state from them)."""
+    st = initialize_state(grid, cfg, device="cpu")
+    h = {k: v.numpy().copy() for k, v in vars(st).items()}
+    rng = np.random.default_rng(seed)
+    fluid = h["node_type"] == 0
+    h["vel"] = np.where(fluid[..., None],
+                        h["vel"] + rng.normal(0, 0.05, h["vel"].shape),
+                        h["vel"]).astype(np.float32)
+    h["C"] = np.where(h["node_type"] == 1, 1.0,
+                      0.3 * rng.random(fluid.shape)).astype(np.float32)
+    return h
+
+
+def _mesh_case(cfg):
+    from pd_mg_pin_corrosion_tpu_torch.grid import pad_grid_axial
+
+    _card()
+    kernels.build.load()    # built once, before the ranks load it
+    grid = pad_grid_axial(build_grid(cfg), 2)
+    return grid, _seeded_arrays(grid, cfg, 5)
+
+
+def _one_rank(grid, cfg, arrays):
+    from pd_mg_pin_corrosion_tpu_torch import state_from_numpy
+
+    kit = build_kit(grid, cfg, device="cuda")
+    return kit, state_from_numpy(arrays, device="cuda")
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_ns_step_sharded_on_the_card_is_bitwise(dim):
+    """ns2d / ns3d on each rank's extended slab, between two wall BCs:
+    the single rank's kernel bits, and the kernel launched on every rank."""
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.parallel import checks
+    from pd_mg_pin_corrosion_tpu_torch.parallel.launch import spawn
+
+    if dim == 2:
+        cfg = Config.load(PARITY)
+        cfg.apply_overrides(["precision=f32"])
+    else:
+        cfg = _cfg3d()
+    grid, arrays = _mesh_case(cfg)
+    out = spawn(checks.batch, 2, "gloo", "cuda", [
+        (checks.ns_steps, (grid, cfg, 1e-8, True, arrays)),
+        (checks.kernel_launches, ())])
+    kit, st = _one_rank(grid, cfg, arrays)
+    ops = ops_for(kit)
+    st = ops.apply_wall_bc(st, kit)
+    n0 = kernels.launch_counts()[f"ns{dim}d"]
+    st = ops.apply_wall_bc(ops.ns_step(st, kit, 1e-8), kit)
+    assert kernels.launch_counts()[f"ns{dim}d"] == n0 + 1
+    rho, vel = out[0][0]
+    assert np.array_equal(rho, st.rho.cpu().numpy())
+    assert np.array_equal(vel, st.vel.cpu().numpy())
+    assert all(r[1][f"ns{dim}d"] == 1 for r in out)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_matvec_M_sharded_on_the_card_is_bitwise(dim):
+    """matvec2d, and matvec3d over each rank's packed f32 and bf16 weights
+    (packed on its extended slab at assembly), against one rank's."""
+    from pd_mg_pin_corrosion_tpu_torch.parallel import checks
+    from pd_mg_pin_corrosion_tpu_torch.parallel.launch import spawn
+
+    if dim == 2:
+        cfg = Config.load(PARITY)
+        cfg.apply_overrides(["precision=f32"])
+    else:
+        cfg = _cfg3d()
+    grid, arrays = _mesh_case(cfg)
+    out = spawn(checks.batch, 2, "gloo", "cuda", [
+        (checks.matvecs, (grid, cfg, arrays)),
+        (checks.kernel_launches, ())])
+    kit, st = _one_rank(grid, cfg, arrays)
+    op = ai.assemble(st, kit)
+    x = st.C + 0.3 * kit.v_pois
+    want = [ai.matvec_M(op, kit, x)]
+    if dim == 3:
+        want += [ai.matvec_M(op, kit, x, op.W16), ai.matvec_M(op, kit, x)]
+    for got, y in zip(out[0][0], want):
+        assert np.array_equal(got, y.cpu().numpy())
+    for r in out:
+        counts = r[1]
+        if dim == 2:
+            assert counts["matvec2d"] == 1
+        else:
+            assert counts["matvec3d"] == 2 and counts["matvec3d_bf16"] == 1

@@ -1,10 +1,11 @@
 """The port's public constructors put their tensors on the card unless the
 caller asks for the CPU: ``build_kit``, ``amr_blocks.build_bkit``,
 ``unstructured.build_ukit``, ``initialize_state`` and ``state_from_numpy``
-default to CUDA. Without a card they raise
-``DeviceUnavailable``, whose message names ``device="cpu"``; they never fall
-back to the CPU quietly. Whether there is a card is decided inside each
-test (on the card the same calls must give CUDA tensors)."""
+default to CUDA, and so does a mesh (``parallel.sharding.make_mesh``,
+whose device ``shard_kit`` and ``shard_state`` use). Without a card they
+raise ``DeviceUnavailable``, whose message names ``device="cpu"``; they
+never fall back to the CPU quietly. Whether there is a card is decided
+inside each test (on the card the same calls must give CUDA tensors)."""
 
 import os
 
@@ -94,3 +95,45 @@ def test_the_cpu_state_is_the_numpy_round_trip(small):
     assert all(torch.equal(a, b) for a, b in zip(st.tensors(),
                                                   again.tensors()))
     assert np.array_equal(again.node_type.numpy(), grid.node_type)
+
+
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A gloo process group of one rank in this process."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_make_mesh_asks_for_cuda_by_default(one_rank_group):
+    from pd_mg_pin_corrosion_tpu_torch.parallel.sharding import make_mesh
+
+    if torch.cuda.is_available():
+        assert make_mesh(1, backend="gloo").device.type == "cuda"
+    else:
+        with pytest.raises(DeviceUnavailable, match='device="cpu"'):
+            make_mesh(1, backend="gloo")
+    assert make_mesh(1, backend="gloo", device="cpu").device.type == "cpu"
+
+
+def test_shard_kit_and_state_on_the_mesh_device(small, one_rank_group):
+    from pd_mg_pin_corrosion_tpu_torch.parallel.sharding import (
+        Mesh, make_mesh, shard_kit, shard_state)
+
+    cfg, grid = small
+    kit = build_kit(grid, cfg, device="cpu")
+    st = initialize_state(grid, cfg, device="cpu")
+    mesh = make_mesh(1, backend="gloo", device="cpu")
+    sk = shard_kit(kit, mesh)
+    assert all(t.device.type == "cpu" for t in _tensors(sk))
+    assert all(t.device.type == "cpu" for t in shard_state(st, mesh).tensors())
+    if not torch.cuda.is_available():
+        card = Mesh(rank=0, size=1, group=None, backend="gloo",
+                    device=torch.device("cuda"))
+        with pytest.raises(DeviceUnavailable, match='device="cpu"'):
+            shard_kit(kit, card)
