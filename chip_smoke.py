@@ -137,6 +137,24 @@ argument all of them run, in this order):
    rank resumes it for two steps. Prints ms per flow iteration and per
    implicit step of each rank beside one rank's, and each rank's
    launches (``launches_per_rank`` in the JSON line).
+17. ``flowgraph``, the flow solve's CUDA graph (``solvers.FlowRunner``)
+   on the four flows it serves (FLOW_CASES: the fine-calibration grid,
+   the flagship, params_amr.cfg's blocks and its gather grid; the kits
+   and seeded states of the kernels, kernels3d and amr phases when they
+   ran): FLOWGRAPH_ITERS capped iterations on the eager route
+   (``solve_steady(..., eager=True)``) and on the graph route from one
+   state, which must agree bit for bit (rho, vel, C), in (iters, eps,
+   conv, div) and in launch counts, with replays on the graph route
+   only; then ms per iteration between checks by each route (windows of
+   FLOWGRAPH_WINDOW iterations, eager, graph, graph, eager), host records
+   per iteration (a replay must be one), the work a replay stands for,
+   the busy share in a profiler window, the capture's ms and the graph
+   pool's bytes.
+
+Every CLI run on the card prints its flow iterations by route
+(``[flow]`` lines: graph replays, eager iterations, captures); the main
+paths' checks and every CUDA-against-CPU run (but gs_parity's, whose host
+sweeps keep it on the eager route) fail when the flow replayed no graph.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -146,7 +164,9 @@ or without the repository beside it.
 """
 
 import contextlib
+import dataclasses
 import importlib.util
+import io
 import json
 import math
 import os
@@ -309,9 +329,21 @@ SHARD_CAPS = [f"flow_max_iters={SHARD_FLOW_ITERS}", "T_final=150",
               "corrosion_steps_per_check=5", "checkpoint_every=1"]
 SHARD_RESUME_T_FINAL = 210
 SEED = 20261016
+# flowgraph: FLOWGRAPH_ITERS capped flow iterations of each flow the CUDA
+# graph serves (name: configuration, overrides, nodes), from one seeded
+# state, on the eager route and on the graph's; timing and profiler
+# windows of FLOWGRAPH_WINDOW iterations between checks
+FLOWGRAPH_ITERS = 1000
+FLOWGRAPH_WINDOW = 200
+FLOW_CASES = {"fine": (FINE, (), 196_749),
+              "flagship": (FLAGSHIP, (), 1_055_668),
+              "amr": (AMR_CFG, (), 39_920),
+              "amrg": (AMR_CFG, ("amr_backend=gather",), 38_976)}
+# (kit, seeded state) of a flow case, left by the phase that built it
+FLOW_KITS = {}
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
-          "calib", "parity", "shard")
+          "calib", "parity", "shard", "flowgraph")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -403,7 +435,8 @@ def device_launches(fn, calls=20):
     kernel records: in a process that has run for minutes a window loses a
     growing share of its kernel records (none at all in the calib pass of
     a whole run; scripts/profiler_windows_torch.py), while every launch
-    record stays."""
+    record stays. A replay of a CUDA graph is one record
+    (cudaGraphLaunch), whatever the graph holds."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -412,9 +445,15 @@ def device_launches(fn, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return round(sum(e.name.startswith("cu") and any(
-        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy"))
-        for e in prof.events()) / calls)
+    return round(launch_records(prof) / calls)
+
+
+def launch_records(prof):
+    """The host's records of enqueued device work in a profiler window."""
+    return sum(e.name.startswith("cu") and any(
+        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy",
+                              "GraphLaunch"))
+        for e in prof.events())
 
 
 def seeded(rng, shape, scale=1.0, dtype=torch.float32):
@@ -610,6 +649,7 @@ def phase_kernels(pkg):
                          st.vel)
     st.C = torch.where(solid, 1.0 - 0.2 * torch.tensor(
         rng.random(kit.shape), dtype=torch.float32, device="cuda"), 0.0)
+    FLOW_KITS["fine"] = (kit, dataclasses.replace(st))
     n = grid.N_total
     nt_p = kit.pad(st.node_type, pkg.OUTSIDE)
     results = {}
@@ -904,6 +944,8 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
                          st.vel)
     st.C = torch.where(st.node_type == 1, 1.0 - 0.2 * torch.tensor(
         rng.random(kit.shape), dtype=torch.float32, device="cuda"), 0.0)
+    if tag == "kernels3d":
+        FLOW_KITS["flagship"] = (kit, dataclasses.replace(st))
     results = {}
     record = recorder(tag, results, calls=10)
 
@@ -1131,6 +1173,9 @@ def run_cli(out_dir, args):
     with open(os.path.join(out_dir, "run.log"), "w") as log, \
             contextlib.redirect_stdout(log):
         solver = cli.run(args + [f"output_dir={out_dir}/out"])
+    g = solver.flow_graph
+    print(f"[flow] {os.path.basename(out_dir)}: {g['replays']} graph "
+          f"replays, {g['eager']} eager iterations, {g['captures']} captures")
     return solver, np.atleast_1d(np.genfromtxt(
         f"{out_dir}/out/diagnostics.csv", delimiter=",", names=True))
 
@@ -1194,6 +1239,9 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
                         args + ["--device", "cuda"])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    # the graph route on the card but for gs_parity's host sweeps
+    if not solver.flow_graph["replays"] and "gs_parity=1" not in args:
+        fail(f"{name}: the CUDA run's flow replayed no CUDA graph")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
@@ -1231,6 +1279,7 @@ def phase_main(tmp):
           f"C_max_fluid={last['C_max_fluid']:.6e}")
 
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "a complete cycle (flow solve, assemble, >= 5 steps, phase change)":
             solver.flow_solve_count >= 1 and len(solver.cycle_steps) >= 1
             and solver.cycle_steps[0] >= 5,
@@ -1333,6 +1382,7 @@ def phase_main3d(tmp):
           f"{last['pin_mass_loss_pct']:.6e} % solid={int(last['solid_nodes'])} "
           f"v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
         "it stopped where the banked run's did (6,500 iterations, eps "
@@ -1444,6 +1494,7 @@ def phase_warm3d(tmp, cold):
           f"{peak / 2**30:.2f} GiB; wall {wall:.2f} s")
     print(f"[warm3d] launches {json.dumps(counts)}")
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the coarse solve converged": c_conv == "True",
         "the fine solve converged": bool(conv),
         "fewer fine iterations than the cold solve's": iters < cold_iters,
@@ -1502,6 +1553,7 @@ def phase_explicit3d(tmp):
     print(f"[explicit3d] launches {json.dumps(counts)}")
     last = rows[-1]
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "a few hundred explicit steps in one chunk":
             steps >= 100 and len(chunks) == 1
             and solver.total_implicit_steps == 0,
@@ -1630,6 +1682,7 @@ def phase_explicit(tmp):
           f"{last['pin_mass_loss_pct']:.6e} % solid={int(last['solid_nodes'])} "
           f"v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "at least one whole cycle of explicit steps":
             steps >= 1000 and solver.total_implicit_steps == 0,
         "ard2d launched once per explicit step": counts["ard2d"] == steps,
@@ -1697,7 +1750,13 @@ def seeded_state(pkg, cfg, grid, grains, device="cuda"):
     FICTITIOUS rho and vel perturbed and C seeded (SOLID near 1, FLUID up
     to 0.92: some FLUID nodes reach C_sat and salt-block their SOLID
     neighbours)."""
-    st = pkg.initialize_state(grid, cfg, grains=grains, device=device)
+    return perturbed(pkg, cfg, pkg.initialize_state(grid, cfg, grains=grains,
+                                                    device=device))
+
+
+def perturbed(pkg, cfg, st):
+    """seeded_state's perturbation of the state ``st``."""
+    device = st.rho.device
     rng = np.random.default_rng(SEED)
     moving = (st.node_type == pkg.FLUID) | (st.node_type == pkg.FICTITIOUS)
     st.rho = torch.where(moving, st.rho + seeded(rng, st.rho.shape, 0.01),
@@ -1842,6 +1901,7 @@ def amr_kernels(pkg):
     grid = ab.build_amr_block_grid(cfg)
     bkit = ab.build_bkit(grid, cfg, device="cuda")
     st = seeded_state(pkg, cfg, grid, ab.generate_grains_b(grid, cfg))
+    FLOW_KITS["amr"] = (bkit, dataclasses.replace(st))
     results = {}
     record = recorder("amr", results)
     other = torch.empty_like(st.vel)
@@ -1927,6 +1987,7 @@ def phase_amr(tmp, pkg):
           f"cold): same times {same_t}, max rel diff {json.dumps(diffs)}")
     print(f"[amr] launches {json.dumps(counts)}")
     checks = {
+        "the flow replayed its CUDA graph": warm.flow_graph["replays"] > 0,
         "coarse iterations within 10 % of 49,800":
             abs(c_iters - AMR_WARM_ITERS[0]) <= AMR_WARM_GATE * AMR_WARM_ITERS[0],
         "fine iterations within 10 % of 9,300":
@@ -2010,6 +2071,7 @@ def phase_amrg(tmp):
           f"{last['pin_mass_loss_pct']:.6e} % solid={int(last['solid_nodes'])}"
           f" v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the run printed the JAX package's AMR line": AMRG_LINE in log,
         "both path kernels launched": all(counts[k] > 0 for k in PATH_AMRG),
         "no GMRES non-convergence warning": solver.gmres_warnings == 0
@@ -2076,6 +2138,7 @@ def calib_point(tmp, tag, label, run, bank, path):
             diffs[name] = float(np.abs(rows[:, col] / ref[:, col] - 1).max())
     step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps, 1)
     rate = solver.flow_iters / max(solver.flow_seconds, 1e-9)
+    print(f"[flow] {tag}: {json.dumps(solver.flow_graph)}")
     print(f"[calib] {tag} {label}: {len(rows)} rows, flow solves "
           f"{solver.flow_results} at {rate:.1f} iterations/s, "
           f"{solver.total_implicit_steps} implicit steps at {step_ms:.3f} ms, "
@@ -2084,6 +2147,7 @@ def calib_point(tmp, tag, label, run, bank, path):
           f"rows: max rel diff {json.dumps(diffs)} (gates "
           f"{json.dumps(BANKED_GATES)})")
     checks = {
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the initial flow solve converged": bool(solver.flow_results)
             and bool(solver.flow_results[0][2]),
         "20 rows, all finite": len(rows) == 20 and bool(
@@ -2352,6 +2416,131 @@ def phase_parity(tmp):
         fail("parity.cfg gs_parity f64 on CUDA vs the reference binary")
 
 
+def flow_case(pkg, name):
+    """(kit, seeded state) of a FLOW_CASES flow: the one an earlier phase
+    left in FLOW_KITS, or built here (``cli.build``, then
+    ``perturbed``)."""
+    from pd_mg_pin_corrosion_tpu_torch import cli
+
+    if name in FLOW_KITS:
+        return FLOW_KITS.pop(name)
+    path, overrides, _ = FLOW_CASES[name]
+    cfg = pkg.Config.load(path)
+    cfg.apply_overrides(list(overrides))
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, kit, st = cli.build(cfg, torch.device("cuda"))
+    return kit, perturbed(pkg, cfg, st)
+
+
+def busy_window(fn, units):
+    """(device busy ms, device ops, host launch records) per unit in a
+    torch.profiler window of fn() (``units`` units); busy None when the
+    window holds no device record."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in ev)
+    return ((us * 1e-3 / units if ev else None), len(ev) / units,
+            launch_records(prof) / units)
+
+
+def phase_flowgraph(pkg):
+    """Phase flowgraph: each FLOW_CASES flow, FLOWGRAPH_ITERS iterations
+    capped, from one seeded state on the eager route (``eager=True``) and
+    on the graph route: rho, vel and C bit for bit, the same (iters, eps,
+    conv, div) and launch counts, replays > 0 on the graph route. Then, on
+    the solve's final state, windows of FLOWGRAPH_WINDOW iterations between
+    checks by each route (eager, graph, graph, eager): ms per iteration by
+    the host clock; then one profiler window of each route: host launch
+    records per iteration (``launch_records``; one replay stands for the
+    eager route's), device busy share and ops per iteration; the
+    capture's ms and the graph pool's bytes."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels, solvers
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    ok = True
+    for name, (*_, nodes) in FLOW_CASES.items():
+        kit, st = flow_case(pkg, name)
+        run = solvers.runner_for(kit)
+        out = {}
+        for eager in (True, False):
+            kernels.reset_launch_counts()
+            solvers.reset_flow_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = solvers.solve_steady(st, kit, max_iters=FLOWGRAPH_ITERS,
+                                     eager=eager)
+            torch.cuda.synchronize()
+            f = solvers.FLOW_COUNTS
+            out[eager] = (r, time.time() - t0, f["replays"], f["eager"],
+                          kernels.launch_counts())
+        (e, e_s, e_rep, e_eag, e_n), (g, g_s, g_rep, g_eag, g_n) = (
+            out[True], out[False])
+        same = all(torch.equal(bits(getattr(e[0], f)), bits(getattr(g[0], f)))
+                   for f in ("rho", "vel", "C"))
+        checks = {
+            "rho, vel and C bit for bit": same,
+            "the same (iters, eps, conv, div)": repr(e[1:]) == repr(g[1:]),
+            "the same launch counts": e_n == g_n,
+            "the graph route replayed, the eager one did not":
+                g_rep > 0 and e_rep == 0 and run.graph_route,
+            "every iteration ran": e_rep + e_eag == g_rep + g_eag
+                == min(e[1], FLOWGRAPH_ITERS),
+        }
+        print(f"[flowgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
+              f"{FLOWGRAPH_ITERS} iterations capped -> (iters, eps, conv, "
+              f"div) {e[1:]} eager / {g[1:]} graphed; eager route {e_eag} "
+              f"eager iterations, {e_s:.3f} s; graph route {g_rep} replays "
+              f"+ {g_eag} eager, {g_s:.3f} s (the capture included); "
+              f"capture {run.capture_ms:.1f} ms, graph pool "
+              f"{run.pool_bytes} B; a replay stands for launches "
+              f"{json.dumps(run.launches)}")
+
+        # windows between checks, on this solve's final state
+        run.load(g[0], kit)
+        n = FLOWGRAPH_WINDOW
+        walls = {True: [], False: []}
+        for graphed in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(n):
+                run.step(kit, graphed)
+            torch.cuda.synchronize()
+            walls[graphed].append(1e3 * (time.time() - t0) / n)
+        busy = {g: busy_window(lambda g=g: [run.step(kit, g)
+                                            for _ in range(n)], n)
+                for g in (False, True)}
+        for graphed in (False, True):
+            ms = statistics.median(walls[graphed])
+            b, ops, rec = busy[graphed]
+            share = "not measured" if b is None else f"{100 * b / ms:.1f} %"
+            print(f"[flowgraph] {name} {'graph' if graphed else 'eager'} "
+                  f"route: {ms:.4f} ms an iteration (windows "
+                  f"{', '.join(f'{w:.4f}' for w in walls[graphed])}), "
+                  f"{rec:.2f} host records an iteration"
+                  f"{f' standing for {busy[False][2]:.2f}' if graphed else ''}"
+                  f", device busy "
+                  f"{'not measured' if b is None else f'{b:.4f} ms'} "
+                  f"({share}), {ops:.1f} device ops an iteration")
+        checks["a replay is one host record"] = busy[True][2] == 1
+        for what, good in checks.items():
+            print(f"[flowgraph] {name} check {what}: "
+                  f"{'ok' if good else 'FAILED'}")
+        ok = ok and all(checks.values())
+        del kit, st, run, out, e, g
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("flowgraph checks")
+
+
 def kernel_label(line):
     """The kernel's name and template arguments (integers, bools and the
     f32 / f64 / bf16 types) from the mangled name in a ptxas line: the
@@ -2432,7 +2621,8 @@ def main():
                 ("amr3d", lambda: phase_amr3d(tmp)),
                 ("calib", lambda: phase_calib(tmp, pkg)),
                 ("parity", lambda: phase_parity(tmp)),
-                ("shard", lambda: phase_shard(tmp, pkg))):
+                ("shard", lambda: phase_shard(tmp, pkg)),
+                ("flowgraph", lambda: phase_flowgraph(pkg))):
             if name not in phases:
                 continue
             out = timed(name, run)

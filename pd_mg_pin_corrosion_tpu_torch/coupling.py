@@ -48,7 +48,8 @@ from .grid import FLUID, SOLID_MG
 from .io_vtk import VTKWriter
 from .ops.ns import vel_magnitude
 from .parallel.sharding import all_reduce, gather_state, own_rows
-from .solvers import coarse_warm_start, poiseuille_l2_error, solve_steady
+from .solvers import (FLOW_COUNTS, coarse_warm_start, poiseuille_l2_error,
+                      solve_steady)
 
 # the two CSVs (coupling.cpp:55-80): file name, header, seconds per unit of
 # the first column
@@ -150,6 +151,9 @@ class CoupledSolver:
         self.explicit_seconds = 0.0
         self.cycle_steps = []     # implicit steps of each coupling cycle
         self.flow_results = []    # (iters, eps, converged, diverged) per solve
+        # flow iterations of this run by route (solvers.FLOW_COUNTS: graph
+        # replays, eager iterations, captures), the warm start's included
+        self.flow_graph = dict.fromkeys(FLOW_COUNTS, 0)
         self.final_state = None
 
     # ------------------------------------------------------------------
@@ -259,6 +263,9 @@ class CoupledSolver:
             acc += s
         print(f"    {'(untimed)':16s} {total - acc:9.2f} s  "
               f"({100.0 * (total - acc) / total:5.1f} %)")
+        g = self.flow_graph
+        print(f"  [Timer] flow iterations: {g['replays']} graph replays, "
+              f"{g['eager']} eager, {g['captures']} captures")
 
     # ------------------------------------------------------------------
     def _implicit_cycle(self, cfg, grid, state, kit, t_corr, gmres_tol):
@@ -348,6 +355,7 @@ class CoupledSolver:
     def run(self, grid, state: State, kit, cfg) -> State:
         ops = ops_for(kit)
         t_start = time.time()
+        flow_at_start = dict(FLOW_COUNTS)
         self._prof = bool(os.environ.get("PD_TPU_PHASE_TIMERS"))
         self._device = kit.device
         self._mesh = getattr(kit, "mesh", None)
@@ -506,6 +514,8 @@ class CoupledSolver:
         print(f"  Final time: {t_corr:.1f} s ({t_corr / 3600.0:.2f} h)")
         total = time.time() - t_start
         print(f"  [Timer] total_simulation: {total:.3f} s")
+        self.flow_graph = {k: FLOW_COUNTS[k] - n
+                           for k, n in flow_at_start.items()}
         self._report_phases(total)
         self.final_state = state
         return state

@@ -6,7 +6,9 @@ plain version, CUDA float32 tensors launch the kernel or raise — there is no
 fallback that hides a failed build or launch. Each wrapper counts its own
 launches in a plain integer attribute, ``wrapper.launches`` (per weight
 type or form where one wrapper launches several instantiations of its
-kernel: ``KernelInfo.counter``).
+kernel: ``KernelInfo.counter``). A replay of a captured CUDA graph
+(``solvers.FlowRunner``) adds the launches its capture recorded
+(``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -88,3 +90,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         setattr(k.wrapper, k.counter, 0)
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({name: launches}) to the wrappers' counters: what a
+    replay of a CUDA graph launched, which no wrapper saw."""
+    for k in KERNELS:
+        n = counts.get(k.name)
+        if n:
+            setattr(k.wrapper, k.counter, getattr(k.wrapper, k.counter) + n)

@@ -653,7 +653,11 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
     (a process that has run for minutes loses some device records,
     scripts/profiler_windows_torch.py), among them those of the port's
     kernels: ns2d in the flow solve, matvec2d and the basis kernels in
-    the implicit steps."""
+    the implicit steps. The flow's iterations between checks replay a
+    CUDA graph: a replay is one launch record (cudaGraphLaunch) whose
+    kernel records carry its correlation id, the same number for every
+    replay; the launch records made while the graph was captured ran no
+    kernel."""
     _card()
     import subprocess
     import sys
@@ -676,9 +680,28 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
               for k, fn in (
         ("ns2d", "ns2d_kernel"), ("matvec2d", "matvec2d_kernel"),
         ("basis_dots", "dots_kernel"), ("basis_axpy", "axpy_kernel"))}
+    per_corr = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            c = e.get("args", {}).get("correlation")
+            per_corr[c] = per_corr.get(c, 0) + 1
+    runtime = [(e.get("name", ""), e.get("args", {}).get("correlation"))
+               for e in events if e.get("cat") == "cuda_runtime"]
+    kernel_launches = [c for n, c in runtime if "LaunchKernel" in n]
+    replays = [c for n, c in runtime if "GraphLaunch" in n]
+    per_replay = {per_corr.get(c, 0) for c in replays}
+    # launch records that ran no kernel: those made during the capture
+    captured = sum(c not in per_corr for c in kernel_launches)
     print(f"port kernels traced {traced}; {len(names)} kernel records, "
-          f"{launched} launch records")
-    assert len(names) == launched
+          f"{launched} launch records ({captured} without a kernel), "
+          f"{len(replays)} graph launches of {per_replay} kernel records "
+          f"each")
+    assert replays and len(per_replay) == 1, per_replay
+    (k,) = per_replay
+    assert k > 0 and captured == k
+    assert set(per_corr) <= set(kernel_launches) | set(replays)
+    assert all(per_corr[c] == 1 for c in kernel_launches if c in per_corr)
+    assert len(names) == launched - k + len(replays) * k
     assert all(n > 0 for n in traced.values()), traced
 
 
@@ -1108,3 +1131,91 @@ def test_matvec_M_sharded_on_the_card_is_bitwise(dim):
             assert counts["matvec2d"] == 1
         else:
             assert counts["matvec3d"] == 2 and counts["matvec3d_bf16"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the flow solve's CUDA graph (solvers.FlowRunner)
+# ---------------------------------------------------------------------------
+
+def _flow_case(case):
+    """(kit, state) on the card of a flow the graph serves: parity.cfg 2D,
+    the 8,303-node 3D grid, params_amr.cfg's blocks or its gather grid;
+    velocities (and rho) perturbed."""
+    if case == "parity":
+        cfg = Config.load(PARITY)
+        cfg.apply_overrides(["precision=f32"])
+        grid = build_grid(cfg)
+        kit = build_kit(grid, cfg, device="cuda")
+        st = initialize_state(grid, cfg, device="cuda")
+        fluid = st.node_type == 0
+        st.vel = torch.where(fluid[..., None], st.vel + torch.tensor(
+            np.random.default_rng(3).normal(0, 0.01, st.vel.shape),
+            dtype=torch.float32, device="cuda"), st.vel)
+        return kit, st
+    if case == "grid3d":
+        return _small3d_on("cuda")[2:]
+    if case == "blocks":
+        return _amr_on("cuda", seed_C=False)[1:]
+    return _gather_on("cuda")[1:]
+
+
+def _flow_bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("case", ["parity", "grid3d", "blocks", "gather"])
+def test_flow_graph_equals_the_eager_route(case):
+    """250 flow iterations (checks 1-10, 100 and 200, the dt refresh at
+    200) on the graph route and on the eager route from one state: every
+    field bit for bit, the same (iters, eps, conv, div) and launch counts,
+    replays only on the graph route. A second graphed solve from a state
+    with other node types and C reuses the graph (no new capture) and
+    still equals the eager route."""
+    from pd_mg_pin_corrosion_tpu_torch import solvers
+
+    _card()
+    kit, st = _flow_case(case)
+    run = solvers.runner_for(kit)
+    assert run.graph_route
+
+    def both(state):
+        out = {}
+        for eager in (True, False):
+            n0 = kernels.launch_counts()
+            solvers.reset_flow_counts()
+            r = solvers.solve_steady(state, kit, max_iters=250, eager=eager)
+            f = solvers.FLOW_COUNTS
+            out[eager] = (r, f["replays"], f["eager"], {
+                k: v - n0[k] for k, v in kernels.launch_counts().items()})
+        (e, e_rep, e_eag, e_n), (g, g_rep, g_eag, g_n) = out[True], out[False]
+        assert repr(e[1:]) == repr(g[1:])
+        for a, b in zip(e[0].tensors(), g[0].tensors()):
+            assert torch.equal(_flow_bits(a), _flow_bits(b))
+        assert e_n == g_n and e_rep == 0 and g_rep > 0
+        assert e_rep + e_eag == g_rep + g_eag == min(e[1], 250)
+        return g[0]
+
+    out = both(st)
+    graph = run.graph
+    nt = out.node_type.clone()
+    solid = (nt == 1).reshape(-1).nonzero().reshape(-1)[:5]
+    nt.view(-1)[solid] = 0
+    both(dataclasses.replace(out, node_type=nt, C=out.C * 0.9))
+    assert run.graph is graph
+
+
+def test_flow_graph_route_is_the_cards_alone():
+    """gs_parity (host sweeps every call) and the CPU take the eager
+    route; a uniform kit on the card the graph's."""
+    from pd_mg_pin_corrosion_tpu_torch import solvers
+
+    _card()
+    cfg = Config.load(PARITY)
+    cfg.apply_overrides(["precision=f32", "gs_parity=1"])
+    grid = build_grid(cfg)
+    assert not solvers.FlowRunner(build_kit(grid, cfg, device="cuda")
+                                  ).graph_route
+    assert not solvers.FlowRunner(build_kit(grid, cfg, device="cpu")
+                                  ).graph_route
+    cfg.apply_overrides(["gs_parity=0"])
+    assert solvers.FlowRunner(build_kit(grid, cfg, device="cuda")).graph_route
