@@ -150,11 +150,28 @@ argument all of them run, in this order):
    per iteration (a replay must be one), the work a replay stands for,
    the busy share in a profiler window, the capture's ms and the graph
    pool's bytes.
+18. ``gmresgraph``, GMRES's Arnoldi steps as CUDA graphs
+   (``ops.gmres.GmresRunner``) on the implicit steps of the same four
+   grids, from the seeded state after FLOWGRAPH_ITERS flow iterations
+   (flowgraph's kits and solves, when it ran): GMRESGRAPH_STEPS
+   implicit steps from that state and its operator on the eager route
+   (``eager=True``) and on the graph route, which must agree bit for bit
+   in C and every residual, in Arnoldi steps, cycles and launch counts,
+   with replays on the graph route only and at most one first capture a
+   step index; a second operator (the state after them, phase changed)
+   the same, reusing the graphs; then, on the steps that follow the
+   first ones, ms per implicit step by route (windows of
+   GMRESGRAPH_WINDOW steps), host records per implicit and
+   per Arnoldi step, the busy share in a profiler window, Arnoldi steps
+   per implicit step, the captures' ms and the graph pool's bytes.
 
 Every CLI run on the card prints its flow iterations by route
-(``[flow]`` lines: graph replays, eager iterations, captures); the main
-paths' checks and every CUDA-against-CPU run (but gs_parity's, whose host
-sweeps keep it on the eager route) fail when the flow replayed no graph.
+(``[flow]`` lines: graph replays, eager iterations, captures) and its
+Arnoldi steps (``[gmres]`` lines: replays, eager steps, captures,
+recaptures, cycles); the main paths' checks and every CUDA-against-CPU
+run (but gs_parity's, whose host sweeps keep its flow on the eager
+route) fail when the flow replayed no graph, and every implicit one when
+its Arnoldi steps replayed none.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -335,15 +352,22 @@ SEED = 20261016
 # windows of FLOWGRAPH_WINDOW iterations between checks
 FLOWGRAPH_ITERS = 1000
 FLOWGRAPH_WINDOW = 200
+# gmresgraph: implicit steps of each of those grids on each route from one
+# seeded, assembled state; timing and profiler windows of
+# GMRESGRAPH_WINDOW implicit steps
+GMRESGRAPH_STEPS = 5
+GMRESGRAPH_WINDOW = 3
 FLOW_CASES = {"fine": (FINE, (), 196_749),
               "flagship": (FLAGSHIP, (), 1_055_668),
               "amr": (AMR_CFG, (), 39_920),
               "amrg": (AMR_CFG, ("amr_backend=gather",), 38_976)}
-# (kit, seeded state) of a flow case, left by the phase that built it
+# (kit, seeded state) of a flow case, left by the phase that built it,
+# and the state after flowgraph's capped solve from it
 FLOW_KITS = {}
+FLOWED = {}
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
-          "calib", "parity", "shard", "flowgraph")
+          "calib", "parity", "shard", "flowgraph", "gmresgraph")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -1165,6 +1189,14 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
     return results
 
 
+def print_gmres(tag, solver):
+    """The ``[gmres]`` line of a run: its Arnoldi steps by route."""
+    g = solver.gmres_graph
+    print(f"[gmres] {tag}: {g['replays']} graph replays, {g['eager']} eager "
+          f"Arnoldi steps, {g['captures']} captures ({g['recaptures']} "
+          f"recaptures), {g['cycles']} GMRES cycles")
+
+
 def run_cli(out_dir, args):
     """cli.run with its console output kept in out_dir/run.log."""
     from pd_mg_pin_corrosion_tpu_torch import cli
@@ -1176,6 +1208,7 @@ def run_cli(out_dir, args):
     g = solver.flow_graph
     print(f"[flow] {os.path.basename(out_dir)}: {g['replays']} graph "
           f"replays, {g['eager']} eager iterations, {g['captures']} captures")
+    print_gmres(os.path.basename(out_dir), solver)
     return solver, np.atleast_1d(np.genfromtxt(
         f"{out_dir}/out/diagnostics.csv", delimiter=",", names=True))
 
@@ -1242,6 +1275,8 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
     # the graph route on the card but for gs_parity's host sweeps
     if not solver.flow_graph["replays"] and "gs_parity=1" not in args:
         fail(f"{name}: the CUDA run's flow replayed no CUDA graph")
+    if not solver.gmres_graph["replays"] and "use_implicit=0" not in args:
+        fail(f"{name}: the CUDA run's Arnoldi steps replayed no CUDA graph")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
@@ -1280,6 +1315,8 @@ def phase_main(tmp):
 
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            solver.gmres_graph["replays"] > 0,
         "a complete cycle (flow solve, assemble, >= 5 steps, phase change)":
             solver.flow_solve_count >= 1 and len(solver.cycle_steps) >= 1
             and solver.cycle_steps[0] >= 5,
@@ -1383,6 +1420,8 @@ def phase_main3d(tmp):
           f"v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            solver.gmres_graph["replays"] > 0,
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
         "it stopped where the banked run's did (6,500 iterations, eps "
@@ -1495,6 +1534,8 @@ def phase_warm3d(tmp, cold):
     print(f"[warm3d] launches {json.dumps(counts)}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            solver.gmres_graph["replays"] > 0,
         "the coarse solve converged": c_conv == "True",
         "the fine solve converged": bool(conv),
         "fewer fine iterations than the cold solve's": iters < cold_iters,
@@ -1988,6 +2029,8 @@ def phase_amr(tmp, pkg):
     print(f"[amr] launches {json.dumps(counts)}")
     checks = {
         "the flow replayed its CUDA graph": warm.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            warm.gmres_graph["replays"] > 0,
         "coarse iterations within 10 % of 49,800":
             abs(c_iters - AMR_WARM_ITERS[0]) <= AMR_WARM_GATE * AMR_WARM_ITERS[0],
         "fine iterations within 10 % of 9,300":
@@ -2072,6 +2115,8 @@ def phase_amrg(tmp):
           f" v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            solver.gmres_graph["replays"] > 0,
         "the run printed the JAX package's AMR line": AMRG_LINE in log,
         "both path kernels launched": all(counts[k] > 0 for k in PATH_AMRG),
         "no GMRES non-convergence warning": solver.gmres_warnings == 0
@@ -2139,6 +2184,7 @@ def calib_point(tmp, tag, label, run, bank, path):
     step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps, 1)
     rate = solver.flow_iters / max(solver.flow_seconds, 1e-9)
     print(f"[flow] {tag}: {json.dumps(solver.flow_graph)}")
+    print_gmres(tag, solver)
     print(f"[calib] {tag} {label}: {len(rows)} rows, flow solves "
           f"{solver.flow_results} at {rate:.1f} iterations/s, "
           f"{solver.total_implicit_steps} implicit steps at {step_ms:.3f} ms, "
@@ -2148,6 +2194,8 @@ def calib_point(tmp, tag, label, run, bank, path):
           f"{json.dumps(BANKED_GATES)})")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the Arnoldi steps replayed CUDA graphs":
+            solver.gmres_graph["replays"] > 0,
         "the initial flow solve converged": bool(solver.flow_results)
             and bool(solver.flow_results[0][2]),
         "20 rows, all finite": len(rows) == 20 and bool(
@@ -2535,10 +2583,170 @@ def phase_flowgraph(pkg):
             print(f"[flowgraph] {name} check {what}: "
                   f"{'ok' if good else 'FAILED'}")
         ok = ok and all(checks.values())
+        FLOW_KITS[name] = (kit, st)     # for gmresgraph
+        FLOWED[name] = g[0]
         del kit, st, run, out, e, g
         torch.cuda.empty_cache()
     if not ok:
         fail("flowgraph checks")
+
+
+def phase_gmresgraph(pkg):
+    """Phase gmresgraph: GMRES's Arnoldi steps as CUDA graphs
+    (``ops.gmres.GmresRunner``) on the implicit steps of each FLOW_CASES
+    grid, from its seeded state after FLOWGRAPH_ITERS flow iterations
+    (flowgraph's solve, or one here) and the operator assembled on it:
+    GMRESGRAPH_STEPS implicit steps (``coupling.implicit_inner_step``) on
+    the eager route (``eager=True``) and on the graph route, which must
+    agree bit for bit in C and in every residual, in Arnoldi steps,
+    cycles and launch counts, with replays on the graph route only and at
+    most one first capture per step index of the restart length; then the
+    operator of the phase-changed state after those steps, two steps a
+    route, the same checks, and the graphs reused (new captures only for
+    step indices not captured before, besides the counted recaptures of a
+    packed store that outgrew its buffers). Then, on the first operator
+    from the state after its steps, windows of GMRESGRAPH_WINDOW implicit
+    steps by route (eager, graph, graph, eager, eager, graph): ms per implicit step by the host clock
+    (the median window); one profiler window a route: host launch records
+    and device busy per implicit step, and per Arnoldi step; the captures'
+    ms and the graph pool's bytes."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels, solvers
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def steps(state, op, kit, eager, n):
+        res = []
+        for _ in range(n):
+            state, _, _, r, _ = coupling.implicit_inner_step(state, op, kit,
+                                                             eager=eager)
+            res.append(r)
+        return state, res
+
+    def both_routes(state, op, kit, n):
+        out = {}
+        for eager in (True, False):
+            kernels.reset_launch_counts()
+            gmres.reset_gmres_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st_n, res = steps(state, op, kit, eager, n)
+            torch.cuda.synchronize()
+            out[eager] = (st_n, res, time.time() - t0,
+                          dict(gmres.GMRES_COUNTS), kernels.launch_counts())
+        return out
+
+    def route_checks(out):
+        (e, e_res, _, e_c, e_n), (g, g_res, _, g_c, g_n) = out[True], out[False]
+        return {
+            "C bit for bit": torch.equal(bits(e.C), bits(g.C)),
+            "the same residuals": repr(e_res) == repr(g_res),
+            "the same Arnoldi steps and cycles":
+                e_c["eager"] == g_c["eager"] + g_c["replays"]
+                and e_c["cycles"] == g_c["cycles"],
+            "the same launch counts": e_n == g_n,
+            "replays on the graph route only":
+                g_c["replays"] > 0 and e_c["replays"] == e_c["captures"] == 0,
+        }
+
+    ok = True
+    for name, (*_, nodes) in FLOW_CASES.items():
+        kit, st = flow_case(pkg, name)
+        st = FLOWED.pop(name, None) or solvers.solve_steady(
+            st, kit, max_iters=FLOWGRAPH_ITERS)[0]
+        ops = ops_for(kit)
+        run = gmres.runner_for(kit)
+        restart = 25 if kit.dtype == torch.float32 else 50
+        n = GMRESGRAPH_STEPS
+        t0 = time.time()
+        op = ops.assemble(st, kit, coupling.volume_loss_fraction(st, kit))
+        torch.cuda.synchronize()
+        assemble_s = time.time() - t0
+        out = both_routes(st, op, kit, n)
+        checks = {f"first operator: {k}": v
+                  for k, v in route_checks(out).items()}
+        (e, e_res, e_s, e_c, _), (_, _, g_s, g_c, _) = out[True], out[False]
+        first = set(run.graphs)
+        checks["at most one first capture a step index"] = (
+            run.graph_route and g_c["captures"] - g_c["recaptures"]
+            <= restart and len(run.captured) <= restart)
+        print(f"[gmresgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
+              f"{n} implicit steps from the seeded state after "
+              f"{FLOWGRAPH_ITERS} flow iterations (operator "
+              f"assembled in {assemble_s:.3f} s); eager route {e_c}, "
+              f"{e_s:.3f} s; graph route {g_c}, {g_s:.3f} s (its captures "
+              f"included); residuals {e_res}")
+
+        # a second operator: the state after those steps, phase changed
+        st2, n_dis = ops.apply_phase_change(e, kit)
+        op2 = ops.assemble(st2, kit, coupling.volume_loss_fraction(st2,
+                                                                     kit))
+        growths, before = run.growths, set(run.captured)
+        out2 = both_routes(st2, op2, kit, 2)
+        checks.update({f"second operator: {k}": v
+                       for k, v in route_checks(out2).items()})
+        g2, held = out2[False][3], set(run.graphs)
+        if run.growths > growths:
+            # the graphs went with the outgrown buffers: each step index
+            # reached is captured once more, counted as a recapture
+            reused = (g2["captures"] == len(held)
+                      and g2["recaptures"] == len(held & before))
+        else:
+            reused = (g2["captures"] == len(held - first)
+                      and g2["recaptures"] == 0)
+        checks["the second operator reused the graphs"] = reused
+        print(f"[gmresgraph] {name} second operator ({int(n_dis)} nodes "
+              f"dissolved): eager {out2[True][3]}, graph {g2}; buffers "
+              f"grown {run.growths - growths}; graphs held "
+              f"{len(run.graphs)}")
+
+        # windows on the first operator from the state after its steps:
+        # the steady steps of a run, past the seeded state's first one
+        w = GMRESGRAPH_WINDOW
+        steps(e, op, kit, False, 1)    # the first operator reloaded
+        walls = {True: [], False: []}
+        arnoldi = {}
+        for eager in (True, False, False, True, True, False):
+            gmres.reset_gmres_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            steps(e, op, kit, eager, w)
+            torch.cuda.synchronize()
+            walls[eager].append(1e3 * (time.time() - t0) / w)
+            c = gmres.GMRES_COUNTS
+            arnoldi[eager] = (c["replays"] + c["eager"]) / w
+        busy = {eager: busy_window(lambda eager=eager: steps(
+            e, op, kit, eager, w), w) for eager in (True, False)}
+        for eager in (True, False):
+            ms = statistics.median(walls[eager])
+            b, dev_ops, rec = busy[eager]
+            share = "not measured" if b is None else f"{100 * b / ms:.1f} %"
+            print(f"[gmresgraph] {name} {'eager' if eager else 'graph'} "
+                  f"route: {ms:.4f} ms an implicit step (windows "
+                  f"{', '.join(f'{x:.4f}' for x in walls[eager])}), "
+                  f"{arnoldi[eager]:.2f} Arnoldi steps an implicit step, "
+                  f"{rec:.1f} host records an implicit step "
+                  f"({rec / max(arnoldi[eager], 1e-9):.2f} an Arnoldi "
+                  f"step), device busy "
+                  f"{'not measured' if b is None else f'{b:.4f} ms'} "
+                  f"({share}), {dev_ops:.1f} device ops an implicit step")
+        checks["the graph route takes fewer host records"] = (
+            busy[False][2] < busy[True][2])
+        print(f"[gmresgraph] {name}: {len(run.graphs)} graphs, "
+              f"{len(run.captured)} step indices captured, capture "
+              f"{run.capture_ms:.1f} ms in all "
+              f"({run.capture_ms / max(len(run.captured), 1):.1f} ms a "
+              f"graph), graph pool {run.pool_bytes} B")
+        for what, good in checks.items():
+            print(f"[gmresgraph] {name} check {what}: "
+                  f"{'ok' if good else 'FAILED'}")
+        ok = ok and all(checks.values())
+        del kit, st, run, out, out2, e, op, op2, st2
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("gmresgraph checks")
 
 
 def kernel_label(line):
@@ -2622,7 +2830,8 @@ def main():
                 ("calib", lambda: phase_calib(tmp, pkg)),
                 ("parity", lambda: phase_parity(tmp)),
                 ("shard", lambda: phase_shard(tmp, pkg)),
-                ("flowgraph", lambda: phase_flowgraph(pkg))):
+                ("flowgraph", lambda: phase_flowgraph(pkg)),
+                ("gmresgraph", lambda: phase_gmresgraph(pkg))):
             if name not in phases:
                 continue
             out = timed(name, run)

@@ -597,32 +597,36 @@ def _matvec_M64(op: ImplicitOperatorB, kit: BKit, x64: torch.Tensor):
 
 def implicit_step(state: State, op: ImplicitOperatorB, kit: BKit, dt,
                   tol: float | None = None, restart: int = 50,
-                  maxiter: int = 200, x0=None):
+                  maxiter: int = 200, x0=None, eager: bool = False):
     """``idw_implicit_step`` over the blocks' operator (matvec2d / matvec3d
     on the card in float32)."""
     return idw_implicit_step(
-        state, op, kit, dt, lambda x: matvec_M(op, kit, x),
-        lambda x64: _matvec_M64(op, kit, x64),
-        (kit.fict_idx, kit.fict_src, kit.fict_w), tol, restart, maxiter, x0)
+        state, op, kit, dt, lambda o, x: matvec_M(o, kit, x),
+        lambda o, x64: _matvec_M64(o, kit, x64),
+        (kit.fict_idx, kit.fict_src, kit.fict_w), tol, restart, maxiter, x0,
+        eager)
 
 
 def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
                       tol: float | None = None, restart: int = 50,
-                      maxiter: int = 200, x0=None):
+                      maxiter: int = 200, x0=None, eager: bool = False):
     """The implicit step of both AMR backends: solve (I - dt M) x = b with
     identity BC rows and the IDW constraint rows x_f - sum_k w_k x_src = 0
     (pd_ard_implicit.cpp:371-429, 500-535); b is C on every row but the
-    constraint rows, where it is 0. ``M(x)`` is M x in the run dtype and
-    ``M64(x64)`` in float64 over the same weights, both 0 off the
+    constraint rows, where it is 0. ``M(op, x)`` is M x in the run dtype
+    and ``M64(op, x64)`` in float64 over the same weights, both 0 off the
     ``op.unknown`` rows; ``fict`` = (idx [Nf], src [Nf, K], w [Nf, K]) the
     constraint rows. Jacobi plus two Neumann sweeps through the whole
     operator precondition it. float32 runs solve to the inner tolerance
     max(tol, 1e-4) with GMRES(25), then up to two float64 refinement
     passes, as the uniform grid's step does. ``x0``
     (implicit_extrapolate_x0) starts GMRES from x0 clipped to
-    [0, C_solid_init] on the unknown rows and C elsewhere. Returns
+    [0, C_solid_init] on the unknown rows and C elsewhere. The operator,
+    dt and the Jacobi scaling are read from the kit's ``GmresRunner``
+    buffers, so the Arnoldi steps replay CUDA graphs on the card;
+    ``eager`` calls them directly instead (the same bits). Returns
     (new_state, residual as a float)."""
-    from .ops.gmres import gmres, vector_norm
+    from .ops.gmres import gmres, runner_for, vector_norm
 
     cfg = kit.cfg
     f32 = kit.dtype == torch.float32
@@ -631,7 +635,10 @@ def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
     inner_tol = max(tol, 1e-4) if f32 else tol
     if f32:
         restart = min(restart, 25)
-    dt = torch.as_tensor(dt, dtype=kit.dtype, device=kit.device)
+    run = runner_for(kit)
+    op = run.load(op)
+    dt = run.put("dt", torch.as_tensor(dt, dtype=kit.dtype,
+                                       device=kit.device))
     C_old = state.C
     idx, src2, fict_w = fict
     src = src2.reshape(-1)
@@ -643,9 +650,10 @@ def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
         return y.index_copy(0, idx, row.to(y.dtype))
 
     def A(x):
-        return constrain(torch.where(op.unknown, x - dt * M(x), x), x, fict_w)
+        return constrain(torch.where(op.unknown, x - dt * M(op, x), x), x,
+                         fict_w)
 
-    inv_diag = 1.0 / (1.0 - dt * op.diag)
+    inv_diag = run.put("inv_diag", 1.0 / (1.0 - dt * op.diag))
 
     def jacobi(x):
         return torch.where(op.unknown, x * inv_diag, x)
@@ -656,11 +664,12 @@ def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
             y = y + jacobi(x - A(y))
         return y
 
+    solve = dict(restart=restart, M=precond, flat_kernels=f32, runner=run,
+                 graphed=run.graph_route and not eager)
     b = torch.where(op.fict, 0.0, C_old)
     x0 = C_old if x0 is None else torch.where(
         op.unknown, torch.clamp(x0, 0.0, cfg.C_solid_init), C_old)
-    x, (res, _) = gmres(A, b, x0, tol=inner_tol, restart=restart,
-                        maxiter=maxiter, M=precond, flat_kernels=f32)
+    x, (res, _) = gmres(A, b, x0, tol=inner_tol, maxiter=maxiter, **solve)
 
     if f32:
         # mixed-precision refinement: the residual with the f64 operator
@@ -669,7 +678,7 @@ def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
         fw64 = fict_w.to(torch.float64)
 
         def A64(x64):
-            y = torch.where(op.unknown, x64 - dt64 * M64(x64), x64)
+            y = torch.where(op.unknown, x64 - dt64 * M64(op, x64), x64)
             return constrain(y, x64, fw64)
 
         b64 = b.to(torch.float64)
@@ -682,8 +691,7 @@ def idw_implicit_step(state: State, op, kit, dt, M, M64, fict,
                 break
             tol_c = min(max(0.5 * tol / max(res, 1e-300), 1e-4), 0.5)
             e, _ = gmres(A, r64.to(kit.dtype), torch.zeros_like(b), tol=tol_c,
-                         restart=restart, maxiter=restart * 2, M=precond,
-                         flat_kernels=f32)
+                         maxiter=restart * 2, **solve)
             x64 = x64 + e.to(torch.float64)
             r64 = b64 - A64(x64)
             res = vector_norm(r64) / b_norm

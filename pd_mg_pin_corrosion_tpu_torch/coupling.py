@@ -46,6 +46,8 @@ from .dispatch import is_block, ops_for
 from .fields import State
 from .grid import FLUID, SOLID_MG
 from .io_vtk import VTKWriter
+from .ops.gmres import GMRES_COUNTS
+from .ops.gmres import runner_for as gmres_runner_for
 from .ops.ns import vel_magnitude
 from .parallel.sharding import all_reduce, gather_state, own_rows
 from .solvers import (FLOW_COUNTS, coarse_warm_start, poiseuille_l2_error,
@@ -91,19 +93,21 @@ def assemble(state: State, kit, vol_loss):
     return ops_for(kit).assemble(state, kit, vol_loss)
 
 
-def implicit_inner_step(state: State, op, kit, C_prev=None):
+def implicit_inner_step(state: State, op, kit, C_prev=None,
+                        eager: bool = False):
     """One implicit corrosion step: adaptive dt -> BCs -> GMRES ->
     smoothing -> fictitious refresh (AMR) -> dissolution count +
     diagnostics (coupling.cpp:174-212). ``C_prev``, C before the previous
     step (implicit_extrapolate_x0), starts GMRES from 2 C - C_prev, C taken
-    after the BCs (JAX coupling.py:95-98)."""
+    after the BCs (JAX coupling.py:95-98). ``eager`` runs GMRES's Arnoldi
+    steps directly rather than as graph replays (the same bits)."""
     ops = ops_for(kit)
     dt = ops.compute_adaptive_dt(state, op, kit)
     state = ops.apply_inlet_bc(state, kit)
     state = ops.apply_outlet_bc(state, kit)
     state = ops.apply_wall_concentration_bc(state, kit)
     x0 = None if C_prev is None else 2.0 * state.C - C_prev
-    state, res = ops.implicit_step(state, op, kit, dt, x0=x0)
+    state, res = ops.implicit_step(state, op, kit, dt, x0=x0, eager=eager)
     state = ops.smooth_boundary_concentration(state, kit)
     state = ops.update_fictitious(state, kit)
     n_below = all_reduce(kit, ((state.node_type == SOLID_MG)
@@ -154,6 +158,9 @@ class CoupledSolver:
         # flow iterations of this run by route (solvers.FLOW_COUNTS: graph
         # replays, eager iterations, captures), the warm start's included
         self.flow_graph = dict.fromkeys(FLOW_COUNTS, 0)
+        # GMRES's Arnoldi steps of this run by route (gmres.GMRES_COUNTS:
+        # graph replays, eager steps, captures, recaptures, restart cycles)
+        self.gmres_graph = dict.fromkeys(GMRES_COUNTS, 0)
         self.final_state = None
 
     # ------------------------------------------------------------------
@@ -266,6 +273,10 @@ class CoupledSolver:
         g = self.flow_graph
         print(f"  [Timer] flow iterations: {g['replays']} graph replays, "
               f"{g['eager']} eager, {g['captures']} captures")
+        g = self.gmres_graph
+        print(f"  [Timer] Arnoldi steps: {g['replays']} graph replays, "
+              f"{g['eager']} eager, {g['captures']} captures "
+              f"({g['recaptures']} recaptures), {g['cycles']} GMRES cycles")
 
     # ------------------------------------------------------------------
     def _implicit_cycle(self, cfg, grid, state, kit, t_corr, gmres_tol):
@@ -274,6 +285,8 @@ class CoupledSolver:
         Returns (state, t_corr)."""
         t_ph = time.time()
         op = assemble(state, kit, volume_loss_fraction(state, kit))
+        # the operator into the static buffers GMRES's graphs read
+        gmres_runner_for(kit).load(op)
         self.assemble_seconds += time.time() - t_ph
         self._phase("assemble", t_ph, fence=True)
 
@@ -356,6 +369,7 @@ class CoupledSolver:
         ops = ops_for(kit)
         t_start = time.time()
         flow_at_start = dict(FLOW_COUNTS)
+        gmres_at_start = dict(GMRES_COUNTS)
         self._prof = bool(os.environ.get("PD_TPU_PHASE_TIMERS"))
         self._device = kit.device
         self._mesh = getattr(kit, "mesh", None)
@@ -516,6 +530,8 @@ class CoupledSolver:
         print(f"  [Timer] total_simulation: {total:.3f} s")
         self.flow_graph = {k: FLOW_COUNTS[k] - n
                            for k, n in flow_at_start.items()}
+        self.gmres_graph = {k: GMRES_COUNTS[k] - n
+                            for k, n in gmres_at_start.items()}
         self._report_phases(total)
         self.final_state = state
         return state

@@ -7,8 +7,8 @@ fallback that hides a failed build or launch. Each wrapper counts its own
 launches in a plain integer attribute, ``wrapper.launches`` (per weight
 type or form where one wrapper launches several instantiations of its
 kernel: ``KernelInfo.counter``). A replay of a captured CUDA graph
-(``solvers.FlowRunner``) adds the launches its capture recorded
-(``add_launch_counts``).
+(``solvers.FlowRunner``, ``ops.gmres.GmresRunner``) adds the launches its
+capture recorded (``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from .ard2d import (ard2d, ard2d_geometry, ard2d_plain, ard2d_staged_plain,
                     ard2d_staging)
 from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
                     basis_dots_plain, basis_dots_walk_plain, dots_grid,
-                    pitched_basis)
+                    pitched_basis, reserve_dots_scratch)
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
                        matvec3d_plain, pack_stencil, slots3d_f64,

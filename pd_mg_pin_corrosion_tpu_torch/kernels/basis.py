@@ -136,18 +136,37 @@ def basis_dots_walk_plain(V, w, sms: int = 132):
 # (partial, ticket) of basis_dots, one pair per (device, stream): calls on
 # one stream run one after the other, so they can share it
 _dots_scratch: dict = {}
+# (device, stream) pairs whose scratch CUDA graphs read, and the scratch
+# such a stream outgrew: kept, since a graph captured before still reads it
+_pinned: set = set()
+_retired: list = []
 
 
 def _scratch(device, stream_ptr: int, rows: int, blocks: int):
     key = (device.index, stream_ptr)
     pair = _dots_scratch.get(key)
     if pair is None or pair[0].numel() < rows * blocks:
+        if pair is not None and key in _pinned:
+            _retired.append(pair)
         ticket = (torch.zeros(1, dtype=torch.int32, device=device)
                   if pair is None else pair[1])
         pair = (torch.empty(max(rows, 32) * blocks, dtype=torch.float64,
                             device=device), ticket)
         _dots_scratch[key] = pair
     return pair
+
+
+def reserve_dots_scratch(device, stream_ptr: int, rows: int) -> None:
+    """Size basis_dots' scratch on the stream ``stream_ptr`` for up to
+    ``rows`` rows at any vector length (the most blocks a launch takes on
+    this card) and pin it: a graph captured on that stream keeps its
+    address, so a later call that needs more (a runner of another kit
+    handed the same stream from PyTorch's pool, with a longer basis) gets
+    a new scratch and the old one is kept, never freed. The ticket
+    resets itself at the end of every call, so replays may follow each
+    other."""
+    _scratch(device, stream_ptr, rows, _sm_count(device.index) * _DOTS_WAVES)
+    _pinned.add((device.index, stream_ptr))
 
 
 def basis_dots(V, w):

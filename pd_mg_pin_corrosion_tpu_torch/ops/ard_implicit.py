@@ -40,7 +40,7 @@ from ..kernels import (PackedStencil, matvec2d, matvec2d_plain, matvec3d,
 from ..kit import Kit
 from ..parallel.sharding import all_reduce, reducer
 from .ard import compute_salt_blocked, micro_d_factor, solid_diffusivity
-from .gmres import gmres, vector_norm
+from .gmres import gmres, runner_for, vector_norm
 
 
 @dataclass
@@ -207,7 +207,7 @@ def matvec_M64(op: ImplicitOperator, kit: Kit, x64: torch.Tensor) -> torch.Tenso
 
 def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
                   tol: float | None = None, restart: int = 50,
-                  maxiter: int = 200, x0=None):
+                  maxiter: int = 200, x0=None, eager: bool = False):
     """Solve (I - dt*M) C_new = C_old with GMRES (pd_ard_implicit.cpp:371-429).
 
     Returns (new_state, residual as a float). BC rows are identity with
@@ -216,7 +216,10 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
     ``x0`` (implicit_extrapolate_x0, e.g. 2 C_n - C_{n-1}) starts GMRES
     from x0 clipped to [0, C_solid_init] on the unknown rows and C_old on
     the BC rows: the solve reaches the same tolerance, in fewer Arnoldi
-    steps when the start is better.
+    steps when the start is better. The operator, dt and the Jacobi
+    scaling are read from the kit's ``GmresRunner`` buffers, so its
+    Arnoldi steps replay CUDA graphs on the card; ``eager`` calls them
+    directly instead (the same bits).
     """
     cfg = kit.cfg
     f32 = kit.dtype == torch.float32
@@ -227,7 +230,10 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
     if f32 and restart == 50:
         # shorter cycles keep the f32 Krylov basis well-conditioned
         restart = 25
-    dt = torch.as_tensor(dt, dtype=kit.dtype, device=kit.device)
+    run = runner_for(kit)
+    op = run.load(op)
+    dt = run.put("dt", torch.as_tensor(dt, dtype=kit.dtype,
+                                       device=kit.device))
     C_old = state.C
     # under a mesh, GMRES's dots and the norms are summed over the ranks
     allreduce = reducer(kit)
@@ -240,7 +246,7 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
     # f32) it runs 4 sweeps over that copy: at the 1M-node flagship shape
     # the deeper sweep halves the Arnoldi steps and the bf16 stream halves
     # what each sweep costs (JAX ard_implicit.py:295-303); else 2 sweeps.
-    inv_diag = 1.0 / (1.0 - dt * op.diag)
+    inv_diag = run.put("inv_diag", 1.0 / (1.0 - dt * op.diag))
     sweeps = 2 if op.W16 is None else 4
 
     def jacobi(x):
@@ -253,13 +259,13 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
         return y
 
     # the basis kernels take float32; float64 runs use the plain contractions
-    flat = f32
+    solve = dict(restart=restart, M=precond, flat_kernels=f32,
+                 allreduce=allreduce, runner=run,
+                 graphed=run.graph_route and not eager)
     b = C_old
     x0 = C_old if x0 is None else torch.where(
         op.unknown, torch.clamp(x0, 0.0, cfg.C_solid_init), C_old)
-    x, (res, _) = gmres(A, b, x0, tol=inner_tol, restart=restart,
-                        maxiter=maxiter, M=precond, flat_kernels=flat,
-                        allreduce=allreduce)
+    x, (res, _) = gmres(A, b, x0, tol=inner_tol, maxiter=maxiter, **solve)
 
     if refine:
         # Mixed-precision iterative refinement: the f32 residual floors near
@@ -282,8 +288,7 @@ def implicit_step(state: State, op: ImplicitOperator, kit: Kit, dt,
                 break
             tol_c = min(max(0.5 * tol / max(res, 1e-300), 1e-4), 0.5)
             e, _ = gmres(A, r64.to(kit.dtype), torch.zeros_like(b), tol=tol_c,
-                         restart=restart, maxiter=restart * 2, M=precond,
-                         flat_kernels=flat, allreduce=allreduce)
+                         maxiter=restart * 2, **solve)
             x64 = x64 + e.to(torch.float64)
             r64 = b64 - A64(x64)
             res = vector_norm(r64, allreduce) / b_norm

@@ -435,15 +435,16 @@ def _matvec_M64(op: ImplicitOperatorU, kit: UKit, x64: torch.Tensor):
 
 def implicit_step(state: State, op: ImplicitOperatorU, kit: UKit, dt,
                   tol: float | None = None, restart: int = 50,
-                  maxiter: int = 200, x0=None):
+                  maxiter: int = 200, x0=None, eager: bool = False):
     """The AMR implicit step with its IDW constraint rows
     (``amr_blocks.idw_implicit_step``) over the gather operator; GMRES on
     the basis kernels on the card in float32. Returns (new_state,
     residual as a float)."""
     return idw_implicit_step(
-        state, op, kit, dt, lambda x: matvec_M(op, kit, x),
-        lambda x64: _matvec_M64(op, kit, x64),
-        (kit.fict_nodes, kit.fict_src, kit.fict_w), tol, restart, maxiter, x0)
+        state, op, kit, dt, lambda o, x: matvec_M(o, kit, x),
+        lambda o, x64: _matvec_M64(o, kit, x64),
+        (kit.fict_nodes, kit.fict_src, kit.fict_w), tol, restart, maxiter, x0,
+        eager)
 
 
 def compute_adaptive_dt(state: State, op: ImplicitOperatorU, kit: UKit):

@@ -654,22 +654,34 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
     scripts/profiler_windows_torch.py), among them those of the port's
     kernels: ns2d in the flow solve, matvec2d and the basis kernels in
     the implicit steps. The flow's iterations between checks replay a
-    CUDA graph: a replay is one launch record (cudaGraphLaunch) whose
-    kernel records carry its correlation id, the same number for every
-    replay; the launch records made while the graph was captured ran no
-    kernel."""
+    CUDA graph, and so do GMRES's Arnoldi steps (a graph per step index,
+    each the same launch sequence): a replay is one launch record
+    (cudaGraphLaunch) whose kernel records carry its correlation id, the
+    same number for every replay of the flow's graph and for every replay
+    of an Arnoldi graph, as many replays of each as the run's counters
+    (``PD_TPU_PHASE_TIMERS=1``) report; the launch records made while a
+    graph was captured ran no kernel, as many as the captured graphs
+    hold."""
     _card()
     import subprocess
     import sys
+    from collections import Counter
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     prof = tmp_path / "prof"
-    subprocess.run(
+    run = subprocess.run(
         [sys.executable, "-m", "pd_mg_pin_corrosion_tpu_torch", PARITY,
          "precision=f32", "flow_max_iters=100", "T_final=1.2",
          f"output_dir={tmp_path / 'out'}", "--device", "cuda"],
-        cwd=root, env={**os.environ, "PD_TPU_PROFILE": str(prof)},
-        check=True)
+        cwd=root, env={**os.environ, "PD_TPU_PROFILE": str(prof),
+                       "PD_TPU_PHASE_TIMERS": "1"},
+        check=True, capture_output=True, text=True)
+    # (replays, captures) of the flow's graph and of the Arnoldi graphs
+    (fr, fc), (gr, gc) = (
+        (int(m.group(1)), int(m.group(2))) for m in (
+            re.search(rf"\[Timer\] {what}: (\d+) graph replays, \d+ eager, "
+                      rf"(\d+) captures", run.stdout)
+            for what in ("flow iterations", "Arnoldi steps")))
     files = os.listdir(prof)
     assert len(files) == 1
     with open(prof / files[0]) as f:
@@ -689,19 +701,24 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
                for e in events if e.get("cat") == "cuda_runtime"]
     kernel_launches = [c for n, c in runtime if "LaunchKernel" in n]
     replays = [c for n, c in runtime if "GraphLaunch" in n]
-    per_replay = {per_corr.get(c, 0) for c in replays}
-    # launch records that ran no kernel: those made during the capture
+    per_replay = Counter(per_corr.get(c, 0) for c in replays)
+    # launch records that ran no kernel: those made during the captures
     captured = sum(c not in per_corr for c in kernel_launches)
     print(f"port kernels traced {traced}; {len(names)} kernel records, "
           f"{launched} launch records ({captured} without a kernel), "
-          f"{len(replays)} graph launches of {per_replay} kernel records "
-          f"each")
-    assert replays and len(per_replay) == 1, per_replay
-    (k,) = per_replay
-    assert k > 0 and captured == k
+          f"{len(replays)} graph launches by kernel records {per_replay}; "
+          f"flow graph {fr} replays / {fc} captures, Arnoldi graphs {gr} "
+          f"replays / {gc} captures")
+    assert fr > 0 and gr > 0 and fc == 1 and len(replays) == fr + gr
+    # the kernel records of a flow replay (kf) and of an Arnoldi one (kg)
+    assert 0 not in per_replay and len(per_replay) <= 2, per_replay
+    (kf, kg), = [(a, b) for a in per_replay for b in per_replay
+                 if (per_replay[a], per_replay[b]) == (fr, gr)
+                 or a == b and per_replay[a] == fr + gr]
+    assert captured == kf * fc + kg * gc
     assert set(per_corr) <= set(kernel_launches) | set(replays)
     assert all(per_corr[c] == 1 for c in kernel_launches if c in per_corr)
-    assert len(names) == launched - k + len(replays) * k
+    assert len(names) == launched - captured + fr * kf + gr * kg
     assert all(n > 0 for n in traced.values()), traced
 
 
@@ -1141,16 +1158,17 @@ def _flow_case(case):
     """(kit, state) on the card of a flow the graph serves: parity.cfg 2D,
     the 8,303-node 3D grid, params_amr.cfg's blocks or its gather grid;
     velocities (and rho) perturbed."""
-    if case == "parity":
+    if case in ("parity", "parity_f64"):
         cfg = Config.load(PARITY)
-        cfg.apply_overrides(["precision=f32"])
+        cfg.apply_overrides(["precision=f64" if case == "parity_f64"
+                             else "precision=f32"])
         grid = build_grid(cfg)
         kit = build_kit(grid, cfg, device="cuda")
-        st = initialize_state(grid, cfg, device="cuda")
+        st = initialize_state(grid, cfg, dtype=kit.dtype, device="cuda")
         fluid = st.node_type == 0
         st.vel = torch.where(fluid[..., None], st.vel + torch.tensor(
             np.random.default_rng(3).normal(0, 0.01, st.vel.shape),
-            dtype=torch.float32, device="cuda"), st.vel)
+            dtype=st.vel.dtype, device="cuda"), st.vel)
         return kit, st
     if case == "grid3d":
         return _small3d_on("cuda")[2:]
@@ -1219,3 +1237,121 @@ def test_flow_graph_route_is_the_cards_alone():
                                   ).graph_route
     cfg.apply_overrides(["gs_parity=0"])
     assert solvers.FlowRunner(build_kit(grid, cfg, device="cuda")).graph_route
+
+
+# ---------------------------------------------------------------------------
+# GMRES's Arnoldi steps as CUDA graphs (ops.gmres.GmresRunner)
+# ---------------------------------------------------------------------------
+
+def _seeded_C(st):
+    """The state with C seeded: SOLID near 1, FLUID up to 0.92."""
+    u = torch.tensor(np.random.default_rng(4).random(st.C.shape),
+                     dtype=st.C.dtype, device=st.C.device)
+    solid, fluid = st.node_type == 1, st.node_type == 0
+    return dataclasses.replace(st, C=torch.where(
+        solid, 1.0 - 0.2 * u, torch.where(fluid, 0.92 * u, 0.0)))
+
+
+@pytest.mark.parametrize("case", ["parity", "parity_f64", "grid3d",
+                                  "blocks", "gather"])
+def test_gmres_graph_equals_the_eager_route(case):
+    """Three implicit steps from one state with its assembled operator, on
+    the graph route and on the eager route: C and every residual bit for
+    bit, the same Arnoldi steps, cycles and launch counts, replays only on
+    the graph route and at most one capture a step index. A second
+    operator (the state after them, phase changed) reuses the graphs and
+    still equals the eager route."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    _card()
+    kit, st = _flow_case(case)
+    st = _seeded_C(st)
+    ops = ops_for(kit)
+    run = gmres.runner_for(kit)
+    assert run.graph_route
+
+    def both(state, op, n):
+        out = {}
+        for eager in (True, False):
+            n0 = kernels.launch_counts()
+            gmres.reset_gmres_counts()
+            s, res = state, []
+            for _ in range(n):
+                s, _, _, r, _ = coupling.implicit_inner_step(s, op, kit,
+                                                             eager=eager)
+                res.append(r)
+            out[eager] = (s, res, dict(gmres.GMRES_COUNTS), {
+                k: v - n0[k] for k, v in kernels.launch_counts().items()})
+        (e, e_res, e_c, e_n), (g, g_res, g_c, g_n) = out[True], out[False]
+        assert torch.equal(_flow_bits(e.C), _flow_bits(g.C))
+        assert repr(e_res) == repr(g_res) and e_n == g_n
+        assert e_c["replays"] == e_c["captures"] == 0 and g_c["replays"] > 0
+        assert e_c["eager"] == g_c["eager"] + g_c["replays"]
+        assert e_c["cycles"] == g_c["cycles"]
+        return g, g_c
+
+    out, counts = both(st, ops.assemble(st, kit, 0.0), 3)
+    assert counts["captures"] == len(run.graphs) == len(run.captured) <= (
+        25 if kit.dtype == torch.float32 else 50)
+    graphs = dict(run.graphs)
+    st2, _ = ops.apply_phase_change(out, kit)
+    _, counts2 = both(st2, ops.assemble(st2, kit, 0.0), 2)
+    if counts2["recaptures"] == 0:
+        # no packed store outgrew its buffers: the first graphs serve it
+        assert all(run.graphs[j] is g for j, g in graphs.items())
+        assert counts2["captures"] == len(run.graphs) - len(graphs)
+
+
+def test_gmres_graph_replay_is_one_launch_record():
+    """One replay of an Arnoldi step's graph is one host launch record
+    (cudaGraphLaunch) standing for the step's kernels, and it adds the
+    launches its capture recorded to the counters."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    _card()
+    kit, st = _flow_case("parity")
+    st = _seeded_C(st)
+    coupling.implicit_inner_step(st, ops_for(kit).assemble(st, kit, 0.0),
+                                 kit)
+    run = gmres.runner_for(kit)
+    assert 0 in run.graphs and run.launches[0]["matvec2d"] == 3
+    torch.cuda.synchronize()
+    n0 = kernels.launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run.graphs[0].replay()
+        torch.cuda.synchronize()
+    records = [e.name for e in prof.events() if e.name.startswith("cu") and any(
+        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy",
+                              "GraphLaunch"))]
+    assert len(records) == 1 and "GraphLaunch" in records[0]
+    assert kernels.launch_counts() == n0   # a bare replay counts nothing
+
+
+def test_gmres_graph_route_and_device_inv_h():
+    """The graph route is the card's kit off a mesh, but for 3D float64
+    (its dense plain matvec walks rows found by ``nonzero``); 1 / h on the
+    card equals the host's form bit for bit."""
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    _card()
+    cfg = Config.load(PARITY)
+    grid = build_grid(cfg)
+    assert gmres.runner_for(build_kit(grid, cfg, device="cuda")).graph_route
+    assert not gmres.runner_for(build_kit(grid, cfg,
+                                          device="cpu")).graph_route
+    cfg3 = _cfg3d()
+    cfg3.apply_overrides(["precision=f64"])
+    assert not gmres.runner_for(build_kit(build_grid(cfg3), cfg3,
+                                          device="cuda")).graph_route
+    rng = np.random.default_rng(1)
+    h = np.concatenate([[0.0, 1e-31, 1e-30, 1e-300, 5e-324, np.inf, np.nan,
+                         -1.0], 10.0 ** rng.uniform(-40, 40, 20000)])
+    host = np.array([1.0 / max(v, 1e-300) if v > 1e-30 else 0.0 for v in h])
+    dev = gmres.inv_norm(torch.tensor(h, device="cuda")).cpu().numpy()
+    assert np.array_equal(host.view(np.int64), dev.view(np.int64))

@@ -137,3 +137,24 @@ def test_shard_kit_and_state_on_the_mesh_device(small, one_rank_group):
                     device=torch.device("cuda"))
         with pytest.raises(DeviceUnavailable, match='device="cpu"'):
             shard_kit(kit, card)
+
+
+@pytest.mark.parametrize("name", ["build_kit", "build_bkit", "build_ukit"])
+def test_gmres_runner_follows_the_kit_device(small, name):
+    """A kit's GmresRunner keeps its basis on the kit's device and takes
+    the graph route on the card only: on a CPU kit its capture raises
+    DeviceUnavailable rather than running the step on the host."""
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    cfg, grid = small
+    kit = CALLS[name](cfg, grid, device="cpu")
+    run = gmres.GmresRunner()
+    V = run.basis(3, 10, kit.dtype, kit.device)
+    assert V.device.type == "cpu" and run.hcol.device.type == "cpu"
+    assert not gmres.runner_for(kit).graph_route
+    fns = (lambda x: x, lambda x: x, gmres.basis_dots_plain,
+           gmres.basis_axpy_plain, (10,))
+    with pytest.raises(DeviceUnavailable):
+        run.capture(0, fns)
+    if torch.cuda.is_available():
+        assert gmres.runner_for(CALLS[name](cfg, grid)).graph_route

@@ -213,6 +213,8 @@ def test_implicit_step_bits_do_not_depend_on_the_basis_pitch(precision,
         return torch.empty((rows, m), dtype=dtype, device=device)
 
     monkeypatch.setattr(gmres_mod, "pitched_basis", back_to_back)
+    # the kit's runner keeps its basis: a fresh runner makes a new one
+    gmres_mod._runners.pop(tk, None)
     flat, res_flat = t_ai.implicit_step(ts, top, tk, 60.0)
     assert made and all(m == n for _, m in made)
     assert res == res_flat and torch.equal(pitched.C, flat.C)
