@@ -164,14 +164,28 @@ argument all of them run, in this order):
    GMRESGRAPH_WINDOW steps), host records per implicit and
    per Arnoldi step, the busy share in a profiler window, Arnoldi steps
    per implicit step, the captures' ms and the graph pool's bytes.
+19. ``stepgraph``, the whole implicit step as CUDA graphs of its segments
+   around the Arnoldi graphs (``coupling.StepRunner``: the head with the
+   adaptive dt and the BCs, the cycle starts and ends, the refinement's
+   residuals, the tail with the smoothing and the diagnostics) on the same
+   four grids from the same states: STEPGRAPH_STEPS steps of one cycle
+   with the extrapolated start on the eager and on the graph route, which
+   must agree bit for bit in every field and in each step's dt, n_below,
+   residual and diagnostics, in Arnoldi steps, cycles, segments and
+   launch counts, with replays on the graph route only; then windows of
+   STEPGRAPH_WINDOW steps by route: ms per implicit step, host records
+   per implicit step (at most STEPGRAPH_RECORDS besides one a replayed
+   Arnoldi step on the graph route), busy share, the segment graphs'
+   captures, capture ms, graph pool and peak memory.
 
 Every CLI run on the card prints its flow iterations by route
-(``[flow]`` lines: graph replays, eager iterations, captures) and its
+(``[flow]`` lines: graph replays, eager iterations, captures), its
 Arnoldi steps (``[gmres]`` lines: replays, eager steps, captures,
-recaptures, cycles); the main paths' checks and every CUDA-against-CPU
-run (but gs_parity's, whose host sweeps keep its flow on the eager
-route) fail when the flow replayed no graph, and every implicit one when
-its Arnoldi steps replayed none.
+recaptures, cycles, the graphs' kernel nodes) and its implicit steps'
+other segments (``[step]`` lines); the main paths' checks and every CUDA-against-CPU run (but
+gs_parity's, whose host sweeps keep its flow on the eager route) fail
+when the flow replayed no graph, and every implicit one when its Arnoldi
+steps or its step segments replayed none.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -357,6 +371,12 @@ FLOWGRAPH_WINDOW = 200
 # GMRESGRAPH_WINDOW implicit steps
 GMRESGRAPH_STEPS = 5
 GMRESGRAPH_WINDOW = 3
+# stepgraph: implicit steps of one cycle on each route from that state;
+# timing and profiler windows of STEPGRAPH_WINDOW steps; the host records a
+# graphed step may take besides one a replayed Arnoldi step
+STEPGRAPH_STEPS = 5
+STEPGRAPH_WINDOW = 3
+STEPGRAPH_RECORDS = 60
 FLOW_CASES = {"fine": (FINE, (), 196_749),
               "flagship": (FLAGSHIP, (), 1_055_668),
               "amr": (AMR_CFG, (), 39_920),
@@ -367,7 +387,8 @@ FLOW_KITS = {}
 FLOWED = {}
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
-          "calib", "parity", "shard", "flowgraph", "gmresgraph")
+          "calib", "parity", "shard", "flowgraph", "gmresgraph",
+          "stepgraph")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -1190,11 +1211,19 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
 
 
 def print_gmres(tag, solver):
-    """The ``[gmres]`` line of a run: its Arnoldi steps by route."""
+    """The ``[gmres]`` and ``[step]`` lines of a run: its Arnoldi steps and
+    the implicit steps' other segments by route."""
     g = solver.gmres_graph
     print(f"[gmres] {tag}: {g['replays']} graph replays, {g['eager']} eager "
           f"Arnoldi steps, {g['captures']} captures ({g['recaptures']} "
-          f"recaptures), {g['cycles']} GMRES cycles")
+          f"recaptures), {g['cycles']} GMRES cycles, kernel nodes "
+          f"{g['captured_kernels']} captured / {g['replayed_kernels']} "
+          f"replayed")
+    g = solver.step_graph
+    print(f"[step] {tag}: {g['replays']} graph replays, {g['eager']} eager "
+          f"segments, {g['captures']} captures ({g['recaptures']} "
+          f"recaptures), kernel nodes {g['captured_kernels']} captured / "
+          f"{g['replayed_kernels']} replayed")
 
 
 def run_cli(out_dir, args):
@@ -1277,6 +1306,8 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
         fail(f"{name}: the CUDA run's flow replayed no CUDA graph")
     if not solver.gmres_graph["replays"] and "use_implicit=0" not in args:
         fail(f"{name}: the CUDA run's Arnoldi steps replayed no CUDA graph")
+    if not solver.step_graph["replays"] and "use_implicit=0" not in args:
+        fail(f"{name}: the CUDA run's step segments replayed no CUDA graph")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
@@ -1317,6 +1348,8 @@ def phase_main(tmp):
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             solver.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            solver.step_graph["replays"] > 0,
         "a complete cycle (flow solve, assemble, >= 5 steps, phase change)":
             solver.flow_solve_count >= 1 and len(solver.cycle_steps) >= 1
             and solver.cycle_steps[0] >= 5,
@@ -1422,6 +1455,8 @@ def phase_main3d(tmp):
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             solver.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            solver.step_graph["replays"] > 0,
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
         "it stopped where the banked run's did (6,500 iterations, eps "
@@ -1536,6 +1571,8 @@ def phase_warm3d(tmp, cold):
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             solver.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            solver.step_graph["replays"] > 0,
         "the coarse solve converged": c_conv == "True",
         "the fine solve converged": bool(conv),
         "fewer fine iterations than the cold solve's": iters < cold_iters,
@@ -2031,6 +2068,8 @@ def phase_amr(tmp, pkg):
         "the flow replayed its CUDA graph": warm.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             warm.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            warm.step_graph["replays"] > 0,
         "coarse iterations within 10 % of 49,800":
             abs(c_iters - AMR_WARM_ITERS[0]) <= AMR_WARM_GATE * AMR_WARM_ITERS[0],
         "fine iterations within 10 % of 9,300":
@@ -2117,6 +2156,8 @@ def phase_amrg(tmp):
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             solver.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            solver.step_graph["replays"] > 0,
         "the run printed the JAX package's AMR line": AMRG_LINE in log,
         "both path kernels launched": all(counts[k] > 0 for k in PATH_AMRG),
         "no GMRES non-convergence warning": solver.gmres_warnings == 0
@@ -2196,6 +2237,8 @@ def calib_point(tmp, tag, label, run, bank, path):
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
         "the Arnoldi steps replayed CUDA graphs":
             solver.gmres_graph["replays"] > 0,
+        "the step segments replayed CUDA graphs":
+            solver.step_graph["replays"] > 0,
         "the initial flow solve converged": bool(solver.flow_results)
             and bool(solver.flow_results[0][2]),
         "20 rows, all finite": len(rows) == 20 and bool(
@@ -2651,6 +2694,10 @@ def phase_gmresgraph(pkg):
                 g_c["replays"] > 0 and e_c["replays"] == e_c["captures"] == 0,
         }
 
+    def arnoldi_keys(keys):
+        """The Arnoldi steps' among a runner's segment keys."""
+        return {k for k in keys if k[0] == "arnoldi"}
+
     ok = True
     for name, (*_, nodes) in FLOW_CASES.items():
         kit, st = flow_case(pkg, name)
@@ -2668,10 +2715,10 @@ def phase_gmresgraph(pkg):
         checks = {f"first operator: {k}": v
                   for k, v in route_checks(out).items()}
         (e, e_res, e_s, e_c, _), (_, _, g_s, g_c, _) = out[True], out[False]
-        first = set(run.graphs)
+        first = arnoldi_keys(run.graphs)
         checks["at most one first capture a step index"] = (
             run.graph_route and g_c["captures"] - g_c["recaptures"]
-            <= restart and len(run.captured) <= restart)
+            <= restart and len(arnoldi_keys(run.captured)) <= restart)
         print(f"[gmresgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
               f"{n} implicit steps from the seeded state after "
               f"{FLOWGRAPH_ITERS} flow iterations (operator "
@@ -2683,11 +2730,11 @@ def phase_gmresgraph(pkg):
         st2, n_dis = ops.apply_phase_change(e, kit)
         op2 = ops.assemble(st2, kit, coupling.volume_loss_fraction(st2,
                                                                      kit))
-        growths, before = run.growths, set(run.captured)
+        growths, before = run.growths, arnoldi_keys(run.captured)
         out2 = both_routes(st2, op2, kit, 2)
         checks.update({f"second operator: {k}": v
                        for k, v in route_checks(out2).items()})
-        g2, held = out2[False][3], set(run.graphs)
+        g2, held = out2[False][3], arnoldi_keys(run.graphs)
         if run.growths > growths:
             # the graphs went with the outgrown buffers: each step index
             # reached is captured once more, counted as a recapture
@@ -2699,8 +2746,8 @@ def phase_gmresgraph(pkg):
         checks["the second operator reused the graphs"] = reused
         print(f"[gmresgraph] {name} second operator ({int(n_dis)} nodes "
               f"dissolved): eager {out2[True][3]}, graph {g2}; buffers "
-              f"grown {run.growths - growths}; graphs held "
-              f"{len(run.graphs)}")
+              f"grown {run.growths - growths}; Arnoldi graphs held "
+              f"{len(held)}")
 
         # windows on the first operator from the state after its steps:
         # the steady steps of a run, past the seeded state's first one
@@ -2734,19 +2781,191 @@ def phase_gmresgraph(pkg):
                   f"({share}), {dev_ops:.1f} device ops an implicit step")
         checks["the graph route takes fewer host records"] = (
             busy[False][2] < busy[True][2])
-        print(f"[gmresgraph] {name}: {len(run.graphs)} graphs, "
-              f"{len(run.captured)} step indices captured, capture "
-              f"{run.capture_ms:.1f} ms in all "
+        print(f"[gmresgraph] {name}: {len(arnoldi_keys(run.graphs))} "
+              f"Arnoldi graphs ({len(run.graphs)} graphs in all), "
+              f"{len(arnoldi_keys(run.captured))} step indices captured, "
+              f"capture {run.capture_ms:.1f} ms in all "
               f"({run.capture_ms / max(len(run.captured), 1):.1f} ms a "
               f"graph), graph pool {run.pool_bytes} B")
         for what, good in checks.items():
             print(f"[gmresgraph] {name} check {what}: "
                   f"{'ok' if good else 'FAILED'}")
         ok = ok and all(checks.values())
+        FLOW_KITS[name] = (kit, st)     # for stepgraph
+        FLOWED[name] = st
         del kit, st, run, out, out2, e, op, op2, st2
         torch.cuda.empty_cache()
     if not ok:
         fail("gmresgraph checks")
+
+
+def graph_ms(graph, reps=20):
+    """Device ms of one replay of a CUDA graph: CUDA events around
+    ``reps`` replays after two warm-up replays."""
+    for _ in range(2):
+        graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_stepgraph(pkg):
+    """Phase stepgraph: the implicit step's segments as CUDA graphs
+    (``coupling.StepRunner``: head, tail, cycle starts and ends,
+    refinement, around the Arnoldi graphs) on each FLOW_CASES grid, from
+    its seeded state after FLOWGRAPH_ITERS flow iterations (gmresgraph's
+    or flowgraph's, or a solve here) and the operator assembled on it:
+    STEPGRAPH_STEPS steps of one cycle with the extrapolated start on the
+    eager route (``step(kit, eager=True)``) and on the graph route, which
+    must agree bit for bit in every field of the state and in each step's
+    dt, n_below, residual and diagnostics, in Arnoldi steps, cycles,
+    segments and launch counts, with replays on the graph route only.
+    Then, from the state after those steps with the configuration's own
+    start (C), windows of STEPGRAPH_WINDOW steps by route (eager, graph,
+    graph, eager, eager, graph): ms per implicit step by the host clock
+    (the median window); one profiler window a route: host launch records
+    per implicit step beside its Arnoldi steps (the graph route's must be
+    at most STEPGRAPH_RECORDS besides one a replayed Arnoldi step) and the
+    device busy share; the segments' graphs, captures, capture ms and the
+    runner's graph pool."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels, solvers
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def steps(stepper, state, op, kit, eager, n, C_prev=None):
+        stepper.begin(state, op, kit, C_prev)
+        rows = [stepper.step(kit, eager) for _ in range(n)]
+        return stepper.result(state), rows
+
+    def segments(run):
+        """A runner's segment graphs but the Arnoldi steps', by key."""
+        return {k: g[0] for k, g in run.graphs.items() if k[0] != "arnoldi"}
+
+    ok = True
+    for name, (*_, nodes) in FLOW_CASES.items():
+        kit, st = flow_case(pkg, name)
+        st = FLOWED.pop(name, None) or solvers.solve_steady(
+            st, kit, max_iters=FLOWGRAPH_ITERS)[0]
+        ops = ops_for(kit)
+        stepper = coupling.step_runner_for(kit)
+        run = stepper.run
+        op = ops.assemble(st, kit, coupling.volume_loss_fraction(st, kit))
+        seg0, cap_ms0, pool0 = len(segments(run)), run.capture_ms, \
+            run.pool_bytes
+        out = {}
+        for eager in (True, False):
+            kernels.reset_launch_counts()
+            gmres.reset_gmres_counts()
+            gmres.reset_step_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = steps(stepper, st, op, kit, eager, STEPGRAPH_STEPS, st.C)
+            torch.cuda.synchronize()
+            out[eager] = (*res, time.time() - t0, dict(gmres.GMRES_COUNTS),
+                          dict(gmres.STEP_COUNTS), kernels.launch_counts())
+        (e, e_rows, e_s, e_g, e_t, e_n), (g, g_rows, g_s, g_g, g_t, g_n) = (
+            out[True], out[False])
+        checks = {
+            "every field bit for bit": all(
+                torch.equal(bits(getattr(e, f.name)), bits(getattr(g, f.name)))
+                for f in dataclasses.fields(e)),
+            "the same dt, n_below, residuals and diagnostics":
+                repr(e_rows) == repr(g_rows),
+            "the same Arnoldi steps and cycles":
+                e_g["eager"] == g_g["eager"] + g_g["replays"]
+                and e_g["cycles"] == g_g["cycles"],
+            "the same segments": e_t["eager"] == g_t["eager"] + g_t["replays"],
+            "the same launch counts": e_n == g_n,
+            "replays on the graph route only":
+                g_t["replays"] > 0 and g_g["replays"] > 0
+                and stepper.graph_route
+                and e_t["replays"] == e_t["captures"] == e_g["replays"] == 0,
+        }
+        print(f"[stepgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
+              f"{STEPGRAPH_STEPS} implicit steps, extrapolated start, from "
+              f"the seeded state after {FLOWGRAPH_ITERS} flow iterations; "
+              f"eager route Arnoldi {e_g}, segments {e_t}, {e_s:.3f} s; "
+              f"graph route Arnoldi {g_g}, segments {g_t}, {g_s:.3f} s "
+              f"(captures included); (dt, n_below, residual, diagnostics) "
+              f"{g_rows}")
+
+        # windows from the state after those steps, the start C
+        w = STEPGRAPH_WINDOW
+        steps(stepper, e, op, kit, False, 1)    # captures the start C's head
+        walls = {True: [], False: []}
+        arnoldi = {}
+        for eager in (True, False, False, True, True, False):
+            gmres.reset_gmres_counts()
+            stepper.begin(e, op, kit)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(w):
+                stepper.step(kit, eager)
+            torch.cuda.synchronize()
+            walls[eager].append(1e3 * (time.time() - t0) / w)
+            c = gmres.GMRES_COUNTS
+            arnoldi[eager] = (c["replays"] + c["eager"]) / w
+
+        def window(eager):
+            stepper.begin(e, op, kit)
+            torch.cuda.synchronize()
+            return busy_window(lambda: [stepper.step(kit, eager)
+                                        for _ in range(w)], w)
+
+        busy = {eager: window(eager) for eager in (True, False)}
+        for eager in (True, False):
+            ms = statistics.median(walls[eager])
+            b, dev_ops, rec = busy[eager]
+            share = "not measured" if b is None else f"{100 * b / ms:.1f} %"
+            print(f"[stepgraph] {name} {'eager' if eager else 'graph'} "
+                  f"route: {ms:.4f} ms an implicit step (windows "
+                  f"{', '.join(f'{x:.4f}' for x in walls[eager])}), "
+                  f"{arnoldi[eager]:.2f} Arnoldi steps an implicit step, "
+                  f"{rec:.1f} host records an implicit step "
+                  f"({rec - arnoldi[eager]:.1f} besides the Arnoldi "
+                  f"steps' one a step), device busy "
+                  f"{'not measured' if b is None else f'{b:.4f} ms'} "
+                  f"({share}), {dev_ops:.1f} device ops an implicit step")
+        checks[f"a graphed step takes at most {STEPGRAPH_RECORDS} host "
+               f"records besides its Arnoldi steps"] = (
+            busy[False][2] <= STEPGRAPH_RECORDS + arnoldi[False])
+        # device ms of one replay of each segment's graph and of one
+        # Arnoldi step's (CUDA events over bare replays on the buffers the
+        # windows left; they only overwrite the buffers), which a step of
+        # k Arnoldi steps and c cycles adds up from
+        segs = segments(run)
+        ends = sorted(k[1] for k in segs if k[0] == "end")
+        j = min(6, max(k[1] for k in run.graphs if k[0] == "arnoldi"))
+        parts = {str(k): segs[k] for k in (
+            ("head", False), ("tail",), ("start",), ("end", ends[-1]),
+            ("refine",), ("correct",), ("update",)) if k in segs}
+        parts[f"arnoldi {j}"] = run.graphs[("arnoldi", j)][0]
+        part_ms = {k: graph_ms(g) for k, g in parts.items()}
+        print(f"[stepgraph] {name}: device ms a replay "
+              f"{json.dumps({k: round(v, 4) for k, v in part_ms.items()})}")
+        print(f"[stepgraph] {name}: {len(segs)} segment graphs "
+              f"({len(segs) - seg0} new here: "
+              f"{sorted(map(str, segs))}), {len(run.graphs) - len(segs)} "
+              f"Arnoldi graphs; captures here {run.capture_ms - cap_ms0:.1f} "
+              f"ms, graph pool +{run.pool_bytes - pool0} B (the runner's "
+              f"{run.pool_bytes} B in all); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for what, good in checks.items():
+            print(f"[stepgraph] {name} check {what}: "
+                  f"{'ok' if good else 'FAILED'}")
+        ok = ok and all(checks.values())
+        del kit, st, run, stepper, out, e, g, op
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("stepgraph checks")
 
 
 def kernel_label(line):
@@ -2831,7 +3050,8 @@ def main():
                 ("parity", lambda: phase_parity(tmp)),
                 ("shard", lambda: phase_shard(tmp, pkg)),
                 ("flowgraph", lambda: phase_flowgraph(pkg)),
-                ("gmresgraph", lambda: phase_gmresgraph(pkg))):
+                ("gmresgraph", lambda: phase_gmresgraph(pkg)),
+                ("stepgraph", lambda: phase_stepgraph(pkg))):
             if name not in phases:
                 continue
             out = timed(name, run)

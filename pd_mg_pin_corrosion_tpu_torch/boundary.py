@@ -145,8 +145,9 @@ def smooth_boundary_concentration(state: State, kit: Kit) -> State:
     fluid = state.node_type == FLUID
     near_in = kit.near_inlet_mask & fluid
     near_out = kit.near_outlet_mask & fluid
-    d_ax = torch.tensor([o[0] for o in kit.offsets], device=kit.device)
-    d_ax = d_ax.view((-1,) + (1,) * kit.dim)
+    # each slot's axial offset, from the kit's table (no host data here:
+    # a CUDA graph captures this function)
+    d_ax = kit.slot_offsets[:, 0].view((-1,) + (1,) * kit.dim)
     fl_p = kit.pad(fluid.to(kit.dtype), 0.0)
     C_p = kit.pad(state.C, 0.0)
     tot = torch.zeros_like(state.C)

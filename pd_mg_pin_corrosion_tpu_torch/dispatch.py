@@ -54,7 +54,7 @@ def ops_for(kit) -> SimpleNamespace:
             ard_compute_dt=b.ard_compute_dt,
             apply_phase_change=b.apply_phase_change,
             assemble=b.assemble,
-            implicit_step=b.implicit_step,
+            linear_system=b.linear_system,
             compute_adaptive_dt=b.compute_adaptive_dt,
         )
 
@@ -76,7 +76,7 @@ def ops_for(kit) -> SimpleNamespace:
             ard_compute_dt=u.ard_compute_dt,
             apply_phase_change=u.apply_phase_change,
             assemble=u.assemble,
-            implicit_step=u.implicit_step,
+            linear_system=u.linear_system,
             compute_adaptive_dt=u.compute_adaptive_dt,
         )
 
@@ -97,6 +97,6 @@ def ops_for(kit) -> SimpleNamespace:
         ard_compute_dt=ard.compute_dt,
         apply_phase_change=ard.apply_phase_change,
         assemble=ai.assemble,
-        implicit_step=ai.implicit_step,
+        linear_system=ai.linear_system,
         compute_adaptive_dt=ai.compute_adaptive_dt,
     )

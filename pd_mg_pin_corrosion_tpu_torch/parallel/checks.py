@@ -87,12 +87,13 @@ def transport(mesh, grid, cfg, dt_explicit, dt_implicit, arrays=None):
     """(C after ard_step, C after assemble + implicit_step, the residual)
     on the mesh, as JAX test_sharded_ard_and_implicit."""
     from ..dispatch import ops_for
+    from ..ops.gmres import implicit_step
 
     _, _, sk, ss = _setup(mesh, grid, cfg, arrays=arrays)
     ops = ops_for(sk)
     C_ard = ops.ard_step(ss, sk, dt_explicit).C
     op = ops.assemble(ss, sk)
-    sol, res = ops.implicit_step(ss, op, sk, dt_implicit)
+    sol, res = implicit_step(ops.linear_system, ss, op, sk, dt_implicit)
     out = _numpy((C_ard, sol.C), mesh)
     return None if out is None else out + [res]
 

@@ -281,6 +281,6 @@ def sharded_ops() -> SimpleNamespace:
         ard_compute_dt=ard.compute_dt,
         apply_phase_change=apply_phase_change_sharded,
         assemble=ai.assemble,          # assemble_sharded on a slab
-        implicit_step=ai.implicit_step,
+        linear_system=ai.linear_system,
         compute_adaptive_dt=ai.compute_adaptive_dt,
     )

@@ -110,7 +110,7 @@ def _check(st_bc: State, st_new: State, kit):
     return e, vm, rmin, rmax, bool(conv), bool(div)
 
 
-def _parity_tables(kit) -> bool:
+def parity_tables(kit) -> bool:
     """gs_parity tables on the kit or on one of its blocks."""
     return any(getattr(k, "gs", None) is not None
                for k in (kit, getattr(kit, "fine", None),
@@ -139,7 +139,7 @@ class FlowRunner:
         self.corrections = bool(kit.cfg.channel_flow_corrections
                                 and is_structured(kit))
         self.graph_route = (kit.device.type == "cuda"
-                            and not _parity_tables(kit)
+                            and not parity_tables(kit)
                             and getattr(kit, "slab", None) is None)
         self.state: State | None = None
         self.dt: torch.Tensor | None = None

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .amr import AMRGrid
-from .amr_blocks import adaptive_dt, idw_implicit_step, idw_overwrite
+from .amr_blocks import adaptive_dt, idw_overwrite, idw_system
 from .config import Config, FrozenConfig
 from .fields import State, poiseuille_axial, resolve_device
 from .grid import FICTITIOUS, FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG, WALL
@@ -433,18 +433,13 @@ def _matvec_M64(op: ImplicitOperatorU, kit: UKit, x64: torch.Tensor):
     return torch.where(op.unknown, y, 0.0)
 
 
-def implicit_step(state: State, op: ImplicitOperatorU, kit: UKit, dt,
-                  tol: float | None = None, restart: int = 50,
-                  maxiter: int = 200, x0=None, eager: bool = False):
-    """The AMR implicit step with its IDW constraint rows
-    (``amr_blocks.idw_implicit_step``) over the gather operator; GMRES on
-    the basis kernels on the card in float32. Returns (new_state,
-    residual as a float)."""
-    return idw_implicit_step(
-        state, op, kit, dt, lambda o, x: matvec_M(o, kit, x),
-        lambda o, x64: _matvec_M64(o, kit, x64),
-        (kit.fict_nodes, kit.fict_src, kit.fict_w), tol, restart, maxiter, x0,
-        eager)
+def linear_system(run, op: ImplicitOperatorU, kit: UKit, restart=50):
+    """The AMR step's system with its IDW constraint rows
+    (``amr_blocks.idw_system``) over the gather operator; GMRES on the
+    basis kernels on the card in float32."""
+    return idw_system(run, op, kit, lambda o, x: matvec_M(o, kit, x),
+                      lambda o, x64: _matvec_M64(o, kit, x64),
+                      (kit.fict_nodes, kit.fict_src, kit.fict_w), restart)
 
 
 def compute_adaptive_dt(state: State, op: ImplicitOperatorU, kit: UKit):

@@ -35,6 +35,7 @@ from pd_mg_pin_corrosion_tpu_torch import solvers as t_solvers
 from pd_mg_pin_corrosion_tpu_torch import state_from_numpy
 from pd_mg_pin_corrosion_tpu_torch.ops import ard as t_ard
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -113,7 +114,7 @@ def test_adaptive_dt_and_implicit_step_3d_match(precision):
 
     for dt in (float(jdt), 60.0):   # the adaptive dt and the stiff cap
         js2, jres = j_ai.implicit_step(js, jop, jk, dt)
-        ts2, tres = t_ai.implicit_step(ts, top, tk, dt)
+        ts2, tres = implicit_step(t_ai.linear_system, ts, top, tk, dt)
         if precision == "f64":
             _close(ts2.C, js2.C, 1e-9, 1e-12)
             assert tres < 1e-10 and float(jres) < 1e-10
@@ -144,7 +145,7 @@ def test_implicit_step_3d_f32_uses_bf16_preconditioner(monkeypatch):
 
     monkeypatch.setattr(t_ai, "matvec3d", counting_mv)
     monkeypatch.setattr(t_ai, "slots3d_f64", counting_slots)
-    _, res = t_ai.implicit_step(ts, op, tk, 60.0)
+    _, res = implicit_step(t_ai.linear_system, ts, op, tk, 60.0)
     assert res < 1e-6
     assert calls["bf16"] > 0 and calls["bf16"] % 4 == 0 and calls["slots"] >= 1
     # every preconditioner application is followed by one f32 operator

@@ -30,6 +30,7 @@ from pd_mg_pin_corrosion_tpu_torch import Config as TConfig
 from pd_mg_pin_corrosion_tpu_torch import amr_blocks as tab
 from pd_mg_pin_corrosion_tpu_torch import dispatch, state_from_numpy
 from pd_mg_pin_corrosion_tpu_torch.grid import FICTITIOUS, FLUID, OUTSIDE
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -291,7 +292,7 @@ def test_implicit_ops_equal_jax(case, precision, rtol):
     dt_t = float(tab.compute_adaptive_dt(ts, top, tk))
     assert dt_t == pytest.approx(dt_j, rel=1e-12 if precision == "f64" else 1e-5)
     js2, res_j = jab.implicit_step(js, jop, jk, dt_j)
-    ts2, res_t = tab.implicit_step(ts, top, tk, dt_j)
+    ts2, res_t = implicit_step(tab.linear_system, ts, top, tk, dt_j)
     tol = 1e-10 if precision == "f64" else 1e-6
     assert res_t <= tol and float(res_j) <= tol
     a, b = np.asarray(js2.C), ts2.C.numpy()
@@ -329,7 +330,7 @@ def _golden_run(v_axial, sigma, z0, t_end, dt_max):
     while t < t_end - 1e-12:
         dt = min(dt_max, t_end - t)
         state = tab.update_fictitious(
-            tab.implicit_step(state, op, kit, dt)[0], kit)
+            implicit_step(tab.linear_system, state, op, kit, dt)[0], kit)
         t += dt
     fluid = nt == FLUID
     return g, fluid, state.C.numpy()

@@ -42,6 +42,7 @@ from pd_mg_pin_corrosion_tpu_torch.grid import (FICTITIOUS, FLUID, OUTSIDE,
                                                 WALL, build_grid)
 from pd_mg_pin_corrosion_tpu_torch.kit import build_kit
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as tai
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -390,7 +391,8 @@ def test_implicit_ops_equal_jax(precision):
         js2, res_j = ju.implicit_step(
             js, jop, jk, dt_j,
             x0=None if start is None else jnp.asarray(start.numpy()))
-        ts2, res_t = tu.implicit_step(ts, top, tk, dt_j, x0=start)
+        ts2, res_t = implicit_step(tu.linear_system, ts, top, tk, dt_j,
+                                   x0=start)
         assert res_t <= tol and float(res_j) <= tol
         _close(js2.C, ts2.C.numpy(), rtol, f"implicit_step x0={start is not None}")
     # the constraint rows hold after the solve, to the solve's residual
@@ -412,8 +414,8 @@ def test_stiff_dt_f32_and_the_dt_floor():
     assert kit.dtype == torch.float32
     state = initialize_state(g, tc, dtype=torch.float32, device="cpu")
     op = tu.assemble(state, kit)
-    s1, _ = tu.implicit_step(state, op, kit, 10.0)
-    s2, res = tu.implicit_step(s1, op, kit, 60.0)
+    s1, _ = implicit_step(tu.linear_system, state, op, kit, 10.0)
+    s2, res = implicit_step(tu.linear_system, s1, op, kit, 60.0)
     assert torch.isfinite(s2.C).all()
     assert res <= 1e-6, f"stiff-dt f32 AMR GMRES stalled at {res:.2e}"
     tc.implicit_dt_min_frac = 0.25
@@ -470,8 +472,8 @@ def _golden_run(v_axial, sigma, z0, D, t_end, dt_max):
     t = 0.0
     while t < t_end - 1e-12:
         dt = min(dt_max, t_end - t)
-        state = tu.update_fictitious(tu.implicit_step(state, op, kit, dt)[0],
-                                     kit)
+        state = tu.update_fictitious(
+            implicit_step(tu.linear_system, state, op, kit, dt)[0], kit)
         t += dt
     return cfg, g, state.C.numpy()
 
@@ -496,7 +498,7 @@ def _uniform_run(cfg_amr, v_axial, sigma, z0, dt_max, t_end):
     t = 0.0
     while t < t_end - 1e-12:
         dt = min(dt_max, t_end - t)
-        state = tai.implicit_step(state, op, kit, dt)[0]
+        state = implicit_step(tai.linear_system, state, op, kit, dt)[0]
         t += dt
     return grid, state.C.numpy()
 

@@ -26,6 +26,7 @@ from pd_mg_pin_corrosion_tpu_torch import (Config, build_grid, build_kit,
 from pd_mg_pin_corrosion_tpu_torch.ops import ard as ard_ops
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
 from pd_mg_pin_corrosion_tpu_torch.ops import ns
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 pytestmark = pytest.mark.cuda
 
@@ -517,14 +518,15 @@ def test_implicit_step_3d_on_the_card(setup3d):
     assert op.W is None      # every sum of the step reads the packed weights
     n0 = {k: getattr(kernels, k).launches
           for k in ("matvec3d", "slots3d_f64", "basis_dots")}
-    s_gpu, res = ai.implicit_step(st, op, kit, 60.0)
+    s_gpu, res = implicit_step(ai.linear_system, st, op, kit, 60.0)
     assert res < 1e-6
     assert all(getattr(kernels, k).launches > n for k, n in n0.items())
     cfg = _cfg3d()
     cpu_kit = build_kit(build_grid(cfg), cfg, device="cpu")
     cpu_st = type(st)(*(t.cpu() for t in st.tensors()))
-    s_cpu, res_cpu = ai.implicit_step(cpu_st, ai.assemble(cpu_st, cpu_kit),
-                                      cpu_kit, 60.0)
+    s_cpu, res_cpu = implicit_step(ai.linear_system, cpu_st,
+                                   ai.assemble(cpu_st, cpu_kit), cpu_kit,
+                                   60.0)
     assert res_cpu < 1e-6
     torch.testing.assert_close(s_gpu.C.cpu(), s_cpu.C, rtol=5e-6, atol=5e-8)
 
@@ -654,14 +656,18 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
     scripts/profiler_windows_torch.py), among them those of the port's
     kernels: ns2d in the flow solve, matvec2d and the basis kernels in
     the implicit steps. The flow's iterations between checks replay a
-    CUDA graph, and so do GMRES's Arnoldi steps (a graph per step index,
-    each the same launch sequence): a replay is one launch record
-    (cudaGraphLaunch) whose kernel records carry its correlation id, the
-    same number for every replay of the flow's graph and for every replay
-    of an Arnoldi graph, as many replays of each as the run's counters
-    (``PD_TPU_PHASE_TIMERS=1``) report; the launch records made while a
-    graph was captured ran no kernel, as many as the captured graphs
-    hold."""
+    CUDA graph, GMRES's Arnoldi steps do (a graph per step index, each the
+    same launch sequence), and so do the implicit steps' other segments
+    (head, tail, cycle starts and ends, refinement): a replay is one
+    launch record (cudaGraphLaunch) whose kernel records carry its
+    correlation id, as many replays as the run's counters
+    (``PD_TPU_PHASE_TIMERS=1``) report, every one with kernel records. The
+    launch records made while a graph was captured ran no kernel; they
+    are the flow graph's kernels (kf) and the kernel nodes the counters
+    report for the Arnoldi and segment graphs' captures, and the replays'
+    kernel records are kf for each flow replay plus the kernel nodes the
+    counters report replayed: the flow's replays all hold kf, the Arnoldi
+    graphs' all the same number."""
     _card()
     import subprocess
     import sys
@@ -676,12 +682,18 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
         cwd=root, env={**os.environ, "PD_TPU_PROFILE": str(prof),
                        "PD_TPU_PHASE_TIMERS": "1"},
         check=True, capture_output=True, text=True)
-    # (replays, captures) of the flow's graph and of the Arnoldi graphs
-    (fr, fc), (gr, gc) = (
-        (int(m.group(1)), int(m.group(2))) for m in (
-            re.search(rf"\[Timer\] {what}: (\d+) graph replays, \d+ eager, "
-                      rf"(\d+) captures", run.stdout)
-            for what in ("flow iterations", "Arnoldi steps")))
+    # (replays, captures) of the flow's graph; (replays, captures, kernel
+    # nodes captured, kernel nodes replayed) of the Arnoldi graphs and of
+    # the step's other segments
+    fr, fc = (int(v) for v in re.search(
+        r"\[Timer\] flow iterations: (\d+) graph replays, \d+ eager, "
+        r"(\d+) captures", run.stdout).groups())
+    (gr, gc, gkc, gkr), (sr, sc, skc, skr) = (
+        (int(v) for v in re.search(
+            rf"\[Timer\] {what}: (\d+) graph replays, \d+ eager, (\d+) "
+            rf"captures \(\d+ recaptures\)[^;\n]*; kernel nodes (\d+) "
+            rf"captured, (\d+) replayed", run.stdout).groups())
+        for what in ("Arnoldi steps", "implicit step segments"))
     files = os.listdir(prof)
     assert len(files) == 1
     with open(prof / files[0]) as f:
@@ -708,17 +720,21 @@ def test_profile_hook_traces_the_port_kernels(tmp_path):
           f"{launched} launch records ({captured} without a kernel), "
           f"{len(replays)} graph launches by kernel records {per_replay}; "
           f"flow graph {fr} replays / {fc} captures, Arnoldi graphs {gr} "
-          f"replays / {gc} captures")
-    assert fr > 0 and gr > 0 and fc == 1 and len(replays) == fr + gr
-    # the kernel records of a flow replay (kf) and of an Arnoldi one (kg)
-    assert 0 not in per_replay and len(per_replay) <= 2, per_replay
-    (kf, kg), = [(a, b) for a in per_replay for b in per_replay
-                 if (per_replay[a], per_replay[b]) == (fr, gr)
-                 or a == b and per_replay[a] == fr + gr]
-    assert captured == kf * fc + kg * gc
+          f"replays / {gc} captures, step segments {sr} replays / {sc} "
+          f"captures")
+    assert fr > 0 and gr > 0 and sr > 0 and fc == 1 and sc > 0
+    assert len(replays) == fr + gr + sr and 0 not in per_replay, per_replay
+    # the kernels of an Arnoldi graph (kg), and of the flow's (kf): what
+    # the captures launched besides the Arnoldi and segment graphs' nodes
+    kg, rest = divmod(gkc, gc)
+    assert rest == 0 and kg > 0 and gkr == gr * kg and skc > 0
+    kf = captured - gkc - skc
+    assert per_replay[kg] >= gr and per_replay[kf] >= fr + (
+        gr if kf == kg else 0), (kf, kg, per_replay)
+    assert sum(per_corr[c] for c in replays) == fr * kf + gkr + skr
     assert set(per_corr) <= set(kernel_launches) | set(replays)
     assert all(per_corr[c] == 1 for c in kernel_launches if c in per_corr)
-    assert len(names) == launched - captured + fr * kf + gr * kg
+    assert len(names) == launched - captured + fr * kf + gkr + skr
     assert all(n > 0 for n in traced.values()), traced
 
 
@@ -926,7 +942,7 @@ def test_amr_flow_and_implicit_step_on_cuda_equal_cpu(dim):
                                                    kit), kit)
         op = ab.assemble(st, kit, 0.05)
         dt_c = ab.compute_adaptive_dt(st, op, kit)
-        st2, res = ab.implicit_step(st, op, kit, dt_c)
+        st2, res = implicit_step(ab.linear_system, st, op, kit, dt_c)
         launched = {k: v - n0[k] for k, v in kernels.launch_counts().items()}
         out[device] = (st, st2, float(dt_c), res, launched)
     (g, g2, dg, rg, lg), (c, c2, dc, rc, lc) = out["cuda"], out["cpu"]
@@ -1016,8 +1032,8 @@ def test_gather_flow_and_implicit_step_on_cuda_equal_cpu():
         st = _gather_on(device, perturb=False)[2]
         op = u.assemble(st, kit, 0.05)
         dt_c = u.compute_adaptive_dt(st, op, kit)
-        st2, res = u.implicit_step(st, op, kit, dt_c)
-        st3, res3 = u.implicit_step(st2, op, kit, dt_c,
+        st2, res = implicit_step(u.linear_system, st, op, kit, dt_c)
+        st3, res3 = implicit_step(u.linear_system, st2, op, kit, dt_c,
                                     x0=2.0 * st2.C - st.C)
         launched = {k: v - n0[k] for k, v in kernels.launch_counts().items()}
         out[device] = (fields, st2, st3, float(dt_c), (res, res3), launched)
@@ -1292,22 +1308,26 @@ def test_gmres_graph_equals_the_eager_route(case):
         assert e_c["cycles"] == g_c["cycles"]
         return g, g_c
 
+    def arnoldi(keys):
+        return {k for k in keys if k[0] == "arnoldi"}
+
     out, counts = both(st, ops.assemble(st, kit, 0.0), 3)
-    assert counts["captures"] == len(run.graphs) == len(run.captured) <= (
-        25 if kit.dtype == torch.float32 else 50)
-    graphs = dict(run.graphs)
+    assert counts["captures"] == len(arnoldi(run.graphs)) == len(
+        arnoldi(run.captured)) <= (25 if kit.dtype == torch.float32 else 50)
+    graphs = {k: run.graphs[k][0] for k in arnoldi(run.graphs)}
     st2, _ = ops.apply_phase_change(out, kit)
     _, counts2 = both(st2, ops.assemble(st2, kit, 0.0), 2)
     if counts2["recaptures"] == 0:
         # no packed store outgrew its buffers: the first graphs serve it
-        assert all(run.graphs[j] is g for j, g in graphs.items())
-        assert counts2["captures"] == len(run.graphs) - len(graphs)
+        assert all(run.graphs[k][0] is g for k, g in graphs.items())
+        assert counts2["captures"] == len(arnoldi(run.graphs)) - len(graphs)
 
 
 def test_gmres_graph_replay_is_one_launch_record():
     """One replay of an Arnoldi step's graph is one host launch record
-    (cudaGraphLaunch) standing for the step's kernels, and it adds the
-    launches its capture recorded to the counters."""
+    (cudaGraphLaunch) standing for the step's kernels, and a bare replay
+    adds nothing to the launch counters (a segment's replay adds the
+    launches its capture recorded)."""
     from pd_mg_pin_corrosion_tpu_torch import coupling
     from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
     from pd_mg_pin_corrosion_tpu_torch.ops import gmres
@@ -1318,13 +1338,14 @@ def test_gmres_graph_replay_is_one_launch_record():
     coupling.implicit_inner_step(st, ops_for(kit).assemble(st, kit, 0.0),
                                  kit)
     run = gmres.runner_for(kit)
-    assert 0 in run.graphs and run.launches[0]["matvec2d"] == 3
+    graph, launched, nodes, _ = run.graphs[("arnoldi", 0)]
+    assert launched["matvec2d"] == 3 and nodes > launched["matvec2d"]
     torch.cuda.synchronize()
     n0 = kernels.launch_counts()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run.graphs[0].replay()
+        graph.replay()
         torch.cuda.synchronize()
     records = [e.name for e in prof.events() if e.name.startswith("cu") and any(
         k in e.name for k in ("LaunchKernel", "Memset", "Memcpy",
@@ -1355,3 +1376,122 @@ def test_gmres_graph_route_and_device_inv_h():
     host = np.array([1.0 / max(v, 1e-300) if v > 1e-30 else 0.0 for v in h])
     dev = gmres.inv_norm(torch.tensor(h, device="cuda")).cpu().numpy()
     assert np.array_equal(host.view(np.int64), dev.view(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# The implicit step's segments as CUDA graphs (coupling.StepRunner)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["parity", "parity_f64", "grid3d",
+                                  "blocks", "gather"])
+def test_step_graph_equals_the_eager_route(case):
+    """Three implicit steps of one cycle (the extrapolated start on)
+    through the kit's StepRunner, on the graph route and on the eager
+    route from one state: every field bit for bit, each step's dt,
+    n_below, residual and diagnostics, the same Arnoldi steps, cycles,
+    segments and launch counts, replays only on the graph route. A second
+    cycle on the phase-changed state after them reuses the segments'
+    graphs (unless a buffer grew: recaptures) and still equals the eager
+    route."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    _card()
+    kit, st = _flow_case(case)
+    st = _seeded_C(st)
+    ops = ops_for(kit)
+    stepper = coupling.step_runner_for(kit)
+    assert stepper.graph_route
+
+    def both(state, op, n):
+        out = {}
+        for eager in (True, False):
+            n0 = kernels.launch_counts()
+            gmres.reset_gmres_counts()
+            gmres.reset_step_counts()
+            stepper.begin(state, op, kit, state.C)
+            rows = [stepper.step(kit, eager) for _ in range(n)]
+            out[eager] = (stepper.result(state), rows,
+                          dict(gmres.GMRES_COUNTS), dict(gmres.STEP_COUNTS),
+                          {k: v - n0[k]
+                           for k, v in kernels.launch_counts().items()})
+        (e, e_rows, e_g, e_s, e_n), (g, g_rows, g_g, g_s, g_n) = (
+            out[True], out[False])
+        for f in dataclasses.fields(e):
+            assert torch.equal(_flow_bits(getattr(e, f.name)),
+                               _flow_bits(getattr(g, f.name))), f.name
+        assert repr(e_rows) == repr(g_rows) and e_n == g_n
+        assert e_g["eager"] == g_g["eager"] + g_g["replays"]
+        assert e_g["cycles"] == g_g["cycles"]
+        assert e_s["replays"] == e_s["captures"] == 0 and g_s["replays"] > 0
+        assert e_s["eager"] == g_s["eager"] + g_s["replays"]
+        assert g_s["replayed_kernels"] > 0 == e_s["replayed_kernels"]
+        return g, g_s
+
+    def segments():
+        return {k: g[0] for k, g in stepper.run.graphs.items()
+                if k[0] != "arnoldi"}
+
+    out, counts = both(st, ops.assemble(st, kit, 0.0), 3)
+    assert counts["captures"] == len(segments())
+    held = segments()
+    st2, _ = ops.apply_phase_change(out, kit)
+    _, counts2 = both(st2, ops.assemble(st2, kit, 0.0), 2)
+    if counts2["recaptures"] == 0:
+        assert all(segments()[k] is g for k, g in held.items())
+
+
+def test_step_graph_host_records():
+    """A graphed implicit step of the 8,303-node 3D grid (f32, with the
+    f64 refinement) enqueues at most 60 host records (launches, copies,
+    graph launches) besides its Arnoldi steps' replays, one each."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    _card()
+    kit, st = _flow_case("grid3d")
+    st = _seeded_C(st)
+    stepper = coupling.step_runner_for(kit)
+    stepper.begin(st, ops_for(kit).assemble(st, kit, 0.0), kit)
+    for _ in range(3):      # the captures
+        stepper.step(kit)
+    torch.cuda.synchronize()
+    gmres.reset_gmres_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            stepper.step(kit)
+        torch.cuda.synchronize()
+    records = sum(e.name.startswith("cu") and any(
+        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy",
+                              "GraphLaunch")) for e in prof.events())
+    arnoldi = gmres.GMRES_COUNTS["replays"]
+    assert gmres.GMRES_COUNTS["eager"] == 0 and arnoldi > 0
+    print(f"{records / 2:.1f} host records a step, {arnoldi / 2:.1f} "
+          f"Arnoldi steps")
+    assert records <= 2 * 60 + arnoldi
+
+
+def test_step_graph_route_is_the_cards_alone():
+    """The step's head and tail take the graph route on the card without
+    gs_parity tables (their sweeps read the host), with GMRES's own route
+    otherwise; a 3D float64 kit takes neither."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+
+    _card()
+    cfg = Config.load(PARITY)
+    cfg.apply_overrides(["precision=f32", "gs_parity=1"])
+    grid = build_grid(cfg)
+    gs = coupling.StepRunner(build_kit(grid, cfg, device="cuda"))
+    assert not gs.graph_route and gs.run.graph_route
+    cfg.apply_overrides(["gs_parity=0"])
+    assert coupling.StepRunner(build_kit(grid, cfg, device="cuda")).graph_route
+    assert not coupling.StepRunner(build_kit(grid, cfg,
+                                             device="cpu")).graph_route
+    cfg3 = _cfg3d()
+    cfg3.apply_overrides(["precision=f64"])
+    assert not coupling.StepRunner(build_kit(build_grid(cfg3), cfg3,
+                                             device="cuda")).graph_route

@@ -27,7 +27,7 @@ from pd_mg_pin_corrosion_tpu import grains as j_grains
 from pd_mg_pin_corrosion_tpu import initialize_state as j_initialize_state
 from pd_mg_pin_corrosion_tpu.coupling import CoupledSolver as JSolver
 from pd_mg_pin_corrosion_tpu_torch import cli, coupling
-from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -92,27 +92,20 @@ def test_extrapolated_start_f64_matches_jax(tmp_path):
 
 def _spied_run(tmp_path, monkeypatch, overrides):
     """Per implicit step: C before the step, C after its BCs (what the
-    solve is handed), the unknown rows, and the start GMRES was given."""
+    solve is handed), the unknown rows, and the start GMRES was given,
+    read from the step runner's buffers around its head segment."""
     steps, starts = [], []
-    real_inner, real_step = coupling.implicit_inner_step, \
-        ard_implicit.implicit_step
-    real_gmres = ard_implicit.gmres
+    real_head = coupling.StepRunner.head
 
-    def inner(state, op, kit, C_prev=None):
-        steps.append({"C_pre": state.C.clone()})
-        return real_inner(state, op, kit, C_prev)
+    def head(self, kit, sys):
+        steps.append({"C_pre": self.state.C.clone()})
+        out = real_head(self, kit, sys)
+        steps[-1].update(C_bc=self.state.C.clone(),
+                         unknown=sys.unknown.clone())
+        starts.append(self.run.x.clone())
+        return out
 
-    def step(state, op, kit, dt, **kw):
-        steps[-1].update(C_bc=state.C.clone(), unknown=op.unknown)
-        return real_step(state, op, kit, dt, **kw)
-
-    def gmres(A, b, x0, **kw):
-        starts.append(x0.clone())
-        return real_gmres(A, b, x0, **kw)
-
-    monkeypatch.setattr(coupling, "implicit_inner_step", inner)
-    monkeypatch.setattr(ard_implicit, "implicit_step", step)
-    monkeypatch.setattr(ard_implicit, "gmres", gmres)
+    monkeypatch.setattr(coupling.StepRunner, "head", head)
     solver, _ = _run_port(tmp_path, [*overrides, "T_final=1.2"])
     assert solver.cycle_steps == [2] and len(steps) == len(starts) == 2
     return solver, steps, starts
@@ -160,8 +153,8 @@ def test_block_step_with_a_start_equals_jax():
     x0 = 2.0 * ts.C - 0.5 * ts.C.flip(0)
     js2, res_j = jab.implicit_step(js, jop, jk, dt,
                                    x0=jnp.asarray(x0.numpy()))
-    ts2, res_t = tab.implicit_step(ts, top, tk, dt, x0=x0)
-    ts_c, _ = tab.implicit_step(ts, top, tk, dt)
+    ts2, res_t = implicit_step(tab.linear_system, ts, top, tk, dt, x0=x0)
+    ts_c, _ = implicit_step(tab.linear_system, ts, top, tk, dt)
     assert res_t <= 1e-10 and float(res_j) <= 1e-10
     scale = float(np.abs(np.asarray(js2.C)).max())
     # the same start: tests/test_torch_amr_blocks.py's gate

@@ -47,6 +47,7 @@ from pd_mg_pin_corrosion_tpu_torch.kernels import (basis as basis_mod,
                                                    pitched_basis)
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
 from pd_mg_pin_corrosion_tpu_torch.ops import gmres as t_gmres
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -343,14 +344,16 @@ def test_step_through_the_runner_equals_the_old_step(name, step):
     run = _fresh(kit)
     assert not run.graph_route
     t_gmres.reset_gmres_counts()
-    got = ops_for(kit).implicit_step(st, op, kit, dt, x0=x0, **kw)
+    system = ops_for(kit).linear_system
+    got = implicit_step(system, st, op, kit, dt, x0=x0, **kw)
     counts = dict(t_gmres.GMRES_COUNTS)
     ref_counts = {"steps": 0, "cycles": 0}
     ref = reference_step(st, op, kit, dt, x0=x0, counts=ref_counts, **kw)
     _same(got, ref)
     assert counts == {"replays": 0, "eager": ref_counts["steps"],
                       "captures": 0, "recaptures": 0,
-                      "cycles": ref_counts["cycles"]}
+                      "cycles": ref_counts["cycles"], "captured_kernels": 0,
+                      "replayed_kernels": 0}
     if step == "identity" and not hasattr(op, "fict"):
         assert ref_counts["steps"] == ref_counts["cycles"]   # j = 0 exits
     if step == "restarts":
@@ -361,8 +364,8 @@ def test_step_through_the_runner_equals_the_old_step(name, step):
     # the runner read the operator from its own buffers
     assert run.op is not op and run.V is not None
     # eager=True takes the same route here
-    _same(ops_for(kit).implicit_step(st, op, kit, dt, x0=x0, eager=True,
-                                     **kw), got)
+    _same(implicit_step(system, st, op, kit, dt, x0=x0, eager=True, **kw),
+          got)
 
 
 @pytest.mark.parametrize("name", ["parity_f32", "grid3d_f32", "blocks_f32",
@@ -379,7 +382,7 @@ def test_second_operator_through_the_cached_runner(name, monkeypatch):
     op1, op2 = _operator(st, kit, packed), _operator(st2, kit, packed)
     if packed:
         assert op2.packed.values.numel() > op1.packed.values.numel()
-    step = ops_for(kit).implicit_step
+    step = functools.partial(implicit_step, ops_for(kit).linear_system)
     dt = 10.0 if packed else 60.0
     run = _fresh(kit)
     first = step(st, op1, kit, dt)
@@ -446,17 +449,18 @@ GMRES_CASES = ["restarts", "exit_at_j0", "happy_breakdown", "nan_residual",
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("case", GMRES_CASES)
-def test_gmres_through_a_runner_equals_the_host_loop(case, dtype, flat):
+def test_gmres_through_a_runner_equals_the_host_loop(case, dtype, flat,
+                                                     monkeypatch):
     """gmres through one GmresRunner, twice (the second solve reuses its
     basis, as a refinement correction does), bit for bit the host-driven
     loop: x, the residual, the cycles and the Arnoldi steps."""
     A, b, x0, kw = _gmres_case(case, dtype)
     M = (lambda v: v * 0.9) if case == "x0" else None
     run = t_gmres.GmresRunner()
+    monkeypatch.setattr(t_gmres, "GmresRunner", lambda: run)
     for _ in range(2):
         t_gmres.reset_gmres_counts()
-        x, (res, k) = t_gmres.gmres(A, b, x0, M=M, flat_kernels=flat,
-                                    runner=run, **kw)
+        x, (res, k) = t_gmres.gmres(A, b, x0, M=M, flat_kernels=flat, **kw)
         counts = dict(t_gmres.GMRES_COUNTS)
         ref_counts = {"steps": 0, "cycles": 0}
         xr, (rr, kr) = reference_gmres(A, b, x0, M=M, flat_kernels=flat,
@@ -509,7 +513,8 @@ def test_capture_needs_a_card():
            st.C.shape)
     t_gmres.reset_gmres_counts()
     with pytest.raises(DeviceUnavailable):
-        run.step(0, fns, graphed=True)
+        run.segment(("arnoldi", 0), lambda: run.arnoldi(0, *fns),
+                    graphed=True)
     assert not run.graphs and t_gmres.GMRES_COUNTS["eager"] == 0
 
 
@@ -549,7 +554,7 @@ def test_static_operator_keeps_shared_tensors_shared():
         n1 * t_gmres.PACKED_HEADROOM)
     assert torch.equal(s1.packed.values[:n1], op1.packed.values)
     assert run.load(op1) is s1                 # loaded once a cycle
-    run.graphs[0] = "a graph"
+    run.graphs[("arnoldi", 0)] = "a graph"
     s2 = run.load(op2)
     n2 = op2.packed.values.numel()
     grew = n2 > s1.packed.values.numel()
@@ -576,12 +581,12 @@ def test_runner_against_jax_implicit_step(dt):
     _fresh(tk)
     for d in dts:
         js2, jres = j_ai.implicit_step(js, jop, jk, d)
-        ts2, tres = t_ai.implicit_step(ts, top, tk, d)
+        ts2, tres = implicit_step(t_ai.linear_system, ts, top, tk, d)
         _close(ts2.C, js2.C, 1e-10, 1e-12)
         assert tres < 1e-10 and float(jres) < 1e-10
 
 
-def test_runner_against_jax_gmres():
+def test_runner_against_jax_gmres(monkeypatch):
     """f32 vectors with f64 scalars through one runner, twice: the JAX
     package's gmres to test_gmres_f32_matches_jax's gates."""
     rng = np.random.default_rng(7)
@@ -596,11 +601,12 @@ def test_runner_against_jax_gmres():
         jnp.zeros((12, 8), jnp.float32), tol=1e-5, restart=20, maxiter=200)
     At = torch.tensor(A_np)
     run = t_gmres.GmresRunner()
+    monkeypatch.setattr(t_gmres, "GmresRunner", lambda: run)
     for _ in range(2):
         x, (res, _) = t_gmres.gmres(
             lambda v: (At @ v.reshape(-1)).reshape(v.shape),
             torch.tensor(b_np), torch.zeros((12, 8)), tol=1e-5, restart=20,
-            maxiter=200, flat_kernels=True, runner=run)
+            maxiter=200, flat_kernels=True)
         assert res < 1e-5 and float(res_ref) < 1e-5
         np.testing.assert_allclose(x.numpy().ravel(), x_true, rtol=5e-4,
                                    atol=5e-4)

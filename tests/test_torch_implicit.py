@@ -25,7 +25,7 @@ from pd_mg_pin_corrosion_tpu_torch import initialize_state as t_initialize_state
 from pd_mg_pin_corrosion_tpu_torch import solvers as t_solvers
 from pd_mg_pin_corrosion_tpu_torch import state_from_numpy
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
-from pd_mg_pin_corrosion_tpu_torch.ops.gmres import gmres
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import gmres, implicit_step
 
 torch.set_num_threads(2)
 
@@ -88,7 +88,7 @@ def test_adaptive_dt_and_implicit_step_match(precision):
 
     for dt in (float(jdt), 60.0):   # the adaptive dt and the stiff cap
         js2, jres = j_ai.implicit_step(js, jop, jk, dt)
-        ts2, tres = t_ai.implicit_step(ts, top, tk, dt)
+        ts2, tres = implicit_step(t_ai.linear_system, ts, top, tk, dt)
         if precision == "f64":
             _close(ts2.C, js2.C, 1e-10, 1e-12)
             assert tres < 1e-10 and float(jres) < 1e-10
@@ -205,7 +205,7 @@ def test_implicit_step_bits_do_not_depend_on_the_basis_pitch(precision,
     top = t_ai.assemble(ts, tk)
     n = ts.C.numel()
     assert n % 32 != 0
-    pitched, res = t_ai.implicit_step(ts, top, tk, 60.0)
+    pitched, res = implicit_step(t_ai.linear_system, ts, top, tk, 60.0)
     made = []
 
     def back_to_back(rows, m, dtype, device):
@@ -215,7 +215,7 @@ def test_implicit_step_bits_do_not_depend_on_the_basis_pitch(precision,
     monkeypatch.setattr(gmres_mod, "pitched_basis", back_to_back)
     # the kit's runner keeps its basis: a fresh runner makes a new one
     gmres_mod._runners.pop(tk, None)
-    flat, res_flat = t_ai.implicit_step(ts, top, tk, 60.0)
+    flat, res_flat = implicit_step(t_ai.linear_system, ts, top, tk, 60.0)
     assert made and all(m == n for _, m in made)
     assert res == res_flat and torch.equal(pitched.C, flat.C)
 
@@ -240,7 +240,7 @@ def test_gmres_f32_stiff_dt_reaches_tol():
     assert kit.dtype == torch.float32
     state = t_initialize_state(grid, cfg, dtype=kit.dtype, device="cpu")
     op = t_ai.assemble(state, kit)
-    s1, _ = t_ai.implicit_step(state, op, kit, 10.0)
-    s2, res = t_ai.implicit_step(s1, op, kit, 60.0)
+    s1, _ = implicit_step(t_ai.linear_system, state, op, kit, 10.0)
+    s2, res = implicit_step(t_ai.linear_system, s1, op, kit, 60.0)
     assert torch.isfinite(s2.C).all()
     assert res <= 1e-6, f"stiff-dt f32 GMRES stalled at {res:.2e}"

@@ -34,6 +34,7 @@ from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import (GROUP, SLICE,
                                                             lane_chunk)
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
 from pd_mg_pin_corrosion_tpu_torch.ops import gmres as t_gmres
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -248,8 +249,9 @@ def test_operator_carries_the_packed_form_only_on_the_card():
                        t_ai.matvec_M(op, tk, x, op.W16))
     carried = dataclasses.replace(op, packed=packed,
                                   W16=packed.to(torch.bfloat16))
-    s_dense, r_dense = t_ai.implicit_step(ts, op, tk, 60.0)
-    s_packed, r_packed = t_ai.implicit_step(ts, carried, tk, 60.0)
+    s_dense, r_dense = implicit_step(t_ai.linear_system, ts, op, tk, 60.0)
+    s_packed, r_packed = implicit_step(t_ai.linear_system, ts, carried, tk,
+                                       60.0)
     assert r_dense == r_packed and torch.equal(s_dense.C, s_packed.C)
     # a float64 x goes to the dense weights
     assert t_ai.matvec_M(carried, tk, x.double()).dtype == torch.float64

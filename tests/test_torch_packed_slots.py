@@ -34,6 +34,7 @@ from pd_mg_pin_corrosion_tpu_torch import kernels
 from pd_mg_pin_corrosion_tpu_torch import kit as t_kit_mod
 from pd_mg_pin_corrosion_tpu_torch import state_from_numpy
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -163,8 +164,8 @@ def test_implicit_step_with_the_cards_operator_layout(operator):
     card = dataclasses.replace(dense, W=None, packed=packed,
                                W16=packed.to(torch.bfloat16))
     before = kernels.launch_counts()
-    s_dense, r_dense = t_ai.implicit_step(ts, dense, tk, 60.0)
-    s_card, r_card = t_ai.implicit_step(ts, card, tk, 60.0)
+    s_dense, r_dense = implicit_step(t_ai.linear_system, ts, dense, tk, 60.0)
+    s_card, r_card = implicit_step(t_ai.linear_system, ts, card, tk, 60.0)
     assert kernels.launch_counts() == before
     assert r_card == r_dense and r_card < 1e-6
     assert torch.equal(s_card.C, s_dense.C)

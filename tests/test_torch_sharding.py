@@ -41,6 +41,7 @@ from pd_mg_pin_corrosion_tpu_torch.parallel import checks
 from pd_mg_pin_corrosion_tpu_torch.parallel.launch import spawn
 from pd_mg_pin_corrosion_tpu_torch.parallel.sharding import (Mesh, make_mesh,
                                                              shard_kit)
+from pd_mg_pin_corrosion_tpu_torch.ops.gmres import implicit_step
 
 torch.set_num_threads(2)
 
@@ -295,7 +296,8 @@ def test_implicit_step_within_jax(cases, sharded, n, dim):
     c = cases[dim]
     kit, st = c.port()
     ops = ops_for(kit)
-    one, _ = ops.implicit_step(st, ops.assemble(st, kit), kit, 0.5)
+    one, _ = implicit_step(ops.linear_system, st, ops.assemble(st, kit), kit,
+                           0.5)
     np.testing.assert_allclose(C, one.C.numpy(), rtol=1e-8, atol=1e-12)
     jk, js = c.jax()
     op = jax.jit(lambda s: j_ai.assemble(s, jk))(js)
