@@ -177,13 +177,31 @@ argument all of them run, in this order):
    per implicit step (at most STEPGRAPH_RECORDS besides one a replayed
    Arnoldi step on the graph route), busy share, the segment graphs'
    captures, capture ms, graph pool and peak memory.
+20. ``configs``, the shipped configurations no other phase runs
+   (params.cfg, the CLI's default; params_diagnostic, params_calibration,
+   params_poiseuille, params_transport_viz, params_fine,
+   params_calibration_v2) and the flagship's geometry at dx = 16e-6
+   (params_3d.cfg, 30,420 nodes): each through ``cli.run`` with its file
+   unchanged but for CONFIGS_CAPS, CUDA against the CPU in float32 with
+   the graph routes replaying (the loss may differ by 4 ulps of its
+   float32 sum over the initially solid nodes; the coarse flagship within
+   main3d's BANKED_GATES), every kernel of its path launched (ns2d,
+   matvec2d and the basis kernels; ns2d and ard2d for the explicit
+   poiseuille run; the 3D path at 16e-6), CONFIGS_F64 again in float64
+   within tests/test_parity.py's gates; then CONFIGS_WHOLE whole on the
+   card to their own T_final with PD_TPU_PHASE_TIMERS=1: wall, simulated
+   hours per wall hour, cycles, steps, flow iterations, the phase
+   breakdown and the final row beside docs/PARITY.md's record (RECORDS,
+   printed), params_poiseuille held to tests/test_flow.py's gates
+   (converged, L2 relative error < 5 %, v_max within 10 % of 1.5 U_in).
 
 Every CLI run on the card prints its flow iterations by route
 (``[flow]`` lines: graph replays, eager iterations, captures), its
 Arnoldi steps (``[gmres]`` lines: replays, eager steps, captures,
 recaptures, cycles, the graphs' kernel nodes) and its implicit steps'
-other segments (``[step]`` lines); the main paths' checks and every CUDA-against-CPU run (but
-gs_parity's, whose host sweeps keep its flow on the eager route) fail
+other segments (``[step]`` lines); the main paths' checks and every
+CUDA-against-CPU run (but gs_parity's, whose host sweeps keep its flow on
+the eager route, and float64 ones, whose NS step is the plain twin) fail
 when the flow replayed no graph, and every implicit one when its Arnoldi
 steps or its step segments replayed none.
 
@@ -360,6 +378,55 @@ SHARD_CAPS = [f"flow_max_iters={SHARD_FLOW_ITERS}", "T_final=150",
               "corrosion_steps_per_check=5", "checkpoint_every=1"]
 SHARD_RESUME_T_FINAL = 210
 SEED = 20261016
+# configs: the seven shipped configurations that no other phase runs
+# (ROADMAP A.13) and the flagship's geometry at dx = 16e-6 (26 x 26 x 45 =
+# 30,420 nodes, 500 SOLID_MG: A.2 gate 2's grid), each through the CLI with
+# its file unchanged but for the caps below, in f32 on CUDA against the
+# CPU: every flow solve capped at 20 iterations (checks 1-10 eager, the
+# graph captured at the 11th and replayed after), the physical time at the first
+# implicit steps (the 30 s step of the 60 s ceiling; the 0.6 s floor of
+# the fast-dissolving ones, each step ending its cycle with a phase
+# change), params_poiseuille.cfg as shipped (no wire: one explicit step).
+# Rows within 1e-4 (the coarse flagship: main3d's BANKED_GATES); the mass
+# loss, 100 (1 - sum C / n0) over the n0 initially solid nodes, may instead
+# differ by 4 ulps of its float32 sum (as LOSS_ATOL): after the first 30 s
+# step it is ~0.07 % and one ulp of the sum of 1,296 values near 1 is
+# 1.4e-4 of it. CONFIGS_F64 run again in float64, CUDA against the CPU
+# within tests/test_parity.py's gates (GATES_F64), to show that such a
+# difference is the float32 sum's and not the path's. Then the
+# five cheapest whole, on the card alone (CONFIGS_WHOLE), each to its own
+# T_final with PD_TPU_PHASE_TIMERS=1, its final row beside docs/PARITY.md's
+# record where one exists (RECORDS; printed, not a gate: a record may
+# predate the grid or the mode the configuration runs now, ROADMAP C)
+CONFIG_DIR = os.path.join(ROOT, "config")
+CONFIGS_FLOW = "flow_max_iters=20"
+CONFIGS_CAPS = {
+    "params": ("params", [CONFIGS_FLOW, "T_final=90"]),
+    "params_diagnostic": ("params_diagnostic", [CONFIGS_FLOW, "T_final=90"]),
+    "params_calibration": ("params_calibration", [CONFIGS_FLOW,
+                                                  "T_final=90"]),
+    "params_poiseuille": ("params_poiseuille", [CONFIGS_FLOW]),
+    "params_transport_viz": ("params_transport_viz", [CONFIGS_FLOW,
+                                                      "T_final=1.2"]),
+    "params_fine": ("params_fine", [CONFIGS_FLOW]),
+    "params_calibration_v2": ("params_calibration_v2", [CONFIGS_FLOW,
+                                                        "T_final=60"]),
+    # four cycles of two 30 s steps, the re-solves capped too
+    "params_3d@16um": ("params_3d", ["dx=16e-6", CONFIGS_FLOW,
+                                     "flow_max_iters_resolve=20",
+                                     "corrosion_steps_per_check=2",
+                                     "T_final=240"]),
+}
+CONFIGS_F64 = ("params_diagnostic", "params_calibration")
+GATES_F64 = {"time_s": 1e-9, "pin_mass_loss_pct": 1e-6, "v_max": 1e-6,
+             "C_max_fluid": 1e-6}
+CONFIGS_WHOLE = ("params", "params_diagnostic", "params_poiseuille",
+                 "params_transport_viz", "params_fine")
+# docs/PARITY.md's records of the JAX package's whole runs on a TPU
+# (trajectories, not times): final time_s, pin_mass_loss_pct, solid_nodes,
+# v_max; None where it recorded none
+RECORDS = {"params_transport_viz": (2.4, 65.80, 789, 4.17e-1),
+           "params_fine": (0.6, None, 8200, None)}
 # flowgraph: FLOWGRAPH_ITERS capped flow iterations of each flow the CUDA
 # graph serves (name: configuration, overrides, nodes), from one seeded
 # state, on the eager route and on the graph's; timing and profiler
@@ -388,7 +455,7 @@ FLOWED = {}
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
           "calib", "parity", "shard", "flowgraph", "gmresgraph",
-          "stepgraph")
+          "stepgraph", "configs")
 # the kernels each main path must launch
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
@@ -1265,10 +1332,14 @@ def recording(module, name, calls):
         setattr(module, name, real)
 
 
-def compare_rows(tag, what, g, c, loss_atol=0.0, limit=1e-4):
+def compare_rows(tag, what, g, c, loss_atol=0.0, gates=None):
     """Fail unless the diagnostics rows g (CUDA) and c (CPU) have the same
-    solid_nodes and every other column within ``limit`` relative (the mass
-    loss may instead differ by loss_atol)."""
+    solid_nodes and every other column within 1e-4 relative, or within
+    its own limit in ``gates`` (the mass loss may instead differ by
+    loss_atol)."""
+    gates = {col: (gates or {}).get(col, 1e-4)
+             for col in ("time_s", "pin_mass_loss_pct", "v_max",
+                         "C_max_fluid")}
     same_solid = (len(g) == len(c)
                   and np.array_equal(g["solid_nodes"], c["solid_nodes"]))
     diffs, loss_abs = {}, float("inf")
@@ -1279,20 +1350,24 @@ def compare_rows(tag, what, g, c, loss_atol=0.0, limit=1e-4):
             diffs[col] = float(rel.max())
         loss_abs = float(np.abs(g["pin_mass_loss_pct"]
                                 - c["pin_mass_loss_pct"]).max())
+    shown = (f"{gates['v_max']:g}" if len(set(gates.values())) == 1
+             else json.dumps(gates))
     print(f"[{tag}] {what}: {len(g)} rows; solid_nodes equal: {same_solid}; "
-          f"max rel diff by column {json.dumps(diffs)} (limit {limit:g}); "
+          f"max rel diff by column {json.dumps(diffs)} (limit {shown}); "
           f"max abs diff of the loss {loss_abs:.3e} % (limit "
           f"{loss_atol:.3e} %)")
-    loss_ok = (diffs.get("pin_mass_loss_pct", 1.0) <= limit
-               or loss_abs <= loss_atol)
-    if (not same_solid or not loss_ok or max(
-            v for k, v in diffs.items() if k != "pin_mass_loss_pct") > limit):
+    loss_ok = (diffs.get("pin_mass_loss_pct", 1.0)
+               <= gates["pin_mass_loss_pct"] or loss_abs <= loss_atol)
+    if (not same_solid or not loss_ok or any(
+            v > gates[k] for k, v in diffs.items()
+            if k != "pin_mass_loss_pct")):
         fail(f"{what}: CUDA vs CPU disagree")
 
 
-def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
-    """run_cli on CUDA and on the CPU; compare_rows of the two. Returns the
-    CUDA run's solver and rows and the kernels' launches in that run."""
+def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0, gates=None):
+    """run_cli on CUDA and on the CPU; compare_rows of the two (``gates``:
+    a limit by column instead of 1e-4). Returns the CUDA run's solver and
+    rows and the kernels' launches in that run."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
 
     kernels.reset_launch_counts()
@@ -1301,18 +1376,22 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0):
                         args + ["--device", "cuda"])
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    # the graph route on the card but for gs_parity's host sweeps
-    if not solver.flow_graph["replays"] and "gs_parity=1" not in args:
+    # the flow's graph route on the card but for gs_parity's host sweeps
+    # and float64 (its NS step is the plain twin, solvers.FlowRunner)
+    if (not solver.flow_graph["replays"] and "gs_parity=1" not in args
+            and "precision=f64" not in args):
         fail(f"{name}: the CUDA run's flow replayed no CUDA graph")
-    if not solver.gmres_graph["replays"] and "use_implicit=0" not in args:
+    # an implicit run (the configuration's use_implicit, or an override)
+    implicit = solver.explicit_steps == 0
+    if not solver.gmres_graph["replays"] and implicit:
         fail(f"{name}: the CUDA run's Arnoldi steps replayed no CUDA graph")
-    if not solver.step_graph["replays"] and "use_implicit=0" not in args:
+    if not solver.step_graph["replays"] and implicit:
         fail(f"{name}: the CUDA run's step segments replayed no CUDA graph")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
     compare_rows(tag, f"{name} (cuda {t1 - t0:.2f} s, cpu "
-                 f"{time.time() - t1:.2f} s)", g, c, loss_atol)
+                 f"{time.time() - t1:.2f} s)", g, c, loss_atol, gates=gates)
     return solver, g, counts
 
 
@@ -2507,6 +2586,188 @@ def phase_parity(tmp):
         fail("parity.cfg gs_parity f64 on CUDA vs the reference binary")
 
 
+def log_lines(out_dir, *starts):
+    """The lines of out_dir/run.log that start with one of ``starts``
+    (stripped), and the phase breakdown's lines."""
+    found, phases = [], False
+    with open(os.path.join(out_dir, "run.log")) as f:
+        for line in f:
+            ln = line.strip()
+            if ln.startswith("[Timer] phase breakdown"):
+                phases = True
+            elif phases and not line.startswith("    "):
+                phases = False
+            if phases or ln.startswith(starts):
+                found.append(ln)
+    return found
+
+
+def config_path(name):
+    return os.path.join(CONFIG_DIR, f"{name}.cfg")
+
+
+def config_checks(tag, checks):
+    for what, ok in checks.items():
+        print(f"[configs] {tag} check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail(f"configs {tag} checks")
+
+
+def solid_ulps(cfg_name, caps, ulps=4):
+    """``ulps`` units in the last place of a float32 sum of n0 values near
+    1, as a mass loss in %, n0 the configuration's initially solid nodes
+    (0 without a wire)."""
+    from pd_mg_pin_corrosion_tpu_torch import build_grid
+    from pd_mg_pin_corrosion_tpu_torch.config import Config
+
+    cfg = Config.load(config_path(cfg_name))
+    cfg.apply_overrides(caps)
+    n0 = build_grid(cfg).type_counts()["SOLID_MG"]
+    return ulps * 100.0 * float(np.spacing(np.float32(n0))) / max(n0, 1)
+
+
+def config_capped(tmp, name, cfg_name, caps):
+    """One configuration capped, CUDA against the CPU (run_cuda_and_cpu),
+    and the checks of its path. Returns the CUDA run's launches."""
+    three_d = cfg_name == "params_3d"
+    tag = name.replace("@", "_")
+    solver, rows, counts = run_cuda_and_cpu(
+        tmp, "configs", tag, [config_path(cfg_name), *caps],
+        solid_ulps(cfg_name, caps), gates=BANKED_GATES if three_d else None)
+    explicit = solver.explicit_steps > 0
+    path = (PATH_3D if three_d else ("ns2d", "ard2d") if explicit
+            else PATH_2D)
+    lines = log_lines(os.path.join(tmp, f"{tag}_cuda"),
+                      "Initial solid nodes:", "Poiseuille validation",
+                      "Corrosion dt", "WARNING")
+    print(f"[configs] {name} capped ({' '.join(caps)}): {solver.cycles} "
+          f"cycles, steps per cycle {solver.cycle_steps}, "
+          f"{solver.explicit_steps} explicit steps, {solver.flow_solve_count} "
+          f"flow solves, {solver.flow_iters} flow iterations, "
+          f"{solver.total_dissolved} dissolved; {' | '.join(lines)}; "
+          f"launches {json.dumps(counts)}")
+    checks = {
+        "finite rows": len(rows) > 0 and all(
+            np.isfinite(rows[c]).all() for c in rows.dtype.names),
+        "every kernel of the path launched":
+            all(counts[k] > 0 for k in path),
+        "all state tensors on cuda": all(
+            t.is_cuda for t in solver.final_state.tensors()),
+    }
+    if cfg_name == "params_poiseuille":
+        checks["no wire: one explicit step, 100 % loss of 0 solid nodes"] = (
+            "Initial solid nodes: 0" in lines and solver.explicit_steps == 1
+            and list(rows["pin_mass_loss_pct"]) == [100.0])
+    if cfg_name == "params_transport_viz":
+        checks["a phase change and a flow re-solve inside the cap"] = (
+            solver.total_dissolved > 0 and solver.flow_solve_count == 2)
+    if cfg_name == "params_fine":
+        checks["8,200 initial solid nodes"] = (
+            "Initial solid nodes: 8200" in lines)
+    if three_d:
+        checks["500 initial solid nodes, four cycles"] = (
+            "Initial solid nodes: 500" in lines and solver.cycles == 4)
+    config_checks(name, checks)
+    return counts
+
+
+def config_whole(tmp, name):
+    """One configuration whole on the card (PD_TPU_PHASE_TIMERS=1) to its
+    own T_final; prints its wall, simulated hours per wall hour, cycles,
+    steps, flow iterations, phase breakdown, final row and docs/PARITY.md's
+    record beside it, and checks the run. Returns its launches."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.config import Config
+
+    cfg = Config.load(config_path(name))
+    out_dir = os.path.join(tmp, f"{name}_whole")
+    kernels.reset_launch_counts()
+    os.environ["PD_TPU_PHASE_TIMERS"] = "1"
+    try:
+        t0 = time.time()
+        solver, rows = run_cli(out_dir, [config_path(name), "--device",
+                                         "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        del os.environ["PD_TPU_PHASE_TIMERS"]
+    counts = kernels.launch_counts()
+    lines = log_lines(out_dir, "Initial solid nodes:", "Poiseuille validation",
+                      "Corrosion dt", "WARNING", "=== All solid",
+                      "[Timer] total_simulation")
+    last = rows[-1]
+    explicit = solver.explicit_steps > 0
+    steps = solver.explicit_steps if explicit else solver.total_implicit_steps
+    print(f"[configs] {name} whole: wall {wall:.3f} s, t={last['time_s']:.6e}"
+          f" s, {last['time_s'] / wall:.2f} simulated h per wall h, "
+          f"{solver.cycles} cycles, {steps} {'explicit' if explicit else 'implicit'}"
+          f" steps, {solver.flow_solve_count} flow solves, "
+          f"{solver.flow_iters} flow iterations ({json.dumps(solver.flow_graph)}), "
+          f"{solver.total_dissolved} dissolved, "
+          f"{solver.gmres_warnings} GMRES warnings; launches "
+          f"{json.dumps(counts)}")
+    for ln in lines:
+        print(f"[configs] {name} whole log: {ln}")
+    print(f"[configs] {name} whole final row: t={last['time_s']:.6e} s "
+          f"loss={last['pin_mass_loss_pct']:.6e} % "
+          f"solid={int(last['solid_nodes'])} v_max={last['v_max']:.6e} "
+          f"C_max_fluid={last['C_max_fluid']:.6e}")
+    if name in RECORDS:
+        rec = dict(zip(("time_s", "pin_mass_loss_pct", "solid_nodes",
+                        "v_max"), RECORDS[name]))
+        diffs = {c: float(abs(last[c] - r) / abs(r))
+                 for c, r in rec.items() if r is not None}
+        print(f"[configs] {name} whole vs docs/PARITY.md's record "
+              f"{json.dumps(rec)}: rel diff {json.dumps(diffs)} (1 % is "
+              f"compare_banked.py's limit; a record, not a gate)")
+    path = (("ns2d", "ard2d") if explicit else PATH_2D)
+    checks = {
+        "reached T_final (or dissolved every solid node)":
+            last["time_s"] >= cfg.T_final
+            or any(ln.startswith("=== All solid") for ln in lines),
+        "finite rows": all(np.isfinite(rows[c]).all()
+                           for c in rows.dtype.names),
+        "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
+        "the implicit steps replayed CUDA graphs": explicit or (
+            solver.gmres_graph["replays"] > 0
+            and solver.step_graph["replays"] > 0),
+        "every kernel of the path launched":
+            all(counts[k] > 0 for k in path),
+        "no GMRES non-convergence warning": solver.gmres_warnings == 0,
+    }
+    if name == "params_poiseuille":
+        # tests/test_flow.py's gates on the steady Poiseuille flow
+        err = float(next(ln for ln in lines if ln.startswith(
+            "Poiseuille validation")).split("= ")[1])
+        peak = 1.5 * cfg.U_in
+        print(f"[configs] params_poiseuille whole: flow {solver.flow_results}"
+              f", L2 rel error {err:.3e} (gate 0.05), v_max "
+              f"{last['v_max']:.6e} against 1.5 U_in = {peak:.6e}: "
+              f"{abs(last['v_max'] - peak) / peak:.3e} (gate 0.1)")
+        checks["the flow converged"] = bool(solver.flow_results[0][2])
+        checks["Poiseuille L2 relative error < 5 %"] = err < 0.05
+        checks["v_max within 10 % of 1.5 U_in"] = (
+            abs(last["v_max"] - peak) / peak < 0.1)
+    config_checks(f"{name} whole", checks)
+    return counts
+
+
+def phase_configs(tmp):
+    """Phase configs: CONFIGS_CAPS capped, CUDA against the CPU, then
+    CONFIGS_WHOLE whole on the card. Returns {run: launches}."""
+    launches = {}
+    for name, (cfg_name, caps) in CONFIGS_CAPS.items():
+        launches[name] = config_capped(tmp, name, cfg_name, caps)
+    for name in CONFIGS_F64:
+        cfg_name, caps = CONFIGS_CAPS[name]
+        run_cuda_and_cpu(tmp, "configs", f"{name}_f64",
+                         [config_path(cfg_name), *caps, "precision=f64"],
+                         gates=GATES_F64)
+    for name in CONFIGS_WHOLE:
+        launches[f"{name}_whole"] = config_whole(tmp, name)
+    return launches
+
+
 def flow_case(pkg, name):
     """(kit, seeded state) of a FLOW_CASES flow: the one an earlier phase
     left in FLOW_KITS, or built here (``cli.build``, then
@@ -3051,7 +3312,8 @@ def main():
                 ("shard", lambda: phase_shard(tmp, pkg)),
                 ("flowgraph", lambda: phase_flowgraph(pkg)),
                 ("gmresgraph", lambda: phase_gmresgraph(pkg)),
-                ("stepgraph", lambda: phase_stepgraph(pkg))):
+                ("stepgraph", lambda: phase_stepgraph(pkg)),
+                ("configs", lambda: phase_configs(tmp))):
             if name not in phases:
                 continue
             out = timed(name, run)

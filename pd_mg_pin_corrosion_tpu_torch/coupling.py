@@ -56,11 +56,11 @@ from .parallel.sharding import all_reduce, gather_state, own_rows
 from .solvers import (FLOW_COUNTS, coarse_warm_start, parity_tables,
                       poiseuille_l2_error, solve_steady)
 
-# the two CSVs (coupling.cpp:55-80): file name, header, seconds per unit of
-# the first column
+# the two CSVs (coupling.cpp:55-80): file name and header; each gets one
+# row at every diagnostics write (_write_diagnostics)
 CSVS = (("diagnostics.csv",
-         "time_s,time_h,pin_mass_loss_pct,solid_nodes,v_max,C_max_fluid\n", 1.0),
-        ("mass_loss.csv", "time_h,pin_mass_loss_pct\n", 3600.0))
+         "time_s,time_h,pin_mass_loss_pct,solid_nodes,v_max,C_max_fluid\n"),
+        ("mass_loss.csv", "time_h,pin_mass_loss_pct\n"))
 
 
 def _solid_sums(state: State, kit):
@@ -332,29 +332,42 @@ class CoupledSolver:
     def _init_csv(self, cfg):
         if not self._writes:
             return
-        for name, header, _ in CSVS:
+        for name, header in CSVS:
             with open(f"{cfg.output_dir}/{name}", "w") as f:
                 f.write(header)
 
     def _resume_csv(self, cfg, t_corr):
-        """On resume, keep every CSV row at or before the checkpoint time
-        and drop the rows written after it, so appending continues a
-        gap-free curve; a missing file just gets its header."""
+        """On resume, keep every CSV row written at or before the checkpoint
+        time and drop the rows written after it, so appending continues a
+        gap-free curve; a missing file just gets its header. A row's time
+        is compared as it was printed: the row written at the checkpoint
+        holds t_corr to 7 digits, which may round up past it (the JAX
+        package compares the printed time with t_corr + 1e-6 s and so drops
+        that row whenever it rounds up by more). mass_loss.csv, whose hours
+        keep 6 decimals, keeps as many rows as diagnostics.csv: the two get
+        their rows together."""
         if not self._writes:
             return
-        for name, header, t_div in CSVS:
+        t_printed = float(f"{t_corr:.6e}") + 1e-6
+        n_kept = None
+        for name, header in CSVS:
             path = f"{cfg.output_dir}/{name}"
-            kept = []
+            rows = []
             if os.path.exists(path):
                 with open(path) as f:
                     rows = f.readlines()[1:]
+            if n_kept is None:
+                kept = []
                 for row in rows:
                     try:
-                        t_row = float(row.split(",", 1)[0]) * t_div
+                        t_row = float(row.split(",", 1)[0])
                     except ValueError:
                         continue
-                    if t_row <= t_corr + 1e-6:
+                    if t_row <= t_printed:
                         kept.append(row)
+                n_kept = len(kept)
+            else:
+                kept = rows[:n_kept]
             with open(path, "w") as f:
                 f.write(header)
                 f.writelines(kept)

@@ -124,9 +124,11 @@ class FlowRunner:
     flow time step (0-d), both allocated once and refreshed in place, so a
     captured graph reads and writes the same addresses on every replay.
     The kit's own tensors never change after ``build_*``, so the graph
-    reads them directly. ``graph_route``: on the card, no gs_parity tables,
-    no mesh slab. ``launches`` are the kernel launches one replay stands
-    for, added to the wrappers' counters at each replay;
+    reads them directly. ``graph_route``: on the card, in float32, no
+    gs_parity tables, no mesh slab (a float64 NS step is the plain twin,
+    whose gather of the FLUID rows reads their count back from the device,
+    which no capture can hold). ``launches`` are the kernel launches one
+    replay stands for, added to the wrappers' counters at each replay;
     ``capture_ms`` and ``pool_bytes`` are the capture's wall time (its
     warm-up iteration included) and the growth of the reserved device
     memory across it (the graph's private pool). The kit is passed to
@@ -139,6 +141,7 @@ class FlowRunner:
         self.corrections = bool(kit.cfg.channel_flow_corrections
                                 and is_structured(kit))
         self.graph_route = (kit.device.type == "cuda"
+                            and kit.dtype == torch.float32
                             and not parity_tables(kit)
                             and getattr(kit, "slab", None) is None)
         self.state: State | None = None

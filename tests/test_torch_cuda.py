@@ -1253,6 +1253,38 @@ def test_flow_graph_route_is_the_cards_alone():
                                   ).graph_route
     cfg.apply_overrides(["gs_parity=0"])
     assert solvers.FlowRunner(build_kit(grid, cfg, device="cuda")).graph_route
+    # float64: the NS step's plain twin reads its FLUID rows' count back
+    cfg.apply_overrides(["precision=f64"])
+    assert not solvers.FlowRunner(build_kit(grid, cfg, device="cuda")
+                                  ).graph_route
+
+
+def test_f64_run_on_the_card_equals_the_cpu(tmp_path):
+    """parity.cfg in float64 through the CLI on the card (the flow on the
+    eager route, GMRES and the step segments graphed) and on the CPU: the
+    rows within tests/test_parity.py's gates. The flow's capture of the
+    float64 NS step stopped such a run before the route excluded it."""
+    from pd_mg_pin_corrosion_tpu_torch import cli
+
+    _card()
+    args = [PARITY, "precision=f64", "flow_max_iters=300", "T_final=120"]
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        solver = cli.run(args + [f"output_dir={tmp_path / dev}", "--device",
+                                 dev])
+        rows[dev] = np.atleast_1d(np.genfromtxt(
+            tmp_path / dev / "diagnostics.csv", delimiter=",", names=True))
+        if dev == "cuda":
+            assert solver.flow_graph["replays"] == 0
+            assert solver.flow_graph["eager"] > 0
+            assert solver.gmres_graph["replays"] > 0
+            assert solver.step_graph["replays"] > 0
+    g, c = rows["cuda"], rows["cpu"]
+    assert len(g) == len(c) > 0
+    np.testing.assert_array_equal(g["solid_nodes"], c["solid_nodes"])
+    np.testing.assert_allclose(g["time_s"], c["time_s"], rtol=1e-9)
+    for col in ("pin_mass_loss_pct", "v_max", "C_max_fluid"):
+        np.testing.assert_allclose(g[col], c[col], rtol=1e-6, err_msg=col)
 
 
 # ---------------------------------------------------------------------------
