@@ -150,33 +150,35 @@ argument all of them run, in this order):
    per iteration (a replay must be one), the work a replay stands for,
    the busy share in a profiler window, the capture's ms and the graph
    pool's bytes.
-18. ``gmresgraph``, GMRES's Arnoldi steps as CUDA graphs
-   (``ops.gmres.GmresRunner``) on the implicit steps of the same four
+18. ``gmresgraph``, GMRES's solve as one CUDA graph with conditional
+   nodes (``gmres.implicit_step``'s program: the restart cycles a WHILE,
+   the Arnoldi steps nested IFs, the cycle ends a SWITCH, the refinement
+   passes IFs, each decision the gmres_qr kernel's) on the same four
    grids, from the seeded state after FLOWGRAPH_ITERS flow iterations
-   (flowgraph's kits and solves, when it ran): GMRESGRAPH_STEPS
-   implicit steps from that state and its operator on the eager route
-   (``eager=True``) and on the graph route, which must agree bit for bit
-   in C and every residual, in Arnoldi steps, cycles and launch counts,
-   with replays on the graph route only and at most one first capture a
-   step index; a second operator (the state after them, phase changed)
-   the same, reusing the graphs; then, on the steps that follow the
-   first ones, ms per implicit step by route (windows of
-   GMRESGRAPH_WINDOW steps), host records per implicit and
-   per Arnoldi step, the busy share in a profiler window, Arnoldi steps
-   per implicit step, the captures' ms and the graph pool's bytes.
-19. ``stepgraph``, the whole implicit step as CUDA graphs of its segments
-   around the Arnoldi graphs (``coupling.StepRunner``: the head with the
-   adaptive dt and the BCs, the cycle starts and ends, the refinement's
-   residuals, the tail with the smoothing and the diagnostics) on the same
-   four grids from the same states: STEPGRAPH_STEPS steps of one cycle
-   with the extrapolated start on the eager and on the graph route, which
-   must agree bit for bit in every field and in each step's dt, n_below,
-   residual and diagnostics, in Arnoldi steps, cycles, segments and
-   launch counts, with replays on the graph route only; then windows of
-   STEPGRAPH_WINDOW steps by route: ms per implicit step, host records
-   per implicit step (at most STEPGRAPH_RECORDS besides one a replayed
-   Arnoldi step on the graph route), busy share, the segment graphs'
-   captures, capture ms, graph pool and peak memory.
+   (flowgraph's kits and solves, when it ran): GMRESGRAPH_STEPS solves
+   from that state and its operator on the eager route (``eager=True``,
+   each gate a host read) and on the graph route, which must agree bit
+   for bit in C and every residual, in Arnoldi steps, cycles and launch
+   counts, with launches on the graph route only, one capture and one
+   host read a solve; a second operator (the state after them, phase
+   changed) the same, reusing the graph; then ms a solve by route
+   (windows of GMRESGRAPH_WINDOW solves), host records and host reads a
+   solve, the busy share in a profiler window, Arnoldi steps a solve,
+   the graph's kernel nodes, capture ms and pool.
+19. ``stepgraph``, the implicit step loop as one CUDA graph
+   (``coupling.StepRunner.steps``: a WHILE over the steps, each its head
+   with the adaptive dt and the BCs, the solve, its tail with the
+   smoothing, the diagnostics and gmres_qr's exits) on the same four
+   grids from the same states: STEPGRAPH_STEPS steps of one cycle with
+   the extrapolated start, one at a time and as one chunk, on the eager
+   and on the graph route, which must agree bit for bit in every field,
+   in each step's dt, n_below, residual and diagnostics and in the
+   chunk's time, in Arnoldi steps, cycles, steps and launch counts, with
+   launches on the graph route only and one host read a step (a chunk);
+   then windows of STEPGRAPH_WINDOW steps by route and as chunks: ms an
+   implicit step, host records (at most STEPGRAPH_RECORDS a graphed
+   step) and host reads an implicit step, busy share, the step graphs'
+   kernel nodes, capture ms, graph pool and peak memory.
 20. ``configs``, the shipped configurations no other phase runs
    (params.cfg, the CLI's default; params_diagnostic, params_calibration,
    params_poiseuille, params_transport_viz, params_fine,
@@ -197,13 +199,15 @@ argument all of them run, in this order):
 
 Every CLI run on the card prints its flow iterations by route
 (``[flow]`` lines: graph replays, eager iterations, captures), its
-Arnoldi steps (``[gmres]`` lines: replays, eager steps, captures,
-recaptures, cycles, the graphs' kernel nodes) and its implicit steps'
-other segments (``[step]`` lines); the main paths' checks and every
-CUDA-against-CPU run (but gs_parity's, whose host sweeps keep its flow on
-the eager route, and float64 ones, whose NS step is the plain twin) fail
-when the flow replayed no graph, and every implicit one when its Arnoldi
-steps or its step segments replayed none.
+Arnoldi steps (``[gmres]`` lines: in graphs and eager, cycles, solve
+graph launches, captures, chunks, host reads inside steps, kernel nodes)
+and its implicit steps (``[step]`` lines: in graphs and eager, graph
+launches, captures, chunks, host reads and reads a step, kernel nodes);
+the main paths' checks and every CUDA-against-CPU run (but gs_parity's,
+whose host sweeps keep its flow on the eager route, and float64 ones,
+whose NS step is the plain twin) fail when the flow replayed no graph,
+and every implicit one when its Arnoldi steps or (but gs_parity's, whose
+steps' heads and tails run directly) its steps ran in no graph.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -443,7 +447,7 @@ GMRESGRAPH_WINDOW = 3
 # graphed step may take besides one a replayed Arnoldi step
 STEPGRAPH_STEPS = 5
 STEPGRAPH_WINDOW = 3
-STEPGRAPH_RECORDS = 60
+STEPGRAPH_RECORDS = 4
 FLOW_CASES = {"fine": (FINE, (), 196_749),
               "flagship": (FLAGSHIP, (), 1_055_668),
               "amr": (AMR_CFG, (), 39_920),
@@ -457,14 +461,15 @@ PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
           "calib", "parity", "shard", "flowgraph", "gmresgraph",
           "stepgraph", "configs")
 # the kernels each main path must launch
-PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
+PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy", "gmres_qr")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
-           "basis_axpy")
+           "basis_axpy", "gmres_qr")
 PATH_EXPLICIT = ("ard2d",)
-PATH_AMR = ("ns2d", "matvec2d", "basis_dots", "basis_axpy")
+PATH_AMR = ("ns2d", "matvec2d", "basis_dots", "basis_axpy", "gmres_qr")
 PATH_AMR_EXPLICIT = ("ns2d", "ard2d")
-PATH_AMRG = ("basis_dots", "basis_axpy")
-PATH_AMR3D = ("ns3d", "matvec3d", "slots3d_f64", "basis_dots", "basis_axpy")
+PATH_AMRG = ("basis_dots", "basis_axpy", "gmres_qr")
+PATH_AMR3D = ("ns3d", "matvec3d", "slots3d_f64", "basis_dots", "basis_axpy",
+              "gmres_qr")
 PATH_LADDER = ("ns3d", "ns3d_chunked_xla", "ns3d_chunked_factored",
                "ns3d_chunked_jconv", "ns3d_jstat")
 CHUNKED_FORMS = (("ns3d_chunked_xla", False), ("ns3d_chunked_factored", True),
@@ -737,6 +742,112 @@ def record_basis_dots(record, name, V, w):
            library=lambda: torch.mv(V, w))
 
 
+def qr_check_sequence(dl, m, rng):
+    """gmres_qr's modes in a step's order, for holding the kernel against
+    its twin (as tests/test_torch_device_loop.py): (mode, j, arg), arg
+    BEGIN's params, scalars to set first or the Arnoldi column h[:j + 2].
+    The main solve's loop (COPY 0) runs a cycle that breaks down at once
+    on a negative pivot (cosine -1), one on a zero column (denom 0: cosine
+    1) and m steps with two zero subdiagonals; then the refinement and
+    both correction loops (COPY 1 and 2), each with a breakdown, the
+    second opening on a negative pivot; then the step's end."""
+    def cols(js, zero=()):
+        out = []
+        for j in js:
+            col = np.concatenate([rng.normal(size=j + 1),
+                                  [abs(rng.normal()) + 0.1]])
+            if j in zero:
+                col[j + 1] = 0.0
+            out.append((dl.ARNOLDI, j, col))
+        return out
+
+    def end(rnew):
+        return [(dl.FINISH, 0, None), (dl.ACCEPT, 0, {"RNEW": rnew})]
+
+    half = max(m // 2, 2)
+    return [
+        (dl.BEGIN, 0, (0.0, 1e9, 1e-4, 1e-6, 8, 3, 10, 4, 1, 2, 1000)),
+        (dl.HEAD, 0, {"BN": 3.0, "RN": 1.0}),
+        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.array([-2.0, 0.0])),
+        *end(2.0),
+        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.zeros(2)),
+        *end(2.0),
+        (dl.START, 0, {"BETA": 1.0}), *cols(range(m), {m // 3, m // 2}),
+        *end(0.5),
+        (dl.REF_FIRST, 0, {"BN": 2.0, "RN": 1e-5}),
+        (dl.CORRECT, 0, {"BN": 1e-5, "RN": 1e-5}),
+        (dl.START, 0, {"BETA": 1e-5}), *cols(range(half), {1}), *end(1e-7),
+        (dl.UPDATE, 0, {"RN": 1e-6}),
+        (dl.CORRECT, 0, {"BN": 1e-6, "RN": 1e-6}),
+        (dl.START, 0, {"BETA": 1e-6}), (dl.ARNOLDI, 0, np.array([-1.0, 0.0])),
+        *cols(range(1, half)), *end(1e-8),
+        (dl.UPDATE, 0, {"RN": 1e-9}),
+        (dl.TAIL, 1, {"DT": 30.0, "NBELOW": 0.0, "LOSS": 1.0, "SOLID": 9.0,
+                      "VMAX": 2.0, "CMAX": 0.5})]
+
+
+def record_gmres_qr(record, m, rng):
+    """gmres_qr at restart length m (float32 runs' GMRES(25)): every mode
+    of a step in order (qr_check_sequence: cycles of the main solve and
+    of both refinement corrections, breakdowns on a negative pivot, a zero
+    column and zero subdiagonals), S and F, the trip counters included,
+    bit for bit against the plain twin on the host after each; then the
+    FINISH launch (the back-substitution of m coefficients, the longest
+    mode) timed against the twin and against
+    torch.linalg.solve_triangular on the same R and g. Bound: its bytes
+    (R's upper triangle and g read, y written) over HBM and its float64
+    operations at the card's rate; a one-thread chain of dependent float64
+    operations sits far above both (latency)."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
+
+    lay = dl.QrLayout(m, 4)
+    S = torch.zeros(lay.size, dtype=torch.float64)
+    F = torch.zeros(lay.n_flags, dtype=torch.bool)
+    Sd, Fd = S.cuda(), F.cuda()
+    same = True
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for mode, j, arg in qr_check_sequence(dl, m, rng):
+            params = arg if mode == dl.BEGIN else None
+            if isinstance(arg, dict):
+                for name, v in arg.items():
+                    S[lay.sc(name)] = v
+                    Sd[lay.sc(name)] = v
+            elif isinstance(arg, np.ndarray):
+                S[lay.H:lay.H + j + 2] = torch.from_numpy(arg)
+                Sd[lay.H:lay.H + j + 2] = torch.from_numpy(arg).cuda()
+            dl.gmres_qr_plain(mode, j, S, F, m, params)
+            dl.gmres_qr(mode, j, Sd, Fd, m, params)
+            torch.cuda.synchronize()
+            same = same and torch.equal(S.view(torch.int64),
+                                        Sd.cpu().view(torch.int64)) and (
+                torch.equal(F, Fd.cpu()))
+    # the FINISH launch on the state the cycle left (idempotent: it reads
+    # R and g, writes yc)
+    S2, F2 = Sd.clone(), Fd.clone()
+    S2[lay.sc("J")] = float(m)
+    Sh, Fh = S2.cpu(), F2.cpu()
+    yc = S2[lay.YC:lay.YC + m]
+    R = S2[:lay.G].view(m, m + 1).T[:m, :m].contiguous()
+    g = S2[lay.G:lay.G + m].clone()
+
+    def kernel():
+        dl.gmres_qr(dl.FINISH, 0, S2, F2, m)
+        return (yc.clone(),)
+
+    def plain():
+        dl.gmres_qr_plain(dl.FINISH, 0, Sh, Fh, m)
+        return (Sh[lay.YC:lay.YC + m],)
+
+    ref = plain()[0]
+    err = float((kernel()[0].cpu() - ref).abs().max())
+    n_r = m * (m + 1) // 2
+    record("gmres_qr", err, same and err == 0.0, kernel, plain,
+           f"every mode bit-equal {same}; FINISH m={m}",
+           8 * (n_r + 2 * m), 2.0 * n_r + 2 * m, F64_RATE,
+           library=lambda: torch.linalg.solve_triangular(
+               R, g[:, None], upper=True)[:, 0].neg())
+
+
 def phase_kernels(pkg):
     """Phase 2; returns {name: JSON row fields}."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
@@ -849,6 +960,7 @@ def phase_kernels(pkg):
     record_basis_axpy(record, "basis_axpy", c, V, w)
     record_basis_axpy(record, "basis_axpy_k13", c[:13], V[:13], w)
     del V, w
+    record_gmres_qr(record, 25, rng)
 
     # ard2d: 26 B/node (C, vel[2], |v|, Ds, node_type, salt in; C out). C
     # seeded so that some FLUID neighbours of the wire reach C_sat: their
@@ -1279,18 +1391,20 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
 
 def print_gmres(tag, solver):
     """The ``[gmres]`` and ``[step]`` lines of a run: its Arnoldi steps and
-    the implicit steps' other segments by route."""
-    g = solver.gmres_graph
+    implicit steps by route, graph launches, chunks and host reads."""
+    g, t = solver.gmres_graph, solver.step_graph
     print(f"[gmres] {tag}: {g['replays']} graph replays, {g['eager']} eager "
-          f"Arnoldi steps, {g['captures']} captures ({g['recaptures']} "
-          f"recaptures), {g['cycles']} GMRES cycles, kernel nodes "
-          f"{g['captured_kernels']} captured / {g['replayed_kernels']} "
-          f"replayed")
-    g = solver.step_graph
-    print(f"[step] {tag}: {g['replays']} graph replays, {g['eager']} eager "
-          f"segments, {g['captures']} captures ({g['recaptures']} "
-          f"recaptures), kernel nodes {g['captured_kernels']} captured / "
+          f"Arnoldi steps, {g['cycles']} GMRES cycles, {g['launches']} solve "
+          f"graph launches, {g['captures']} captures ({g['recaptures']} "
+          f"recaptures), {t['chunks']} chunks, {g['host_reads']} host reads "
+          f"inside steps, kernel nodes {g['captured_kernels']} captured / "
           f"{g['replayed_kernels']} replayed")
+    print(f"[step] {tag}: {t['replays']} graph replays, {t['eager']} eager "
+          f"steps, {t['launches']} graph launches, {t['captures']} captures "
+          f"({t['recaptures']} recaptures), {t['chunks']} chunks, "
+          f"{t['host_reads']} host reads ({t['host_reads'] / max(t['steps'], 1):.3f}"
+          f" a step), kernel nodes {t['captured_kernels']} captured / "
+          f"{t['replayed_kernels']} replayed")
 
 
 def run_cli(out_dir, args):
@@ -1385,8 +1499,11 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0, gates=None):
     implicit = solver.explicit_steps == 0
     if not solver.gmres_graph["replays"] and implicit:
         fail(f"{name}: the CUDA run's Arnoldi steps replayed no CUDA graph")
-    if not solver.step_graph["replays"] and implicit:
-        fail(f"{name}: the CUDA run's step segments replayed no CUDA graph")
+    # gs_parity's host sweeps run each step's head and tail directly, its
+    # solve as a graph
+    if (not solver.step_graph["replays"] and implicit
+            and "gs_parity=1" not in args):
+        fail(f"{name}: the CUDA run's implicit steps ran in no CUDA graph")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
@@ -1425,9 +1542,9 @@ def phase_main(tmp):
 
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             solver.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
         "a complete cycle (flow solve, assemble, >= 5 steps, phase change)":
             solver.flow_solve_count >= 1 and len(solver.cycle_steps) >= 1
@@ -1512,6 +1629,12 @@ def phase_main3d(tmp):
           f"{1e3 * (solver.implicit_seconds + solver.assemble_seconds) / max(solver.total_implicit_steps, 1):.3f}"
           f" ms per implicit step")
     print(f"[main3d] launches {json.dumps(counts)}")
+    t = solver.step_graph
+    print(f"[main3d] implicit_fused_chunk = 50: {t['chunks']} chunks, "
+          f"{t['steps']} steps, {t['launches']} graph launches, "
+          f"{t['host_reads']} host reads ({t['chunks'] / max(solver.cycles, 1):.2f} "
+          f"chunks and {t['host_reads'] / max(solver.cycles, 1):.2f} reads a "
+          f"cycle)")
 
     ck, t_ck, _ = load_checkpoint(f"{out_dir}/out/checkpoint.npz", st)
     same_ckpt = (t_ck == float(rows["time_s"][-1]) and all(
@@ -1532,10 +1655,13 @@ def phase_main3d(tmp):
           f"v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             solver.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
+        "the steps ran in device-decided chunks, one launch and one read "
+        "a chunk": t["chunks"] > 0 and t["launches"] == t["chunks"]
+            and t["host_reads"] == t["chunks"],
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
         "it stopped where the banked run's did (6,500 iterations, eps "
@@ -1648,9 +1774,9 @@ def phase_warm3d(tmp, cold):
     print(f"[warm3d] launches {json.dumps(counts)}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             solver.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
         "the coarse solve converged": c_conv == "True",
         "the fine solve converged": bool(conv),
@@ -2145,9 +2271,9 @@ def phase_amr(tmp, pkg):
     print(f"[amr] launches {json.dumps(counts)}")
     checks = {
         "the flow replayed its CUDA graph": warm.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             warm.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             warm.step_graph["replays"] > 0,
         "coarse iterations within 10 % of 49,800":
             abs(c_iters - AMR_WARM_ITERS[0]) <= AMR_WARM_GATE * AMR_WARM_ITERS[0],
@@ -2233,9 +2359,9 @@ def phase_amrg(tmp):
           f" v_max={last['v_max']:.6e} C_max_fluid={last['C_max_fluid']:.6e}")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             solver.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
         "the run printed the JAX package's AMR line": AMRG_LINE in log,
         "both path kernels launched": all(counts[k] > 0 for k in PATH_AMRG),
@@ -2314,9 +2440,9 @@ def calib_point(tmp, tag, label, run, bank, path):
           f"{json.dumps(BANKED_GATES)})")
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "the Arnoldi steps replayed CUDA graphs":
+        "the Arnoldi steps ran in CUDA graphs":
             solver.gmres_graph["replays"] > 0,
-        "the step segments replayed CUDA graphs":
+        "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
         "the initial flow solve converged": bool(solver.flow_results)
             and bool(solver.flow_results[0][2]),
@@ -2895,69 +3021,109 @@ def phase_flowgraph(pkg):
         fail("flowgraph checks")
 
 
+def route_counts():
+    """Copies of the GMRES and step counters and the launch counts."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    return (dict(gmres.GMRES_COUNTS), dict(gmres.STEP_COUNTS),
+            kernels.launch_counts())
+
+
+def reset_route_counts():
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    kernels.reset_launch_counts()
+    gmres.reset_gmres_counts()
+    gmres.reset_step_counts()
+
+
+def state_bits(st):
+    """Every field of a State as integers (floats by their bits)."""
+    out = []
+    for t in st.tensors():
+        if t.dtype == torch.float32:
+            t = t.view(torch.int32)
+        elif t.dtype == torch.float64:
+            t = t.view(torch.int64)
+        out.append(t)
+    return out
+
+
+def same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(state_bits(a),
+                                                 state_bits(b)))
+
+
+def program_stats(run, keys):
+    """(kernel nodes, ms of the captures, MiB of the graph pool) of a
+    runner's programs ``keys``."""
+    nodes = {str(k): run.graphs[k].nodes for k in keys
+             if k in run.graphs}
+    return nodes, run.capture_ms, run.pool_bytes / 2**20
+
+
 def phase_gmresgraph(pkg):
-    """Phase gmresgraph: GMRES's Arnoldi steps as CUDA graphs
-    (``ops.gmres.GmresRunner``) on the implicit steps of each FLOW_CASES
-    grid, from its seeded state after FLOWGRAPH_ITERS flow iterations
-    (flowgraph's solve, or one here) and the operator assembled on it:
-    GMRESGRAPH_STEPS implicit steps (``coupling.implicit_inner_step``) on
-    the eager route (``eager=True``) and on the graph route, which must
-    agree bit for bit in C and in every residual, in Arnoldi steps,
-    cycles and launch counts, with replays on the graph route only and at
-    most one first capture per step index of the restart length; then the
-    operator of the phase-changed state after those steps, two steps a
-    route, the same checks, and the graphs reused (new captures only for
-    step indices not captured before, besides the counted recaptures of a
-    packed store that outgrew its buffers). Then, on the first operator
-    from the state after its steps, windows of GMRESGRAPH_WINDOW implicit
-    steps by route (eager, graph, graph, eager, eager, graph): ms per implicit step by the host clock
-    (the median window); one profiler window a route: host launch records
-    and device busy per implicit step, and per Arnoldi step; the captures'
-    ms and the graph pool's bytes."""
-    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels, solvers
+    """Phase gmresgraph: GMRES's solve as one CUDA graph with conditional
+    nodes (``gmres.implicit_step``'s ``("solve",)`` program: the restart
+    cycles as a WHILE, the Arnoldi steps as nested IFs, the cycle ends as
+    a SWITCH, the refinement passes as IFs, every decision gmres_qr's) on
+    each FLOW_CASES grid, from its seeded state after FLOWGRAPH_ITERS flow
+    iterations (flowgraph's solve, or one here) and the operator assembled
+    on it: GMRESGRAPH_STEPS solves at the adaptive dt, each from the last
+    one's answer, on the eager route (``eager=True``: each gate a host
+    read) and on the graph route, which must agree bit for bit in C and in
+    every residual, in Arnoldi steps, cycles and launch counts, with
+    launches on the graph route only, one capture, and one host read a
+    solve; then the operator of the phase-changed state after those
+    solves, two a route, the same checks, the graph reused (recaptured
+    only when a packed store outgrew its buffers). Then windows of
+    GMRESGRAPH_WINDOW solves by route (graph, eager, graph): ms a solve
+    by the host clock (the median window); one
+    profiler window a route: host launch records and host reads a solve,
+    device busy; the capture's ms, kernel nodes and graph pool."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, solvers
     from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
     from pd_mg_pin_corrosion_tpu_torch.ops import gmres
 
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    def steps(state, op, kit, eager, n):
+    def solves(state, op, kit, eager, n):
         res = []
+        ops = ops_for(kit)
         for _ in range(n):
-            state, _, _, r, _ = coupling.implicit_inner_step(state, op, kit,
-                                                             eager=eager)
+            dt = ops.compute_adaptive_dt(state, op, kit)
+            state, r = gmres.implicit_step(ops.linear_system, state, op,
+                                           kit, dt, eager=eager)
             res.append(r)
         return state, res
 
     def both_routes(state, op, kit, n):
         out = {}
         for eager in (True, False):
-            kernels.reset_launch_counts()
-            gmres.reset_gmres_counts()
+            reset_route_counts()
             torch.cuda.synchronize()
             t0 = time.time()
-            st_n, res = steps(state, op, kit, eager, n)
+            st_n, res = solves(state, op, kit, eager, n)
             torch.cuda.synchronize()
-            out[eager] = (st_n, res, time.time() - t0,
-                          dict(gmres.GMRES_COUNTS), kernels.launch_counts())
+            out[eager] = (st_n, res, time.time() - t0, *route_counts())
         return out
 
-    def route_checks(out):
-        (e, e_res, _, e_c, e_n), (g, g_res, _, g_c, g_n) = out[True], out[False]
+    def route_checks(out, n):
+        (e, e_res, _, e_g, e_s, e_n), (g, g_res, _, g_g, g_s, g_n) = (
+            out[True], out[False])
         return {
-            "C bit for bit": torch.equal(bits(e.C), bits(g.C)),
+            "C bit for bit": same_state(e, g),
             "the same residuals": repr(e_res) == repr(g_res),
             "the same Arnoldi steps and cycles":
-                e_c["eager"] == g_c["eager"] + g_c["replays"]
-                and e_c["cycles"] == g_c["cycles"],
+                e_g["eager"] == g_g["eager"] + g_g["replays"]
+                and e_g["cycles"] == g_g["cycles"],
             "the same launch counts": e_n == g_n,
-            "replays on the graph route only":
-                g_c["replays"] > 0 and e_c["replays"] == e_c["captures"] == 0,
+            "launches on the graph route only":
+                g_g["launches"] > 0 and e_g["launches"] == e_g["captures"]
+                == e_g["replays"] == 0,
+            "one host read a solve past the capture":
+                g_s["host_reads"] == n and g_g["host_reads"] == 0,
         }
-
-    def arnoldi_keys(keys):
-        """The Arnoldi steps' among a runner's segment keys."""
-        return {k for k in keys if k[0] == "arnoldi"}
 
     ok = True
     for name, (*_, nodes) in FLOW_CASES.items():
@@ -2966,88 +3132,70 @@ def phase_gmresgraph(pkg):
             st, kit, max_iters=FLOWGRAPH_ITERS)[0]
         ops = ops_for(kit)
         run = gmres.runner_for(kit)
-        restart = 25 if kit.dtype == torch.float32 else 50
         n = GMRESGRAPH_STEPS
-        t0 = time.time()
         op = ops.assemble(st, kit, coupling.volume_loss_fraction(st, kit))
-        torch.cuda.synchronize()
-        assemble_s = time.time() - t0
         out = both_routes(st, op, kit, n)
         checks = {f"first operator: {k}": v
-                  for k, v in route_checks(out).items()}
-        (e, e_res, e_s, e_c, _), (_, _, g_s, g_c, _) = out[True], out[False]
-        first = arnoldi_keys(run.graphs)
-        checks["at most one first capture a step index"] = (
-            run.graph_route and g_c["captures"] - g_c["recaptures"]
-            <= restart and len(arnoldi_keys(run.captured)) <= restart)
-        print(f"[gmresgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
-              f"{n} implicit steps from the seeded state after "
-              f"{FLOWGRAPH_ITERS} flow iterations (operator "
-              f"assembled in {assemble_s:.3f} s); eager route {e_c}, "
-              f"{e_s:.3f} s; graph route {g_c}, {g_s:.3f} s (its captures "
-              f"included); residuals {e_res}")
-
-        # a second operator: the state after those steps, phase changed
+                  for k, v in route_checks(out, n).items()}
+        e, e_res, e_s, e_g = out[True][:4]
+        g_s, g_g = out[False][2], out[False][3]
+        checks["one capture"] = run.graph_route and g_g["captures"] == 1
+        print(f"[gmresgraph] {name} ({nodes:,} nodes, {kit.dtype}): {n} "
+              f"solves from the seeded state after {FLOWGRAPH_ITERS} flow "
+              f"iterations; eager route {e_g}, {e_s:.3f} s; graph route "
+              f"{g_g}, {g_s:.3f} s (its capture included); residuals "
+              f"{e_res}")
         st2, n_dis = ops.apply_phase_change(e, kit)
         op2 = ops.assemble(st2, kit, coupling.volume_loss_fraction(st2,
                                                                      kit))
-        growths, before = run.growths, arnoldi_keys(run.captured)
+        growths = run.growths
         out2 = both_routes(st2, op2, kit, 2)
         checks.update({f"second operator: {k}": v
-                       for k, v in route_checks(out2).items()})
-        g2, held = out2[False][3], arnoldi_keys(run.graphs)
-        if run.growths > growths:
-            # the graphs went with the outgrown buffers: each step index
-            # reached is captured once more, counted as a recapture
-            reused = (g2["captures"] == len(held)
-                      and g2["recaptures"] == len(held & before))
-        else:
-            reused = (g2["captures"] == len(held - first)
-                      and g2["recaptures"] == 0)
-        checks["the second operator reused the graphs"] = reused
+                       for k, v in route_checks(out2, 2).items()})
+        g2 = out2[False][3]
+        checks["the second operator reused the graph"] = (
+            g2["captures"] == g2["recaptures"] == 1 if run.growths > growths
+            else g2["captures"] == 0)
         print(f"[gmresgraph] {name} second operator ({int(n_dis)} nodes "
               f"dissolved): eager {out2[True][3]}, graph {g2}; buffers "
-              f"grown {run.growths - growths}; Arnoldi graphs held "
-              f"{len(held)}")
-
-        # windows on the first operator from the state after its steps:
-        # the steady steps of a run, past the seeded state's first one
+              f"grown {run.growths - growths}")
         w = GMRESGRAPH_WINDOW
-        steps(e, op, kit, False, 1)    # the first operator reloaded
         walls = {True: [], False: []}
         arnoldi = {}
-        for eager in (True, False, False, True, True, False):
-            gmres.reset_gmres_counts()
+        for eager in (False, True, False):
+            reset_route_counts()
             torch.cuda.synchronize()
             t0 = time.time()
-            steps(e, op, kit, eager, w)
+            solves(e, op, kit, eager, w)
             torch.cuda.synchronize()
             walls[eager].append(1e3 * (time.time() - t0) / w)
             c = gmres.GMRES_COUNTS
             arnoldi[eager] = (c["replays"] + c["eager"]) / w
-        busy = {eager: busy_window(lambda eager=eager: steps(
-            e, op, kit, eager, w), w) for eager in (True, False)}
+        busy = {}
+        reads = {}
+        for eager in (True, False):
+            reset_route_counts()
+            busy[eager] = busy_window(lambda eager=eager: solves(
+                e, op, kit, eager, w), w)
+            reads[eager] = (gmres.GMRES_COUNTS["host_reads"]
+                            + gmres.STEP_COUNTS["host_reads"]) / w
         for eager in (True, False):
             ms = statistics.median(walls[eager])
             b, dev_ops, rec = busy[eager]
             share = "not measured" if b is None else f"{100 * b / ms:.1f} %"
             print(f"[gmresgraph] {name} {'eager' if eager else 'graph'} "
-                  f"route: {ms:.4f} ms an implicit step (windows "
+                  f"route: {ms:.4f} ms a solve (windows "
                   f"{', '.join(f'{x:.4f}' for x in walls[eager])}), "
-                  f"{arnoldi[eager]:.2f} Arnoldi steps an implicit step, "
-                  f"{rec:.1f} host records an implicit step "
-                  f"({rec / max(arnoldi[eager], 1e-9):.2f} an Arnoldi "
-                  f"step), device busy "
+                  f"{arnoldi[eager]:.2f} Arnoldi steps a solve, {rec:.1f} "
+                  f"host records and {reads[eager]:.2f} host reads a solve "
+                  f"(the adaptive dt's launches included), device busy "
                   f"{'not measured' if b is None else f'{b:.4f} ms'} "
-                  f"({share}), {dev_ops:.1f} device ops an implicit step")
+                  f"({share}), {dev_ops:.1f} device ops a solve")
         checks["the graph route takes fewer host records"] = (
             busy[False][2] < busy[True][2])
-        print(f"[gmresgraph] {name}: {len(arnoldi_keys(run.graphs))} "
-              f"Arnoldi graphs ({len(run.graphs)} graphs in all), "
-              f"{len(arnoldi_keys(run.captured))} step indices captured, "
-              f"capture {run.capture_ms:.1f} ms in all "
-              f"({run.capture_ms / max(len(run.captured), 1):.1f} ms a "
-              f"graph), graph pool {run.pool_bytes} B")
+        knodes, cap_ms, pool = program_stats(run, [("solve",)])
+        print(f"[gmresgraph] {name}: solve graph kernel nodes {knodes}, "
+              f"captures {cap_ms:.1f} ms in all, graph pool {pool:.1f} MiB")
         for what, good in checks.items():
             print(f"[gmresgraph] {name} check {what}: "
                   f"{'ok' if good else 'FAILED'}")
@@ -3060,55 +3208,43 @@ def phase_gmresgraph(pkg):
         fail("gmresgraph checks")
 
 
-def graph_ms(graph, reps=20):
-    """Device ms of one replay of a CUDA graph: CUDA events around
-    ``reps`` replays after two warm-up replays."""
-    for _ in range(2):
-        graph.replay()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def phase_stepgraph(pkg):
-    """Phase stepgraph: the implicit step's segments as CUDA graphs
-    (``coupling.StepRunner``: head, tail, cycle starts and ends,
-    refinement, around the Arnoldi graphs) on each FLOW_CASES grid, from
-    its seeded state after FLOWGRAPH_ITERS flow iterations (gmresgraph's
-    or flowgraph's, or a solve here) and the operator assembled on it:
-    STEPGRAPH_STEPS steps of one cycle with the extrapolated start on the
-    eager route (``step(kit, eager=True)``) and on the graph route, which
-    must agree bit for bit in every field of the state and in each step's
-    dt, n_below, residual and diagnostics, in Arnoldi steps, cycles,
-    segments and launch counts, with replays on the graph route only.
-    Then, from the state after those steps with the configuration's own
-    start (C), windows of STEPGRAPH_WINDOW steps by route (eager, graph,
-    graph, eager, eager, graph): ms per implicit step by the host clock
-    (the median window); one profiler window a route: host launch records
-    per implicit step beside its Arnoldi steps (the graph route's must be
-    at most STEPGRAPH_RECORDS besides one a replayed Arnoldi step) and the
-    device busy share; the segments' graphs, captures, capture ms and the
-    runner's graph pool."""
-    from pd_mg_pin_corrosion_tpu_torch import coupling, kernels, solvers
+    """Phase stepgraph: the implicit step loop as one CUDA graph with
+    conditional nodes (``coupling.StepRunner.steps``: a WHILE over the
+    steps around the head with the adaptive dt and the BCs, GMRES with its
+    refinement, and the tail with the smoothing, the diagnostics and
+    gmres_qr's exits) on each FLOW_CASES grid from the same states as
+    gmresgraph: STEPGRAPH_STEPS steps of one cycle with the extrapolated
+    start, one step and one read at a time (``step``) and as one chunk
+    (``steps``), on the eager route and on the graph route, which must
+    agree bit for bit in every field, in each step's dt, n_below,
+    residual and diagnostics and in the chunk's time and max residual, in
+    Arnoldi steps, cycles, steps and launch counts, with launches on the
+    graph route only and one host read a step (a chunk) past the
+    captures. Then, from the state after those steps with the start C,
+    windows of STEPGRAPH_WINDOW steps by route (graph, chunk, eager,
+    graph, chunk): ms an implicit step (the median window); one profiler
+    window for single graphed steps and one for a chunk: host launch
+    records (at most STEPGRAPH_RECORDS a graphed step) and host reads an
+    implicit step, the device busy share; the step graphs' kernel nodes,
+    capture ms and the runner's graph pool."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling, solvers
     from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
     from pd_mg_pin_corrosion_tpu_torch.ops import gmres
 
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    def steps(stepper, state, op, kit, eager, n, C_prev=None):
-        stepper.begin(state, op, kit, C_prev)
+    def one_route(stepper, st, op, kit, eager, n):
+        reset_route_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stepper.begin(st, op, kit, st.C)
         rows = [stepper.step(kit, eager) for _ in range(n)]
-        return stepper.result(state), rows
-
-    def segments(run):
-        """A runner's segment graphs but the Arnoldi steps', by key."""
-        return {k: g[0] for k, g in run.graphs.items() if k[0] != "arnoldi"}
+        a = stepper.result(st)
+        stepper.begin(st, op, kit, st.C)
+        vals = stepper.steps(kit, n, eager)
+        b = stepper.result(st)
+        torch.cuda.synchronize()
+        chunk = tuple(stepper.run.sc(vals, k) for k in ("T", "KK", "MAXRES"))
+        return (a, rows, b, chunk, time.time() - t0, *route_counts())
 
     ok = True
     for name, (*_, nodes) in FLOW_CASES.items():
@@ -3119,111 +3255,107 @@ def phase_stepgraph(pkg):
         stepper = coupling.step_runner_for(kit)
         run = stepper.run
         op = ops.assemble(st, kit, coupling.volume_loss_fraction(st, kit))
-        seg0, cap_ms0, pool0 = len(segments(run)), run.capture_ms, \
-            run.pool_bytes
-        out = {}
-        for eager in (True, False):
-            kernels.reset_launch_counts()
-            gmres.reset_gmres_counts()
-            gmres.reset_step_counts()
-            torch.cuda.synchronize()
-            t0 = time.time()
-            res = steps(stepper, st, op, kit, eager, STEPGRAPH_STEPS, st.C)
-            torch.cuda.synchronize()
-            out[eager] = (*res, time.time() - t0, dict(gmres.GMRES_COUNTS),
-                          dict(gmres.STEP_COUNTS), kernels.launch_counts())
-        (e, e_rows, e_s, e_g, e_t, e_n), (g, g_rows, g_s, g_g, g_t, g_n) = (
-            out[True], out[False])
+        cap_ms0 = run.capture_ms
+        n = STEPGRAPH_STEPS
+        out = {eager: one_route(stepper, st, op, kit, eager, n)
+               for eager in (True, False)}
+        (e, e_rows, e_b, e_chunk, e_s, e_g, e_t, e_n) = out[True]
+        (g, g_rows, g_b, g_chunk, g_s, g_g, g_t, g_n) = out[False]
+        t_sum = 0.0
+        for dt, *_ in e_rows:
+            t_sum += dt
         checks = {
-            "every field bit for bit": all(
-                torch.equal(bits(getattr(e, f.name)), bits(getattr(g, f.name)))
-                for f in dataclasses.fields(e)),
+            "every field bit for bit": same_state(e, g)
+                and same_state(e_b, g_b),
+            "the chunk equals the steps one at a time": same_state(e, e_b)
+                and e_chunk == (t_sum, float(n), e_chunk[2]),
             "the same dt, n_below, residuals and diagnostics":
                 repr(e_rows) == repr(g_rows),
-            "the same Arnoldi steps and cycles":
+            "the same chunk time and max residual":
+                repr(e_chunk) == repr(g_chunk),
+            "the same Arnoldi steps, cycles and steps":
                 e_g["eager"] == g_g["eager"] + g_g["replays"]
-                and e_g["cycles"] == g_g["cycles"],
-            "the same segments": e_t["eager"] == g_t["eager"] + g_t["replays"],
+                and e_g["cycles"] == g_g["cycles"]
+                and e_t["steps"] == g_t["steps"] == 2 * n,
             "the same launch counts": e_n == g_n,
-            "replays on the graph route only":
-                g_t["replays"] > 0 and g_g["replays"] > 0
-                and stepper.graph_route
-                and e_t["replays"] == e_t["captures"] == e_g["replays"] == 0,
+            "launches on the graph route only":
+                stepper.graph_route and g_t["launches"] > 0
+                and g_g["replays"] > 0
+                and e_t["launches"] == e_t["captures"] == e_g["replays"] == 0,
+            "one host read a step, and one a chunk, past the captures":
+                g_t["host_reads"] == n + 1 and g_g["host_reads"] == 0,
         }
-        print(f"[stepgraph] {name} ({nodes:,} nodes, {kit.dtype}): "
-              f"{STEPGRAPH_STEPS} implicit steps, extrapolated start, from "
-              f"the seeded state after {FLOWGRAPH_ITERS} flow iterations; "
-              f"eager route Arnoldi {e_g}, segments {e_t}, {e_s:.3f} s; "
-              f"graph route Arnoldi {g_g}, segments {g_t}, {g_s:.3f} s "
-              f"(captures included); (dt, n_below, residual, diagnostics) "
-              f"{g_rows}")
+        print(f"[stepgraph] {name} ({nodes:,} nodes, {kit.dtype}): {n} "
+              f"implicit steps one at a time and as a chunk, extrapolated "
+              f"start, from the seeded state after {FLOWGRAPH_ITERS} flow "
+              f"iterations; eager route Arnoldi {e_g}, steps {e_t}, "
+              f"{e_s:.3f} s; graph route Arnoldi {g_g}, steps {g_t}, "
+              f"{g_s:.3f} s (captures included); (dt, n_below, residual, "
+              f"diagnostics) {g_rows}; chunk (t, steps, max residual) "
+              f"{g_chunk}")
 
-        # windows from the state after those steps, the start C
         w = STEPGRAPH_WINDOW
-        steps(stepper, e, op, kit, False, 1)    # captures the start C's head
-        walls = {True: [], False: []}
+        stepper.begin(e, op, kit)
+        stepper.steps(kit, w)              # captures the start C's loop
+        walls = {"eager": [], "graph": [], "chunk": []}
         arnoldi = {}
-        for eager in (True, False, False, True, True, False):
-            gmres.reset_gmres_counts()
+        for route in ("graph", "chunk", "eager", "graph", "chunk"):
+            reset_route_counts()
             stepper.begin(e, op, kit)
             torch.cuda.synchronize()
             t0 = time.time()
-            for _ in range(w):
-                stepper.step(kit, eager)
+            if route == "chunk":
+                stepper.steps(kit, w)
+            else:
+                for _ in range(w):
+                    stepper.step(kit, route == "eager")
             torch.cuda.synchronize()
-            walls[eager].append(1e3 * (time.time() - t0) / w)
+            walls[route].append(1e3 * (time.time() - t0) / w)
             c = gmres.GMRES_COUNTS
-            arnoldi[eager] = (c["replays"] + c["eager"]) / w
+            arnoldi[route] = (c["replays"] + c["eager"]) / w
 
-        def window(eager):
+        def window(route):
             stepper.begin(e, op, kit)
             torch.cuda.synchronize()
-            return busy_window(lambda: [stepper.step(kit, eager)
-                                        for _ in range(w)], w)
+            reset_route_counts()
+            if route == "chunk":
+                b = busy_window(lambda: stepper.steps(kit, w), w)
+            else:
+                b = busy_window(lambda: [stepper.step(kit, route == "eager")
+                                         for _ in range(w)], w)
+            return (*b, (gmres.GMRES_COUNTS["host_reads"]
+                         + gmres.STEP_COUNTS["host_reads"]) / w)
 
-        busy = {eager: window(eager) for eager in (True, False)}
-        for eager in (True, False):
-            ms = statistics.median(walls[eager])
-            b, dev_ops, rec = busy[eager]
+        busy = {route: window(route) for route in ("graph", "chunk")}
+        busy["eager"] = (None, float("nan"), float("nan"), float("nan"))
+        for route in walls:
+            ms = statistics.median(walls[route])
+            b, dev_ops, rec, reads = busy[route]
             share = "not measured" if b is None else f"{100 * b / ms:.1f} %"
-            print(f"[stepgraph] {name} {'eager' if eager else 'graph'} "
-                  f"route: {ms:.4f} ms an implicit step (windows "
-                  f"{', '.join(f'{x:.4f}' for x in walls[eager])}), "
-                  f"{arnoldi[eager]:.2f} Arnoldi steps an implicit step, "
-                  f"{rec:.1f} host records an implicit step "
-                  f"({rec - arnoldi[eager]:.1f} besides the Arnoldi "
-                  f"steps' one a step), device busy "
+            print(f"[stepgraph] {name} {route} route: {ms:.4f} ms an "
+                  f"implicit step (windows "
+                  f"{', '.join(f'{x:.4f}' for x in walls[route])}), "
+                  f"{arnoldi[route]:.2f} Arnoldi steps an implicit step, "
+                  f"{rec:.2f} host records and {reads:.2f} host reads an "
+                  f"implicit step, device busy "
                   f"{'not measured' if b is None else f'{b:.4f} ms'} "
                   f"({share}), {dev_ops:.1f} device ops an implicit step")
         checks[f"a graphed step takes at most {STEPGRAPH_RECORDS} host "
-               f"records besides its Arnoldi steps"] = (
-            busy[False][2] <= STEPGRAPH_RECORDS + arnoldi[False])
-        # device ms of one replay of each segment's graph and of one
-        # Arnoldi step's (CUDA events over bare replays on the buffers the
-        # windows left; they only overwrite the buffers), which a step of
-        # k Arnoldi steps and c cycles adds up from
-        segs = segments(run)
-        ends = sorted(k[1] for k in segs if k[0] == "end")
-        j = min(6, max(k[1] for k in run.graphs if k[0] == "arnoldi"))
-        parts = {str(k): segs[k] for k in (
-            ("head", False), ("tail",), ("start",), ("end", ends[-1]),
-            ("refine",), ("correct",), ("update",)) if k in segs}
-        parts[f"arnoldi {j}"] = run.graphs[("arnoldi", j)][0]
-        part_ms = {k: graph_ms(g) for k, g in parts.items()}
-        print(f"[stepgraph] {name}: device ms a replay "
-              f"{json.dumps({k: round(v, 4) for k, v in part_ms.items()})}")
-        print(f"[stepgraph] {name}: {len(segs)} segment graphs "
-              f"({len(segs) - seg0} new here: "
-              f"{sorted(map(str, segs))}), {len(run.graphs) - len(segs)} "
-              f"Arnoldi graphs; captures here {run.capture_ms - cap_ms0:.1f} "
-              f"ms, graph pool +{run.pool_bytes - pool0} B (the runner's "
-              f"{run.pool_bytes} B in all); peak device memory "
+               f"records and one host read"] = (
+            busy["graph"][2] <= STEPGRAPH_RECORDS
+            and busy["graph"][3] == 1.0)
+        checks["a chunk takes one host read"] = busy["chunk"][3] == 1.0 / w
+        knodes, cap_ms, pool = program_stats(
+            run, [("step", True), ("step", False)])
+        print(f"[stepgraph] {name}: step graphs' kernel nodes {knodes}, "
+              f"captures here {cap_ms - cap_ms0:.1f} ms, graph pool "
+              f"{pool:.1f} MiB (the runner's); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for what, good in checks.items():
             print(f"[stepgraph] {name} check {what}: "
                   f"{'ok' if good else 'FAILED'}")
         ok = ok and all(checks.values())
-        del kit, st, run, stepper, out, e, g, op
+        del kit, st, run, stepper, out, e, g, e_b, g_b, op
         torch.cuda.empty_cache()
     if not ok:
         fail("stepgraph checks")

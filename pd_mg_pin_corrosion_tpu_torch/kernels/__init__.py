@@ -8,11 +8,14 @@ launches in a plain integer attribute, ``wrapper.launches`` (per weight
 type or form where one wrapper launches several instantiations of its
 kernel: ``KernelInfo.counter``). A replay of a captured CUDA graph
 (``solvers.FlowRunner``, ``ops.gmres.GmresRunner``) adds the launches its
-capture recorded (``add_launch_counts``).
+capture recorded (``add_launch_counts``): a graph with conditional nodes
+once per run of each body, as the device's trip counters report.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass
 
 from .ard2d import (ard2d, ard2d_geometry, ard2d_plain, ard2d_staged_plain,
@@ -20,6 +23,7 @@ from .ard2d import (ard2d, ard2d_geometry, ard2d_plain, ard2d_staged_plain,
 from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
                     basis_dots_plain, basis_dots_walk_plain, dots_grid,
                     pitched_basis, reserve_dots_scratch)
+from .device_loop import gmres_qr, gmres_qr_plain
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
                        matvec3d_plain, pack_stencil, slots3d_f64,
@@ -80,6 +84,11 @@ KERNELS = (
     KernelInfo("ns3d_jstat", ns3d_jstat,
                "pd_mg_pin_corrosion_tpu_torch/csrc/ns3d_chunked.cu",
                "scripts/exp_ns3d_chunked.py:392"),
+    # no Pallas kernel: the JAX package's Givens update, exit test and
+    # back-substitution run in XLA inside its GMRES while_loops
+    KernelInfo("gmres_qr", gmres_qr,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/gmres_qr.cu",
+               "pd_mg_pin_corrosion_tpu/ops/gmres.py:186"),
 )
 
 
@@ -90,6 +99,22 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         setattr(k.wrapper, k.counter, 0)
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cycle collector run once, then held off until the block
+    ends: the block captures a CUDA graph. A collection inside it could
+    free a dead kit's runners, whose graphs' destruction (a call no global
+    capture permits) invalidates the capture."""
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def add_launch_counts(counts: dict) -> None:

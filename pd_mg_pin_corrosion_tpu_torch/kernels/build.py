@@ -105,6 +105,34 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_ns3d_chunked_geometry.restype = i32
     lib.pd_ns3d_chunked_geometry.argtypes = [
         i32, i32, ctypes.POINTER(ctypes.c_int * 10)]
+    f64 = ctypes.c_double
+    lib.pd_gmres_qr.restype = i32
+    lib.pd_gmres_qr.argtypes = [i32, i32, i32, vp, vp, f64, f64, f64, f64,
+                                i64, i64, i64, i64, i64, i64, i64, i32, vp]
+    lib.pd_cg_runtime_version.restype = i32
+    lib.pd_cg_runtime_version.argtypes = []
+    lib.pd_cg_create.restype = i32
+    lib.pd_cg_create.argtypes = [ctypes.POINTER(vp)]
+    lib.pd_cg_add_copy.restype = i32
+    lib.pd_cg_add_copy.argtypes = [vp, vp, vp, i32, ctypes.POINTER(vp)]
+    lib.pd_cg_add_if.restype = i32
+    lib.pd_cg_add_if.argtypes = [vp, vp, vp, ctypes.POINTER(vp),
+                                 ctypes.POINTER(vp)]
+    lib.pd_cg_add_switch.restype = i32
+    lib.pd_cg_add_switch.argtypes = [vp, vp, vp, i32, ctypes.POINTER(vp), vp]
+    lib.pd_cg_add_while.restype = i32
+    lib.pd_cg_add_while.argtypes = [vp, vp, vp, ctypes.POINTER(vp),
+                                    ctypes.POINTER(vp),
+                                    ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.pd_cg_add_set.restype = i32
+    lib.pd_cg_add_set.argtypes = [vp, vp, ctypes.c_ulonglong, vp,
+                                  ctypes.POINTER(vp)]
+    lib.pd_cg_instantiate.restype = i32
+    lib.pd_cg_instantiate.argtypes = [vp, ctypes.POINTER(vp), i32]
+    lib.pd_cg_launch.restype = i32
+    lib.pd_cg_launch.argtypes = [vp, i32, vp]
+    lib.pd_cg_destroy.restype = i32
+    lib.pd_cg_destroy.argtypes = [vp, vp]
     lib.pd_cuda_error_string.restype = ctypes.c_char_p
     lib.pd_cuda_error_string.argtypes = [i32]
 

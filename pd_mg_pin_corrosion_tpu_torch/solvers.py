@@ -39,7 +39,7 @@ import torch
 from .dispatch import is_structured, ops_for
 from .fields import DeviceUnavailable, State
 from .grid import FLUID
-from .kernels import add_launch_counts, launch_counts
+from .kernels import add_launch_counts, launch_counts, no_collection
 from .kit import Kit
 from .ops.ns import vel_magnitude
 from .parallel.sharding import all_reduce
@@ -231,20 +231,21 @@ class FlowRunner:
         with torch.cuda.stream(side):
             self.body(kit)
         torch.cuda.current_stream(kit.device).wait_stream(side)
-        torch.cuda.synchronize(kit.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(kit.device)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                self.body(kit)
-        finally:
-            # the capture launched nothing: take its counts back
-            after = launch_counts()
-            launched = {k: n - before[k] for k, n in after.items()
-                        if n != before[k]}
-            add_launch_counts({k: -n for k, n in launched.items()})
+        with no_collection():
+            torch.cuda.synchronize(kit.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(kit.device)
+            before = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    self.body(kit)
+            finally:
+                # the capture launched nothing: take its counts back
+                after = launch_counts()
+                launched = {k: n - before[k] for k, n in after.items()
+                            if n != before[k]}
+                add_launch_counts({k: -n for k, n in launched.items()})
         torch.cuda.synchronize(kit.device)
         self.launches = launched
         self.pool_bytes = torch.cuda.memory_reserved(kit.device) - reserved

@@ -150,12 +150,13 @@ def test_gmres_runner_follows_the_kit_device(small, name):
     kit = CALLS[name](cfg, grid, device="cpu")
     run = gmres.GmresRunner()
     V = run.basis(3, 10, kit.dtype, kit.device)
-    assert V.device.type == "cpu" and run.out.device.type == "cpu"
+    assert V.device.type == "cpu" and run.S.device.type == "cpu"
+    assert run.F.device.type == "cpu"
     assert not gmres.runner_for(kit).graph_route
     fns = (lambda x: x, lambda x: x, gmres.basis_dots_plain,
-           gmres.basis_axpy_plain, (10,))
+           gmres.basis_axpy_plain)
     with pytest.raises(DeviceUnavailable):
-        run.segment(("arnoldi", 0), lambda: run.arnoldi(0, *fns),
+        run.program(("solve",), lambda: gmres.cycles(run, fns),
                     graphed=True)
     if torch.cuda.is_available():
         assert gmres.runner_for(CALLS[name](cfg, grid)).graph_route
@@ -164,9 +165,9 @@ def test_gmres_runner_follows_the_kit_device(small, name):
 @pytest.mark.parametrize("name", ["build_kit", "build_bkit", "build_ukit"])
 def test_step_graph_route_needs_a_card(small, name):
     """The implicit step's graph route is the card's: a CPU kit's
-    StepRunner never takes it, and a segment asked to replay with the
+    StepRunner never takes it, and a program asked to replay with the
     runner's buffers on the CPU raises DeviceUnavailable before any of its
-    work runs (no segment runs on the host in its place)."""
+    work runs (no program runs on the host in its place)."""
     from pd_mg_pin_corrosion_tpu_torch import coupling
     from pd_mg_pin_corrosion_tpu_torch.ops import gmres
 
@@ -176,11 +177,11 @@ def test_step_graph_route_needs_a_card(small, name):
     assert not stepper.graph_route and not stepper.run.graph_route
     run = gmres.GmresRunner()
     run.setup(torch.zeros(10, dtype=kit.dtype), 3, refine=True)
-    assert run.out.device.type == "cpu" and not run.out_host.is_pinned()
+    assert run.S.device.type == "cpu" and not run.S_host.is_pinned()
     ran = []
     gmres.reset_step_counts()
     with pytest.raises(DeviceUnavailable):
-        run.segment(("tail",), lambda: ran.append(1) or [], graphed=True)
+        run.program(("step", False), lambda: ran.append(1), graphed=True)
     assert not ran and not run.graphs
     assert gmres.STEP_COUNTS == dict.fromkeys(gmres.STEP_COUNTS, 0)
     if torch.cuda.is_available():

@@ -1,6 +1,7 @@
-"""GMRES's Arnoldi step over static buffers (``ops.gmres.GmresRunner``):
-the body that a CUDA graph captures, run on the CPU as a replay would run
-it.
+"""GMRES over static buffers (``ops.gmres.GmresRunner``): the restart
+cycles, each decision taken by gmres_qr (its plain twin here) and each
+gate read on the host, as the card's graph takes them with conditional
+nodes.
 
 Within the port, bit for bit: ``gmres`` through a runner against the
 host-driven loop it replaced (kept below as the reference, with the old
@@ -350,10 +351,14 @@ def test_step_through_the_runner_equals_the_old_step(name, step):
     ref_counts = {"steps": 0, "cycles": 0}
     ref = reference_step(st, op, kit, dt, x0=x0, counts=ref_counts, **kw)
     _same(got, ref)
-    assert counts == {"replays": 0, "eager": ref_counts["steps"],
-                      "captures": 0, "recaptures": 0,
-                      "cycles": ref_counts["cycles"], "captured_kernels": 0,
-                      "replayed_kernels": 0}
+    # the Arnoldi steps and cycles gmres_qr counted, all of them direct
+    assert {k: counts[k] for k in ("replays", "eager", "launches",
+                                   "captures", "recaptures", "cycles",
+                                   "captured_kernels", "replayed_kernels")
+            } == {"replays": 0, "eager": ref_counts["steps"], "launches": 0,
+                  "captures": 0, "recaptures": 0,
+                  "cycles": ref_counts["cycles"], "captured_kernels": 0,
+                  "replayed_kernels": 0}
     if step == "identity" and not hasattr(op, "fict"):
         assert ref_counts["steps"] == ref_counts["cycles"]   # j = 0 exits
     if step == "restarts":
@@ -502,18 +507,17 @@ def test_device_inv_h_equals_the_host_form():
 
 
 def test_capture_needs_a_card():
-    """The graph route is the card's: a capture with the basis on the CPU
-    raises DeviceUnavailable (no step runs on the host in its place), and
-    a CPU kit's runner never takes the graph route."""
+    """The graph route is the card's: recording a program with the basis
+    on the CPU raises DeviceUnavailable (no solve runs on the host in its
+    place), and a CPU kit's runner never takes the graph route."""
     kit, st = _built("parity_f32")
     run = t_gmres.runner_for(kit)
     assert not run.graph_route
     run.basis(4, st.C.numel(), kit.dtype, kit.device)
-    fns = (lambda x: x, lambda x: x, basis_dots_plain, basis_axpy_plain,
-           st.C.shape)
+    fns = (lambda x: x, lambda x: x, basis_dots_plain, basis_axpy_plain)
     t_gmres.reset_gmres_counts()
     with pytest.raises(DeviceUnavailable):
-        run.segment(("arnoldi", 0), lambda: run.arnoldi(0, *fns),
+        run.program(("solve",), lambda: t_gmres.cycles(run, fns),
                     graphed=True)
     assert not run.graphs and t_gmres.GMRES_COUNTS["eager"] == 0
 

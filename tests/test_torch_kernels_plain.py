@@ -213,6 +213,6 @@ def test_wrapper_device_rule():
                            "ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64",
                            "ard2d", "ns3d_chunked_xla",
                            "ns3d_chunked_factored", "ns3d_chunked_jconv",
-                           "ns3d_jstat"}
+                           "ns3d_jstat", "gmres_qr"}
     kernels.reset_launch_counts()
     assert all(v == 0 for v in kernels.launch_counts().values())

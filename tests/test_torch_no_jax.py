@@ -1,8 +1,8 @@
 """The PyTorch port (its multi-GPU ``parallel`` package included), and its
-scripts in scripts/ (the calibration scripts, the warm-start measurement
-and the profiler-window probe), must import without JAX and without the
-JAX package (the machine with the card has no JAX), and must build nothing
-on import."""
+scripts in scripts/ (the calibration scripts, the warm-start measurement,
+the profiler-window probe, the conditional-node and step-route costs),
+must import without JAX and without the JAX package (the machine with the
+card has no JAX), and must build nothing on import."""
 
 import os
 import subprocess
@@ -11,7 +11,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = [os.path.join(ROOT, "scripts", name) for name in (
     "calibration_torch.py", "calibrate_3d_torch.py", "calibrate_2d_torch.py",
-    "measure_warm_start_torch.py", "profiler_windows_torch.py")]
+    "measure_warm_start_torch.py", "profiler_windows_torch.py",
+    "cond_graph_costs_torch.py", "step_route_costs_torch.py")]
 
 _PROBE = """
 import importlib, pkgutil, sys

@@ -1,7 +1,7 @@
-"""The implicit step over static buffers (``coupling.StepRunner``): its
-segments (the step's head and tail, GMRES's cycle starts and ends, the
-refinement's residuals) and Arnoldi steps called directly, as a replay of
-their CUDA graphs runs them.
+"""The implicit step over static buffers (``coupling.StepRunner``): the
+step loop (head, GMRES's restart cycles and the refinement, tail) run
+directly, its gates read on the host, as the card's graph runs it with
+conditional nodes.
 
 Within the port, bit for bit: the runner's steps against the implicit step
 it replaced (``reference_inner_step`` below: the adaptive dt, the BCs, the
@@ -40,6 +40,7 @@ from pd_mg_pin_corrosion_tpu_torch import amr_blocks, boundary, cli, coupling
 from pd_mg_pin_corrosion_tpu_torch.config import FrozenConfig
 from pd_mg_pin_corrosion_tpu_torch.dispatch import is_block, ops_for
 from pd_mg_pin_corrosion_tpu_torch.grid import FLUID, SOLID_MG
+from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop
 from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as t_ai
 from pd_mg_pin_corrosion_tpu_torch.ops import gmres as t_gmres
 
@@ -109,34 +110,28 @@ def _equal(got, ref):
                            _bits(getattr(rs, f.name))), f.name
 
 
-def _spy_segments(monkeypatch):
-    """(key, outputs) of every segment the runners run."""
-    seen = []
-    real = t_gmres.GmresRunner.segment
+def _trips(stepper) -> dict:
+    """The runner's trip counters at its last read, by name: restart
+    cycles, accepted restarts ("take"), cycles that ended at j = 0 (each
+    summed over the main solve's and the corrections' cycle loops), the
+    refinement's first residuals and passes ("correct")."""
+    run = stepper.run
+    lay, t = run.lay, run._trips_seen
+    loops = range(device_loop.COPIES)
 
-    def segment(self, key, body, graphed):
-        out = real(self, key, body, graphed)
-        seen.append((key, out))
-        return out
+    def over_loops(at):
+        return sum(int(t[at(c)]) for c in loops)
 
-    monkeypatch.setattr(t_gmres.GmresRunner, "segment", segment)
-    return seen
+    return {"cycle": over_loops(lay.cyc), "take": over_loops(lay.take),
+            "end0": over_loops(lay.end),
+            "first": int(t[lay.trip["first"]]),
+            "correct": int(t[lay.trip["correct"]])}
 
 
-def _rejections(seen):
-    """Restart cycles whose true residual did not fall, replayed from the
-    segments' outputs as ``gmres.cycles`` decides."""
-    n, res, safe = 0, None, None
-    for key, out in seen:
-        if key in (("norms",), ("correct",)) or key[0] == "head":
-            bn, rn = out[-2:]
-            safe = max(bn, 1e-300)
-            res = rn / safe
-        elif key[0] == "end":
-            r = out[0] / safe
-            n += not (r < res) and key[1] > 0
-            res = r if np.isnan(r) else min(r, res)
-    return n
+def _rejections(trips) -> int:
+    """Restart cycles of at least one Arnoldi step whose answer was not
+    taken (the true residual did not fall)."""
+    return trips["cycle"] - trips["end0"] - trips["take"]
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +222,9 @@ def test_cycle_through_the_step_runner_equals_the_old_steps(name, n,
     assert (counts["eager"], counts["cycles"]) == (ref_counts["steps"],
                                                    ref_counts["cycles"])
     assert counts["replays"] == steps["replays"] == steps["captures"] == 0
-    # a head, a tail, a start and an end a cycle, and the refinement's
-    assert steps["eager"] >= n * 2 + 2 * counts["cycles"]
+    # n steps run directly, each read once at its end besides its gates'
+    assert steps["eager"] == steps["steps"] == n and steps["launches"] == 0
+    assert steps["host_reads"] > n
     assert torch.equal(first.C, kept)
     assert first.C.data_ptr() != stepper.state.C.data_ptr()
     # the one-step library call, eager or not, is the runner's step too
@@ -241,20 +237,21 @@ def test_cycle_through_the_step_runner_equals_the_old_steps(name, n,
 @pytest.mark.parametrize("name, dt_max, passes", [
     ("parity_f32", 1e-6, 0), ("parity_f32", 3e5, 2)],
     ids=["none", "two"])
-def test_refinement_passes(name, dt_max, passes, monkeypatch):
+def test_refinement_passes(name, dt_max, passes):
     """A step whose f64 residual meets the tolerance at once (dt = 1e-6 s)
     and one that takes both refinement passes (a stiff dt, whose f32
     cycles also reject restarts), each bit for bit the old step; the
-    passes counted from the segments run."""
+    passes and the rejected restarts counted from gmres_qr's trip
+    counters."""
     kit, st = _built(name)
     kit = dataclasses.replace(kit, cfg=_with(kit.cfg, implicit_dt_max=dt_max,
                                              implicit_dt_min_frac=1.0))
     op = _operator(st, kit)
-    seen = _spy_segments(monkeypatch)
-    got = _cycle(_fresh_stepper(kit), st, op, kit, 1, False)
-    assert sum(key == ("update",) for key, _ in seen) == passes
-    assert sum(key == ("refine",) for key, _ in seen) == 1
-    assert (_rejections(seen) > 0) == (passes == 2)
+    stepper = _fresh_stepper(kit)
+    got = _cycle(stepper, st, op, kit, 1, False)
+    trips = _trips(stepper)
+    assert trips["correct"] == passes and trips["first"] == 1
+    assert (_rejections(trips) > 0) == (passes == 2)
     _equal(got, reference_cycle(st, op, kit, 1, False))
 
 
@@ -263,7 +260,7 @@ def _with(cfg, **values):
     return FrozenConfig(dataclasses.replace(cfg._cfg, **values))
 
 
-def test_rejected_restart(monkeypatch):
+def test_rejected_restart():
     """A stiff f64 step on parity.cfg whose cycles run into round-off: a
     restart that raised the true residual is rejected (the runner keeps
     x), bit for bit the old step."""
@@ -271,9 +268,9 @@ def test_rejected_restart(monkeypatch):
     kit = dataclasses.replace(kit, cfg=_with(kit.cfg, implicit_dt_max=3e6,
                                              implicit_dt_min_frac=1.0))
     op = _operator(st, kit)
-    seen = _spy_segments(monkeypatch)
-    got = _cycle(_fresh_stepper(kit), st, op, kit, 1, False)
-    assert _rejections(seen) > 0
+    stepper = _fresh_stepper(kit)
+    got = _cycle(stepper, st, op, kit, 1, False)
+    assert _rejections(_trips(stepper)) > 0
     _equal(got, reference_cycle(st, op, kit, 1, False))
 
 
