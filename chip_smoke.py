@@ -745,82 +745,119 @@ def record_basis_dots(record, name, V, w):
 def qr_check_sequence(dl, m, rng):
     """gmres_qr's modes in a step's order, for holding the kernel against
     its twin (as tests/test_torch_device_loop.py): (mode, j, arg), arg
-    BEGIN's params, scalars to set first or the Arnoldi column h[:j + 2].
-    The main solve's loop (COPY 0) runs a cycle that breaks down at once
-    on a negative pivot (cosine -1), one on a zero column (denom 0: cosine
-    1) and m steps with two zero subdiagonals; then the refinement and
-    both correction loops (COPY 1 and 2), each with a breakdown, the
-    second opening on a negative pivot; then the step's end."""
+    BEGIN's params or a dict of scalars to set first (upper case; ACCEPT's
+    RNEW the candidate's self-dot) and raw inputs (START's self-dot
+    ``dot``; ARNOLDI's CGS2 coefficients ``c1``, ``c2`` and self-dot
+    ``dot``). The main solve's loop (COPY 0) runs a cycle that breaks down
+    at once on a negative pivot (cosine -1), one on a zero column (denom
+    0: cosine 1) and m steps with two zero subdiagonals; then the
+    refinement and both correction loops (COPY 1 and 2), each with a
+    breakdown, the second opening on a negative pivot; then the step's
+    end."""
+    def col(j, zero=False):
+        h = abs(rng.normal()) + 0.1
+        return {"c1": rng.normal(size=j + 1),
+                "c2": 1e-3 * rng.normal(size=j + 1),
+                "dot": 0.0 if zero else h * h}
+
     def cols(js, zero=()):
-        out = []
-        for j in js:
-            col = np.concatenate([rng.normal(size=j + 1),
-                                  [abs(rng.normal()) + 0.1]])
-            if j in zero:
-                col[j + 1] = 0.0
-            out.append((dl.ARNOLDI, j, col))
-        return out
+        return [(dl.ARNOLDI, j, col(j, j in zero)) for j in js]
+
+    def pivot(h0):
+        return (dl.ARNOLDI, 0, {"c1": np.array([h0]), "c2": np.zeros(1),
+                                "dot": 0.0})
 
     def end(rnew):
-        return [(dl.FINISH, 0, None), (dl.ACCEPT, 0, {"RNEW": rnew})]
+        return [(dl.FINISH, 0, None), (dl.ACCEPT, 0, {"RNEW": rnew * rnew})]
 
     half = max(m // 2, 2)
     return [
         (dl.BEGIN, 0, (0.0, 1e9, 1e-4, 1e-6, 8, 3, 10, 4, 1, 2, 1000)),
         (dl.HEAD, 0, {"BN": 3.0, "RN": 1.0}),
-        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.array([-2.0, 0.0])),
-        *end(2.0),
-        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.zeros(2)),
-        *end(2.0),
-        (dl.START, 0, {"BETA": 1.0}), *cols(range(m), {m // 3, m // 2}),
+        (dl.START, 0, {"dot": 1.0}), pivot(-2.0), *end(2.0),
+        (dl.START, 0, {"dot": 1.0}), pivot(0.0), *end(2.0),
+        (dl.START, 0, {"dot": 1.0}), *cols(range(m), {m // 3, m // 2}),
         *end(0.5),
         (dl.REF_FIRST, 0, {"BN": 2.0, "RN": 1e-5}),
         (dl.CORRECT, 0, {"BN": 1e-5, "RN": 1e-5}),
-        (dl.START, 0, {"BETA": 1e-5}), *cols(range(half), {1}), *end(1e-7),
+        (dl.START, 0, {"dot": 1e-10}), *cols(range(half), {1}), *end(1e-7),
         (dl.UPDATE, 0, {"RN": 1e-6}),
         (dl.CORRECT, 0, {"BN": 1e-6, "RN": 1e-6}),
-        (dl.START, 0, {"BETA": 1e-6}), (dl.ARNOLDI, 0, np.array([-1.0, 0.0])),
-        *cols(range(1, half)), *end(1e-8),
+        (dl.START, 0, {"dot": 1e-12}), pivot(-1.0), *cols(range(1, half)),
+        *end(1e-8),
         (dl.UPDATE, 0, {"RN": 1e-9}),
         (dl.TAIL, 1, {"DT": 30.0, "NBELOW": 0.0, "LOSS": 1.0, "SOLID": 9.0,
                       "VMAX": 2.0, "CMAX": 0.5})]
 
 
+def qr_apply(lay, S, arg, scale):
+    """Set the scalars of a qr_check_sequence entry into S (on any
+    device); its raw inputs as gmres_qr keyword arguments on S's device,
+    with ``scale`` for the basis vector's scale."""
+    if not isinstance(arg, dict):
+        return {}
+    raw = {}
+    for name, v in arg.items():
+        if name.isupper():
+            S[lay.sc(name)] = v
+        else:
+            raw[name] = torch.tensor(v, dtype=torch.float64,
+                                     device=S.device)
+    if raw:
+        raw["scale"] = scale
+    return raw
+
+
 def record_gmres_qr(record, m, rng):
     """gmres_qr at restart length m (float32 runs' GMRES(25)): every mode
-    of a step in order (qr_check_sequence: cycles of the main solve and
-    of both refinement corrections, breakdowns on a negative pivot, a zero
-    column and zero subdiagonals), S and F, the trip counters included,
-    bit for bit against the plain twin on the host after each; then the
-    FINISH launch (the back-substitution of m coefficients, the longest
-    mode) timed against the twin and against
-    torch.linalg.solve_triangular on the same R and g. Bound: its bytes
+    of a step in order from the raw inputs (qr_check_sequence: cycles of
+    the main solve and of both refinement corrections, breakdowns on a
+    negative pivot, a zero column and zero subdiagonals), S, F and the
+    float32 scale, the trip counters included, bit for bit against the
+    plain twin on the host after each; then the ARNOLDI launch at j = m -
+    1 (the longest step: its m - 1 rotations) timed, and the FINISH launch
+    (the back-substitution of m coefficients, the longest mode) timed
+    against the twin and against torch.linalg.solve_triangular on the same
+    R and g (no library call does a Givens step). Bound: FINISH's bytes
     (R's upper triangle and g read, y written) over HBM and its float64
-    operations at the card's rate; a one-thread chain of dependent float64
-    operations sits far above both (latency)."""
+    operations at the card's rate; the chain of dependent float64
+    operations sits far above both (latency;
+    scripts/gmres_qr_modes_torch.py measures that floor)."""
     from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
 
     lay = dl.QrLayout(m, 4)
-    S = torch.zeros(lay.size, dtype=torch.float64)
-    F = torch.zeros(lay.n_flags, dtype=torch.bool)
-    Sd, Fd = S.cuda(), F.cuda()
+    # the twin's copy lies on the card too: its self-dots' square roots
+    # are then torch.sqrt's there (IEEE), as the kernel's are
+    S = torch.zeros(lay.size, dtype=torch.float64, device="cuda")
+    F = torch.zeros(lay.n_flags, dtype=torch.bool, device="cuda")
+    scale = torch.zeros(1, dtype=torch.float32, device="cuda")
+    Sd, Fd, scale_d = S.clone(), F.clone(), scale.clone()
     same = True
     with np.errstate(divide="ignore", invalid="ignore"):
         for mode, j, arg in qr_check_sequence(dl, m, rng):
             params = arg if mode == dl.BEGIN else None
-            if isinstance(arg, dict):
-                for name, v in arg.items():
-                    S[lay.sc(name)] = v
-                    Sd[lay.sc(name)] = v
-            elif isinstance(arg, np.ndarray):
-                S[lay.H:lay.H + j + 2] = torch.from_numpy(arg)
-                Sd[lay.H:lay.H + j + 2] = torch.from_numpy(arg).cuda()
-            dl.gmres_qr_plain(mode, j, S, F, m, params)
-            dl.gmres_qr(mode, j, Sd, Fd, m, params)
+            raw = qr_apply(lay, S, arg, scale)
+            raw_d = qr_apply(lay, Sd, arg, scale_d)
+            dl.gmres_qr_plain(mode, j, S, F, m, params, **raw)
+            dl.gmres_qr(mode, j, Sd, Fd, m, params, **raw_d)
             torch.cuda.synchronize()
             same = same and torch.equal(S.view(torch.int64),
-                                        Sd.cpu().view(torch.int64)) and (
-                torch.equal(F, Fd.cpu()))
+                                        Sd.view(torch.int64)) and (
+                torch.equal(F, Fd)) and torch.equal(scale, scale_d)
+    # ARNOLDI at j = m - 1 on the state the cycle left (it rewrites step
+    # m - 1's rotation, g[m - 1 :] and R's last column each call)
+    j = m - 1
+    S2, F2 = Sd.clone(), Fd.clone()
+    arn = {"c1": seeded(rng, (j + 1,), dtype=torch.float64),
+           "c2": seeded(rng, (j + 1,), 1e-3, dtype=torch.float64),
+           "dot": torch.tensor(0.49, dtype=torch.float64, device="cuda")}
+
+    def arnoldi():
+        dl.gmres_qr(dl.ARNOLDI, j, S2, F2, m, scale=scale_d, **arn)
+
+    arnoldi_ms = median_ms(arnoldi, 20)
+    print(f"[kernels] gmres_qr: ARNOLDI at j = {j}: {arnoldi_ms:.4f} ms a "
+          f"launch (no library call does a Givens step)")
     # the FINISH launch on the state the cycle left (idempotent: it reads
     # R and g, writes yc)
     S2, F2 = Sd.clone(), Fd.clone()
@@ -842,8 +879,9 @@ def record_gmres_qr(record, m, rng):
     err = float((kernel()[0].cpu() - ref).abs().max())
     n_r = m * (m + 1) // 2
     record("gmres_qr", err, same and err == 0.0, kernel, plain,
-           f"every mode bit-equal {same}; FINISH m={m}",
-           8 * (n_r + 2 * m), 2.0 * n_r + 2 * m, F64_RATE,
+           f"every mode bit-equal {same}; FINISH m={m}; ARNOLDI j={j} "
+           f"{arnoldi_ms:.4f} ms", 8 * (n_r + 2 * m), 2.0 * n_r + 2 * m,
+           F64_RATE,
            library=lambda: torch.linalg.solve_triangular(
                R, g[:, None], upper=True)[:, 0].neg())
 

@@ -106,9 +106,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_ns3d_chunked_geometry.argtypes = [
         i32, i32, ctypes.POINTER(ctypes.c_int * 10)]
     f64 = ctypes.c_double
+    lib.pd_gmres_qr_begin.restype = i32
+    lib.pd_gmres_qr_begin.argtypes = [i32, vp, vp, f64, f64, f64, f64, i64,
+                                      i64, i64, i64, i64, i64, i64, i32, vp]
     lib.pd_gmres_qr.restype = i32
-    lib.pd_gmres_qr.argtypes = [i32, i32, i32, vp, vp, f64, f64, f64, f64,
-                                i64, i64, i64, i64, i64, i64, i64, i32, vp]
+    lib.pd_gmres_qr.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i32,
+                                i32, vp]
     lib.pd_cg_runtime_version.restype = i32
     lib.pd_cg_runtime_version.argtypes = []
     lib.pd_cg_create.restype = i32

@@ -4,13 +4,15 @@ whose flags it sets.
 
 Kernel: ``csrc/gmres_qr.cu`` (no TPU kernel: the JAX package decides its
 solve loops on the device through XLA, ``ops/gmres.py:136-259`` and
-``coupling.py:113-175``). One thread runs a mode over the float64 state
-``S`` (``QrLayout``) and the bool flags ``F``: the Givens update after an
-Arnoldi step, the back-substitution at a cycle's end, the restart's
-acceptance, the refinement passes, an implicit step's start and its end
-(the exits and diagnostic rows of a chunk of steps). ``gmres_qr_plain``
-repeats every mode with Python floats in the kernel's order, so the two
-agree bit for bit.
+``coupling.py:113-175``). One warp runs a mode over the float64 state
+``S`` (``QrLayout``) and the bool flags ``F``: a cycle's start and the
+Givens update after an Arnoldi step (each from the raw dot products: the
+norm, the Hessenberg column and the new basis vector's scale, which the
+caller multiplies into V), the back-substitution at a cycle's end, the
+restart's acceptance, the refinement passes, an implicit step's start
+and its end (the exits and diagnostic rows of a chunk of steps).
+``gmres_qr_plain`` repeats every mode with Python floats in the kernel's
+order, so the two agree bit for bit.
 
 ``csrc/cond_graph.cu`` assembles CUDA graphs with IF nodes out of pieces
 that PyTorch captured (``CondGraph``); ``ops.gmres.GmresRunner`` records its
@@ -102,6 +104,22 @@ def _py_min(a, b):
     return b if b < a else a
 
 
+def _torch_sqrt(x, device):
+    """torch.sqrt of the float64 x on ``device``, as a norm is taken there:
+    on the card the IEEE square root the kernel takes; PyTorch's float64
+    sqrt on the CPU is not always correctly rounded (at times one ulp off
+    math.sqrt), and the CPU route follows it."""
+    return float(torch.sqrt(torch.tensor(x, dtype=torch.float64,
+                                         device=device)))
+
+
+def _put_scale(scale, h):
+    """``ops.gmres.inv_norm(h)`` (1 / max(h, 1e-300) above 1e-30, else 0; a
+    NaN gives 0) into the one-element ``scale``, rounded to its dtype."""
+    inv = 1.0 / _py_max(h, 1e-300) if h > 1e-30 else 0.0
+    scale.view(-1)[:1].copy_(torch.tensor([inv], dtype=torch.float64))
+
+
 def _div(a, b):
     """a / b as IEEE float64 divides (Python raises on a zero divisor)."""
     try:
@@ -112,11 +130,19 @@ def _div(a, b):
         return math.copysign(math.inf, a) * math.copysign(1.0, b)
 
 
-def gmres_qr_plain(mode, j, S, F, m, params=None):
+def gmres_qr_plain(mode, j, S, F, m, params=None, c1=None, c2=None,
+                   dot=None, scale=None):
     """The kernel's mode ``mode`` (step index or flag ``j``) on S and F,
     with Python floats in the kernel's order; ``params`` (BEGIN): t0,
     T_final, tol_main, tol_final, ncyc_main, total0, steps_left, cap,
-    batch, diag_every, out_every."""
+    batch, diag_every, out_every. START takes the residual's self-dot
+    ``dot`` (its first element), ARNOLDI CGS2's coefficient vectors ``c1``
+    and ``c2`` (their first j + 1 elements, float64) and the new vector's
+    self-dot; both write the basis vector's scale into ``scale`` (one
+    element, the basis dtype). ACCEPT takes the candidate's self-dot in
+    S's RNEW and leaves its square root there. The self-dots' square roots
+    are torch.sqrt's on S's device (``_torch_sqrt``); the tensors may lie
+    on the card, where the twin is held against the kernel."""
     L = QrLayout(m)
     v = S.tolist()
     f = F.tolist()
@@ -169,7 +195,9 @@ def gmres_qr_plain(mode, j, S, F, m, params=None):
         v[sc("COPY")] = 0.0
         trip(L.trip["head"])
     elif mode == START:
-        beta = v[sc("BETA")]
+        beta = _torch_sqrt(float(dot.reshape(-1)[0]), S.device)
+        v[sc("BETA")] = beta
+        _put_scale(scale, beta)
         for i in range(m + 1):
             v[g + i] = 0.0
         v[g] = beta
@@ -180,6 +208,11 @@ def gmres_qr_plain(mode, j, S, F, m, params=None):
         f[RUNNING] = not beta / v[sc("SAFE_B")] < v[sc("TOL")]
         trip(L.cyc(c_loop))
     elif mode == ARNOLDI:
+        col = [a + b for a, b in zip(c1.reshape(-1)[:j + 1].tolist(),
+                                      c2.reshape(-1)[:j + 1].tolist())]
+        v[h:h + j + 1] = col
+        v[h + j + 1] = _torch_sqrt(float(dot.reshape(-1)[0]), S.device)
+        _put_scale(scale, v[h + j + 1])
         for i in range(j):
             t = v[cs + i] * v[h + i] + v[sn + i] * v[h + i + 1]
             v[h + i + 1] = -v[sn + i] * v[h + i] + v[cs + i] * v[h + i + 1]
@@ -211,6 +244,7 @@ def gmres_qr_plain(mode, j, S, F, m, params=None):
             v[y + i] = -v[y + i]
         trip(L.end(c_loop) + n)
     elif mode == ACCEPT:
+        v[sc("RNEW")] = _torch_sqrt(v[sc("RNEW")], S.device)
         res_new = v[sc("RNEW")] / v[sc("SAFE_B")]
         take = res_new < v[sc("RES")] and v[sc("J")] > 0.0
         v[sc("RES")] = (res_new if math.isnan(res_new)
@@ -260,15 +294,24 @@ def gmres_qr_plain(mode, j, S, F, m, params=None):
     F.copy_(torch.tensor(f, dtype=torch.bool))
 
 
-_NO_PARAMS = (0.0, 0.0, 0.0, 0.0, 0, 0, 0, 0, 0, 0, 0)
+def _f64_operand(name, t, n, device):
+    if (t is None or t.dtype != torch.float64 or t.device != device
+            or not t.is_contiguous() or t.numel() < n):
+        raise ValueError(f"gmres_qr: {name} must be a contiguous float64 "
+                         f"tensor of at least {n} on {device}")
+    return ptr(t)
 
 
-def gmres_qr(mode, j, S, F, m, params=None):
-    """gmres_qr_plain's contract: the one-thread kernel on CUDA tensors (S
-    float64, F bool, both contiguous, on one card), the plain version on
-    CPU tensors. One launch on the current stream; no host read."""
+def gmres_qr(mode, j, S, F, m, params=None, c1=None, c2=None, dot=None,
+             scale=None):
+    """gmres_qr_plain's contract: the one-warp kernel on CUDA tensors (S
+    float64, F bool, c1, c2 and dot float64, scale float32 or float64, all
+    contiguous, on one card), the plain version on CPU tensors. One launch
+    on the current stream; no host read. The kernel refuses (and this
+    raises) a restart length whose FINISH staging (R's upper triangle, g
+    and y) does not fit one block's shared memory: m above 238."""
     if S.device.type == "cpu" and F.device.type == "cpu":
-        return gmres_qr_plain(mode, j, S, F, m, params)
+        return gmres_qr_plain(mode, j, S, F, m, params, c1, c2, dot, scale)
     if S.device != F.device or S.device.type != "cuda":
         raise ValueError(f"gmres_qr: S on {S.device}, F on {F.device}")
     L = QrLayout(m)
@@ -278,10 +321,31 @@ def gmres_qr(mode, j, S, F, m, params=None):
         raise ValueError("gmres_qr: S must be contiguous float64 of at least "
                          f"{L.ROWS}, F contiguous bool of at least "
                          f"{L.n_flags}")
-    p = _NO_PARAMS if params is None else params
-    rc = load().lib.pd_gmres_qr(
-        mode, j, m, ptr(S), ptr(F), float(p[0]), float(p[1]), float(p[2]),
-        float(p[3]), *(int(x) for x in p[4:]), S.device.index, stream(S))
+    lib, dev, st = load().lib, S.device, stream(S)
+    if mode == BEGIN:
+        p = params
+        rc = lib.pd_gmres_qr_begin(
+            m, ptr(S), ptr(F), float(p[0]), float(p[1]), float(p[2]),
+            float(p[3]), *(int(x) for x in p[4:]), dev.index, st)
+    else:
+        raw = [None] * 4
+        f32 = 0
+        if mode in (START, ARNOLDI):
+            if (scale is None or scale.device != dev
+                    or scale.dtype not in (torch.float32, torch.float64)
+                    or not scale.is_contiguous() or scale.numel() < 1):
+                raise ValueError("gmres_qr: scale must be a contiguous "
+                                 f"float32 or float64 tensor on {dev}")
+            raw[2] = _f64_operand("dot", dot, 1, dev)
+            raw[3] = ptr(scale)
+            f32 = int(scale.dtype == torch.float32)
+        if mode == ARNOLDI:
+            if not 0 <= j < m:
+                raise ValueError(f"gmres_qr: Arnoldi step {j} of {m}")
+            raw[0] = _f64_operand("c1", c1, j + 1, dev)
+            raw[1] = _f64_operand("c2", c2, j + 1, dev)
+        rc = lib.pd_gmres_qr(mode, j, m, ptr(S), ptr(F), *raw, f32,
+                             dev.index, st)
     check(rc, "gmres_qr")
     gmres_qr.launches += 1
 

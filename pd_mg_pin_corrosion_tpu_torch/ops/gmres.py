@@ -12,7 +12,7 @@ The JAX package runs the whole solve on the device: one Arnoldi step is
 the body of a ``lax.while_loop`` (its ``ops/gmres.py:136-226``), the
 restart cycles a second one, the f64 refinement of an implicit step
 ``lax.cond``s around them. Here too every decision is taken on the device,
-by the one-thread ``gmres_qr`` kernel over the runner's state vector ``S``
+by the one-warp ``gmres_qr`` kernel over the runner's state vector ``S``
 (the Givens rotations and the exit test after each Arnoldi step, the
 back-substitution at a cycle's end, the monotone acceptance, the restart
 and refinement flags). The device work between two decisions is a fixed
@@ -111,17 +111,23 @@ def vector_norm(x: torch.Tensor, allreduce=None) -> float:
     return float(vector_norm_t(x, allreduce))
 
 
-def fnorm_t(dots, v: torch.Tensor) -> torch.Tensor:
-    """GMRES's 2-norm of v through ``dots`` (basis_dots or its twin, a
-    mesh's sum included): a 0-d float64 tensor."""
+def self_dot(dots, v: torch.Tensor) -> torch.Tensor:
+    """<v, v> through ``dots`` (basis_dots or its twin, a mesh's sum
+    included): a 0-d float64 tensor."""
     v = v.reshape(-1)
-    return torch.sqrt(dots(v[None], v)[0])
+    return dots(v[None], v)[0]
+
+
+def fnorm_t(dots, v: torch.Tensor) -> torch.Tensor:
+    """GMRES's 2-norm of v through ``dots``: a 0-d float64 tensor."""
+    return torch.sqrt(self_dot(dots, v))
 
 
 def inv_norm(h: torch.Tensor) -> torch.Tensor:
     """1 / h for h > 1e-30, else 0 (a happy breakdown keeps a zero
     vector), in h's dtype on h's device: the host's ``1.0 / max(h,
-    1e-300) if h > 1e-30 else 0.0`` bit for bit."""
+    1e-300) if h > 1e-30 else 0.0`` bit for bit, and what gmres_qr's START
+    and ARNOLDI write as the basis vector's scale."""
     return torch.where(h > 1e-30,
                        torch.reciprocal(torch.clamp(h, min=1e-300)), 0.0)
 
@@ -313,7 +319,7 @@ class GmresRunner:
 
     def __init__(self, graph_route: bool = False):
         self.graph_route = graph_route
-        self.V = self.S = self.F = self.S_host = self.lay = None
+        self.V = self.scale = self.S = self.F = self.S_host = self.lay = None
         self.b = self.x = self.xn = self.dt = self.inv_diag = None
         self.b64 = self.x64 = self.r64 = None
         self.op = None
@@ -420,14 +426,16 @@ class GmresRunner:
             setattr(self, name, self.buffer(name, sh, dtype, dev))
 
     def basis(self, m: int, n: int, dtype, device) -> torch.Tensor:
-        """The [m+1, n] basis (and gmres_qr's state), allocated at the
-        first call and whenever m, n or the dtype change."""
+        """The [m+1, n] basis, the scale gmres_qr leaves for its next
+        vector (one element of its dtype) and gmres_qr's state, allocated
+        at the first call and whenever m, n or the dtype change."""
         V = self.V
         if V is None or V.shape != (m + 1, n) or V.dtype != dtype or (
                 V.device != device):
             if V is not None:
                 self.drop_graphs()
             self.V = pitched_basis(m + 1, n, dtype, device)
+            self.scale = torch.zeros(1, dtype=dtype, device=device)
             self.qr_state(m, ROWS_ROOM, device)
         return self.V
 
@@ -462,8 +470,12 @@ class GmresRunner:
             self.S[at:at + len(vals)].copy_(torch.stack(
                 [v.to(torch.float64) for v in vals]))
 
-    def qr(self, mode: int, j: int = 0, params=None) -> None:
-        gmres_qr(mode, j, self.S, self.F, self.lay.m, params)
+    def qr(self, mode: int, j: int = 0, params=None, c1=None, c2=None,
+           dot=None) -> None:
+        """gmres_qr's mode over S and F (START and ARNOLDI writing the
+        basis vector's scale into ``scale``)."""
+        gmres_qr(mode, j, self.S, self.F, self.lay.m, params, c1, c2, dot,
+                 self.scale)
 
     def read(self, rows: int = 0) -> list:
         """S's scalars, trip counters and the first ``rows`` diagnostic
@@ -783,48 +795,44 @@ def n_cycles(maxiter: int, restart: int) -> int:
 
 
 def _arnoldi(run: GmresRunner, j: int, fns) -> None:
-    """Arnoldi step j in place: w = A(M(V[j])), CGS2 against V[:j+1],
-    h = ||w||, V[j+1] = w / h; the new Hessenberg column [c1 + c2, h]
-    (j + 2 entries, float64) into S's column, then gmres_qr's rotation."""
+    """Arnoldi step j in place: w = A(M(V[j])), CGS2 against V[:j+1], then
+    gmres_qr's ARNOLDI from the raw dots (the column [c1 + c2, ||w||],
+    its rotations and the scale 1 / ||w||, 0 at a happy breakdown, whose
+    zero vector is never used) and V[j+1] = w * scale."""
     A, M, dots, axpy = fns
-    V, lay = run.V, run.lay
+    V = run.V
     w = A(M(V[j].view(run.x.shape))).reshape(-1)
     Vj = V[:j + 1]
     c1 = dots(Vj, w)
     w = axpy(c1, Vj, w)
     c2 = dots(Vj, w)
     w = axpy(c2, Vj, w)
-    h = torch.sqrt(dots(w[None], w)[0])
-    # happy breakdown keeps a zero vector; its column is never used
-    V[j + 1] = w * inv_norm(h).to(w.dtype)
-    torch.add(c1, c2, out=run.S[lay.H:lay.H + j + 1])
-    run.S[lay.H + j + 1].copy_(h)
-    run.qr(qr.ARNOLDI, j)
+    run.qr(qr.ARNOLDI, j, c1=c1, c2=c2, dot=self_dot(dots, w))
+    torch.mul(w, run.scale, out=V[j + 1])
 
 
 def _cycle_start(run: GmresRunner, fns) -> None:
-    """r = b - A x, beta = ||r||, V[0] = r / beta (0 below 1e-30, on the
-    device as ``inv_norm``); beta into S, then gmres_qr's START."""
+    """r = b - A x; gmres_qr's START from <r, r> (beta = ||r|| into S and
+    the scale 1 / beta, 0 below 1e-30), then V[0] = r * scale."""
     A, _, dots, _ = fns
     r = (run.b - A(run.x)).reshape(-1)
-    beta = fnorm_t(dots, r)
-    run.V[0] = r * inv_norm(beta).to(r.dtype)
-    run.put_sc("BETA", beta)
-    run.qr(qr.START)
+    run.qr(qr.START, dot=self_dot(dots, r))
+    torch.mul(r, run.scale, out=run.V[0])
 
 
 def _cycle_end(run: GmresRunner, fns, j: int) -> None:
     """A cycle of j Arnoldi steps ends: xn = x + M(sum_i yc_i V[i]) with
-    the coefficients gmres_qr left in S, and ||b - A xn|| into S's RNEW
-    (j > 0); for j = 0 the residual of x itself."""
+    the coefficients gmres_qr left in S, and <r, r> of r = b - A xn into
+    S's RNEW, whose square root ACCEPT takes (j > 0); for j = 0 the
+    residual of x itself."""
     A, M, dots, axpy = fns
     if j == 0:
-        run.put_sc("RNEW", fnorm_t(dots, run.b - A(run.x)))
+        run.put_sc("RNEW", self_dot(dots, run.b - A(run.x)))
         return
     yc = run.S[run.lay.YC:run.lay.YC + j]
     dx = M(axpy(yc, run.V[:j]).view(run.x.shape))
     torch.add(run.x, dx, out=run.xn)
-    run.put_sc("RNEW", fnorm_t(dots, run.b - A(run.xn)))
+    run.put_sc("RNEW", self_dot(dots, run.b - A(run.xn)))
 
 
 def cycles(run: GmresRunner, fns, loop: int = 0) -> None:

@@ -1401,34 +1401,41 @@ def test_gmres_graph_replay_is_one_launch_record():
 
 @pytest.mark.parametrize("m", [25, 50])
 def test_gmres_qr_equals_plain(m):
-    """gmres_qr on the card against its plain twin on the host, every mode
-    of a step in order (test_torch_device_loop.qr_check_sequence: the
-    main solve's cycles with a negative pivot, a zero column and zero
-    subdiagonals, the refinement and both correction loops' cycles, the
-    step's end): S and F bit for bit after each, the trip counters
-    included."""
+    """gmres_qr on the card against its plain twin, every mode of a step
+    in order from the raw inputs (test_torch_device_loop.
+    qr_check_sequence: the main solve's cycles with a negative pivot, a
+    zero column and zero subdiagonals, the refinement and both correction
+    loops' cycles, the step's end): S, F and the basis vector's scale
+    (float32 and float64) bit for bit after each, the trip counters
+    included; one launch a mode. The twin runs on a copy on the card, so
+    its self-dots' square roots are torch.sqrt's there (IEEE), as the
+    kernel's are."""
     from test_torch_device_loop import qr_apply, qr_check_sequence
 
     from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
 
     _card()
     lay = dl.QrLayout(m, 4)
-    S = torch.zeros(lay.size, dtype=torch.float64)
-    F = torch.zeros(lay.n_flags, dtype=torch.bool)
-    Sd, Fd = S.cuda(), F.cuda()
-    with np.errstate(divide="ignore", invalid="ignore"):
-        for mode, j, arg in qr_check_sequence(m, np.random.default_rng(m)):
-            qr_apply(lay, S, arg, j)
-            qr_apply(lay, Sd, arg, j)
-            params = arg if mode == dl.BEGIN else None
-            dl.gmres_qr_plain(mode, j, S, F, m, params)
-            n0 = dl.gmres_qr.launches
-            dl.gmres_qr(mode, j, Sd, Fd, m, params)
-            assert dl.gmres_qr.launches == n0 + 1
-            torch.cuda.synchronize()
-            assert torch.equal(S.view(torch.int64),
-                               Sd.cpu().view(torch.int64)), (mode, j)
-            assert torch.equal(F, Fd.cpu()), (mode, j)
+    for dtype in (torch.float32, torch.float64):
+        S = torch.zeros(lay.size, dtype=torch.float64, device="cuda")
+        F = torch.zeros(lay.n_flags, dtype=torch.bool, device="cuda")
+        scale = torch.zeros(1, dtype=dtype, device="cuda")
+        Sd, Fd, scale_d = S.clone(), F.clone(), scale.clone()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for mode, j, arg in qr_check_sequence(
+                    m, np.random.default_rng(m)):
+                raw = qr_apply(lay, S, arg, scale)
+                raw_d = qr_apply(lay, Sd, arg, scale_d)
+                params = arg if mode == dl.BEGIN else None
+                dl.gmres_qr_plain(mode, j, S, F, m, params, **raw)
+                n0 = dl.gmres_qr.launches
+                dl.gmres_qr(mode, j, Sd, Fd, m, params, **raw_d)
+                assert dl.gmres_qr.launches == n0 + 1
+                torch.cuda.synchronize()
+                assert torch.equal(S.view(torch.int64),
+                                   Sd.view(torch.int64)), (mode, j)
+                assert torch.equal(F, Fd), (mode, j)
+                assert torch.equal(scale, scale_d), (mode, j)
 
 
 def test_gmres_graph_route_and_device_inv_h():

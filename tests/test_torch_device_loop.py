@@ -6,9 +6,15 @@ forms the port kept: ``ops.gmres._givens`` for each Arnoldi step's
 rotations and ``_back_substitute`` (each row's sum one term at a time in
 ascending order) for a cycle's coefficients, bit for bit, on hypothesis
 columns, a happy breakdown (h = 0) and a column whose squares underflow
-(denom <= 1e-300: no rotation, a zero pivot); the scalar modes (acceptance, the
-refinement's passes, a step's end) against their Python statement,
-NaN and exit cases included.
+(denom <= 1e-300: no rotation, a zero pivot); START, ARNOLDI and ACCEPT
+from the raw dot products against the same step with the scalar glue as
+separate PyTorch operations (``torch.add`` of CGS2's coefficients,
+``torch.sqrt`` of the self-dots, ``ops.gmres.inv_norm`` cast to the basis
+dtype and multiplied in) and the rotations on S's column, in float32 and
+float64, seeded columns, breakdowns, a NaN self-dot, a negative pivot and
+a zero column among them; the scalar modes (acceptance, the refinement's
+passes, a step's end) against their Python statement, NaN and exit cases
+included.
 
 The gated route as the CPU runs it (each IF, WHILE and SWITCH taken by a
 host read of its flag, the same bodies and flags the card's graph holds)
@@ -20,6 +26,7 @@ maxiter short of its tolerance; each reads the host once besides its
 gates.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -49,6 +56,14 @@ def _put(S, lay, **vals):
         S[lay.sc(name)] = v
 
 
+def _glue_column(c1, c2, dot):
+    """An Arnoldi step's Hessenberg column [c1 + c2, sqrt(dot)] as separate
+    PyTorch operations (float64)."""
+    f64 = functools.partial(torch.tensor, dtype=torch.float64)
+    return torch.cat([torch.add(f64(c1), f64(c2)),
+                      torch.sqrt(f64(dot)).reshape(1)]).tolist()
+
+
 def _host_cycle(cols, beta):
     """The host loop's rotations over the columns ``cols`` (each j + 2
     entries) from g = [beta, 0, ...]: (cs, sn, g, R, -y)."""
@@ -69,20 +84,22 @@ def _host_cycle(cols, beta):
     return cs, sn, g, R, -t_gmres._back_substitute(R, g, m)
 
 
-def _twin_cycle(cols, beta):
-    """gmres_qr's plain twin over the same columns: START, ARNOLDI per
-    column (tol 0: no early exit), FINISH."""
-    m = len(cols)
+def _twin_cycle(raw, rr):
+    """gmres_qr's plain twin over the raw inputs ``raw`` ((c1, c2, dot) a
+    step) from <r, r> = ``rr``: START, ARNOLDI per step (tol 0: no early
+    exit), FINISH."""
+    m = len(raw)
     lay, S, F = _state(m)
+    scale = torch.zeros(1, dtype=torch.float64)
     dl.gmres_qr_plain(dl.BEGIN, 0, S, F, m,
                       (0.0, math.inf, 0.0, 0.0, 1, 0, 1, 1, 1, 1, 1))
     _put(S, lay, BN=1.0, RN=1.0)
     dl.gmres_qr_plain(dl.HEAD, 0, S, F, m)
-    _put(S, lay, BETA=beta)
-    dl.gmres_qr_plain(dl.START, 0, S, F, m)
-    for j, col in enumerate(cols):
-        S[lay.H:lay.H + j + 2] = torch.tensor(col, dtype=torch.float64)
-        dl.gmres_qr_plain(dl.ARNOLDI, j, S, F, m)
+    f64 = functools.partial(torch.tensor, dtype=torch.float64)
+    dl.gmres_qr_plain(dl.START, 0, S, F, m, dot=f64(rr), scale=scale)
+    for j, (c1, c2, dot) in enumerate(raw):
+        dl.gmres_qr_plain(dl.ARNOLDI, j, S, F, m, c1=f64(c1), c2=f64(c2),
+                          dot=f64(dot), scale=scale)
     dl.gmres_qr_plain(dl.FINISH, 0, S, F, m)
     R = S[:lay.G].view(m, m + 1).T.numpy()
     return (S[lay.CS:lay.SN].numpy(), S[lay.SN:lay.H].numpy(),
@@ -98,9 +115,13 @@ def _same_bits(a, b):
     assert np.array_equal(a[~nan].view(np.int64), b[~nan].view(np.int64))
 
 
-def _check_cycle(cols, beta):
+def _check_cycle(raw, rr):
+    """The twin over the raw inputs against the host loop over the columns
+    and beta the glue makes of them."""
+    cols = [_glue_column(*step) for step in raw]
+    beta = float(torch.sqrt(torch.tensor(rr, dtype=torch.float64)))
     cs, sn, g, R, y = _host_cycle(cols, beta)
-    tcs, tsn, tg, tR, ty, lay, S = _twin_cycle(cols, beta)
+    tcs, tsn, tg, tR, ty, lay, S = _twin_cycle(raw, rr)
     m = len(cols)
     for a, b in ((cs, tcs), (sn, tsn), (g, tg), (y, ty)):
         _same_bits(a, b)
@@ -126,12 +147,13 @@ finite = hst.floats(min_value=-1e3, max_value=1e3, allow_nan=False,
                   max_size=m),
         hst.floats(min_value=1e-6, max_value=1e6))))
 def test_twin_equals_the_host_rotations(case):
-    """Random Hessenberg columns (a positive subdiagonal h, as an Arnoldi
-    step's norm is): the twin's rotations, g, R and -y bit for bit the
-    host loop's."""
+    """Random Hessenberg columns (c1 a row, c2 half of it, a positive
+    subdiagonal h from the self-dot h * h, as an Arnoldi step's norm is):
+    the twin's rotations, g, R and -y bit for bit the host loop's."""
     m, rows, hs, beta = case
-    cols = [row[:j + 1] + [hs[j]] for j, row in enumerate(rows)]
-    _check_cycle(cols, beta)
+    raw = [(row[:j + 1], [0.5 * x for x in row[:j + 1]], hs[j] * hs[j])
+           for j, row in enumerate(rows)]
+    _check_cycle(raw, beta * beta)
 
 
 def test_twin_equals_the_host_at_a_breakdown():
@@ -140,68 +162,198 @@ def test_twin_equals_the_host_at_a_breakdown():
     back-substitution then dividing by zero, bit for bit the host loop
     (NaNs as NaNs)."""
     rng = np.random.default_rng(3)
-    cols = [list(rng.normal(size=j + 1)) + [abs(rng.normal()) + 0.1]
-            for j in range(4)]
-    cols[-1][-1] = 0.0                      # h = 0
-    _check_cycle(cols, 2.5)
-    cols3 = [list(c) for c in cols[:2]]
-    cols3[0] = [1e-200, 1e-200]             # squares underflow: denom 0
+    raw = [(list(rng.normal(size=j + 1)), list(rng.normal(size=j + 1)),
+            (abs(rng.normal()) + 0.1) ** 2) for j in range(4)]
+    raw[-1] = (*raw[-1][:2], 0.0)           # h = 0
+    _check_cycle(raw, 6.25)
+    raw3 = raw[:2]
+    raw3[0] = ([1e-200], [0.0], 0.0)        # squares underflow: denom 0
     with np.errstate(divide="ignore", invalid="ignore"):
-        _check_cycle(cols3, 1.0)
+        _check_cycle(raw3, 1.0)
 
 
 def qr_check_sequence(m, rng):
     """gmres_qr's modes in a step's order, for holding the kernel against
-    its twin: (mode, j, arg), arg BEGIN's params, scalars to set first or
-    the Arnoldi column h[:j + 2]. The main solve's loop (COPY 0) runs a
+    its twin: (mode, j, arg), arg BEGIN's params or a dict of scalars to
+    set first (upper case; ACCEPT's RNEW the candidate's self-dot) and raw
+    inputs (START's self-dot ``dot``; ARNOLDI's CGS2 coefficients ``c1``,
+    ``c2`` and self-dot ``dot``). The main solve's loop (COPY 0) runs a
     cycle that breaks down at once on a negative pivot (cosine -1), one on
     a zero column (denom 0: cosine 1, the back-substitution dividing by
     zero) and m steps with two zero subdiagonals; then the refinement and
     both correction loops (COPY 1 and 2), each with a breakdown, the
     second opening on a negative pivot; then the step's end."""
+    def col(j, zero=False):
+        h = abs(rng.normal()) + 0.1
+        return {"c1": rng.normal(size=j + 1),
+                "c2": 1e-3 * rng.normal(size=j + 1),
+                "dot": 0.0 if zero else h * h}
+
     def cols(js, zero=()):
-        out = []
-        for j in js:
-            col = np.concatenate([rng.normal(size=j + 1),
-                                  [abs(rng.normal()) + 0.1]])
-            if j in zero:
-                col[j + 1] = 0.0
-            out.append((dl.ARNOLDI, j, col))
-        return out
+        return [(dl.ARNOLDI, j, col(j, j in zero)) for j in js]
+
+    def pivot(h0):
+        return (dl.ARNOLDI, 0, {"c1": np.array([h0]), "c2": np.zeros(1),
+                                "dot": 0.0})
 
     def end(rnew):
-        return [(dl.FINISH, 0, None), (dl.ACCEPT, 0, {"RNEW": rnew})]
+        return [(dl.FINISH, 0, None), (dl.ACCEPT, 0, {"RNEW": rnew * rnew})]
 
     half = max(m // 2, 2)
     return [
         (dl.BEGIN, 0, (0.0, 1e9, 1e-4, 1e-6, 8, 3, 10, 4, 1, 2, 1000)),
         (dl.HEAD, 0, {"BN": 3.0, "RN": 1.0}),
-        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.array([-2.0, 0.0])),
-        *end(2.0),
-        (dl.START, 0, {"BETA": 1.0}), (dl.ARNOLDI, 0, np.zeros(2)),
-        *end(2.0),
-        (dl.START, 0, {"BETA": 1.0}), *cols(range(m), {m // 3, m // 2}),
+        (dl.START, 0, {"dot": 1.0}), pivot(-2.0), *end(2.0),
+        (dl.START, 0, {"dot": 1.0}), pivot(0.0), *end(2.0),
+        (dl.START, 0, {"dot": 1.0}), *cols(range(m), {m // 3, m // 2}),
         *end(0.5),
         (dl.REF_FIRST, 0, {"BN": 2.0, "RN": 1e-5}),
         (dl.CORRECT, 0, {"BN": 1e-5, "RN": 1e-5}),
-        (dl.START, 0, {"BETA": 1e-5}), *cols(range(half), {1}), *end(1e-7),
+        (dl.START, 0, {"dot": 1e-10}), *cols(range(half), {1}), *end(1e-7),
         (dl.UPDATE, 0, {"RN": 1e-6}),
         (dl.CORRECT, 0, {"BN": 1e-6, "RN": 1e-6}),
-        (dl.START, 0, {"BETA": 1e-6}), (dl.ARNOLDI, 0, np.array([-1.0, 0.0])),
-        *cols(range(1, half)), *end(1e-8),
+        (dl.START, 0, {"dot": 1e-12}), pivot(-1.0), *cols(range(1, half)),
+        *end(1e-8),
         (dl.UPDATE, 0, {"RN": 1e-9}),
         (dl.TAIL, 1, {"DT": 30.0, "NBELOW": 0.0, "LOSS": 1.0, "SOLID": 9.0,
                       "VMAX": 2.0, "CMAX": 0.5})]
 
 
-def qr_apply(lay, S, arg, j):
-    """Set ``arg`` of a qr_check_sequence entry into S (a scalar dict or
-    the Arnoldi column); S on any device."""
-    if isinstance(arg, dict):
-        for name, v in arg.items():
+def qr_apply(lay, S, arg, scale):
+    """Set the scalars of a qr_check_sequence entry into S (on any
+    device); its raw inputs as gmres_qr keyword arguments on S's device,
+    with ``scale`` for the basis vector's scale."""
+    if not isinstance(arg, dict):
+        return {}
+    raw = {}
+    for name, v in arg.items():
+        if name.isupper():
             S[lay.sc(name)] = v
-    elif isinstance(arg, np.ndarray):
-        S[lay.H:lay.H + j + 2] = torch.from_numpy(arg).to(S.device)
+        else:
+            raw[name] = torch.tensor(v, dtype=torch.float64,
+                                     device=S.device)
+    if raw:
+        raw["scale"] = scale
+    return raw
+
+
+def _glue_mode(mode, j, S, F, lay, raw, vec):
+    """START, ARNOLDI or ACCEPT with the scalar glue as separate PyTorch
+    operations: the norm sqrt(dot) and the column c1 + c2 into S, the
+    basis row vec * inv_norm(h) cast to vec's dtype, then the mode over S
+    written out (the rotations by ``ops.gmres._givens``). Returns the
+    basis row (None for ACCEPT)."""
+    m = lay.m
+    sc = lay.sc
+    copy = min(max(int(S[sc("COPY")]), 0), dl.COPIES - 1)
+    h = torch.sqrt(raw["dot"])
+    row = None if vec is None else vec * t_gmres.inv_norm(h).to(vec.dtype)
+    if mode == dl.ACCEPT:
+        S[sc("RNEW")] = h
+        res_new = float(S[sc("RNEW")]) / float(S[sc("SAFE_B")])
+        res = float(S[sc("RES")])
+        take = res_new < res and float(S[sc("J")]) > 0.0
+        S[sc("RES")] = res_new if math.isnan(res_new) else min(res_new, res)
+        S[sc("K")] += 1.0
+        F[dl.ACTIVE] = bool(S[sc("K")] < S[sc("NCYC")]) and bool(
+            S[sc("RES")] > S[sc("TOL")])
+        F[dl.TAKE] = take
+        if take:
+            S[lay.TRIPS + lay.take(copy)] += 1.0
+    elif mode == dl.START:
+        S[sc("BETA")] = h
+        beta = float(h)
+        S[lay.G:lay.CS] = 0.0
+        S[lay.G] = beta
+        S[lay.CS:lay.SN] = 1.0
+        S[lay.SN:lay.H] = 0.0
+        S[sc("J")] = 0.0
+        F[dl.RUNNING] = not beta / float(S[sc("SAFE_B")]) < float(
+            S[sc("TOL")])
+        S[lay.TRIPS + lay.cyc(copy)] += 1.0
+    else:
+        torch.add(raw["c1"][:j + 1], raw["c2"][:j + 1],
+                  out=S[lay.H:lay.H + j + 1])
+        S[lay.H + j + 1] = h
+        hcol = S[lay.H:lay.YC].numpy().copy()
+        c, s = t_gmres._givens(hcol, S[lay.CS:lay.SN].numpy().copy(),
+                               S[lay.SN:lay.H].numpy().copy(), j)
+        col = torch.from_numpy(hcol[:j + 2].copy())
+        S[lay.H:lay.H + j + 2] = col
+        S[lay.R + j * (m + 1):lay.R + j * (m + 1) + j + 2] = col
+        S[lay.CS + j], S[lay.SN + j] = float(c), float(s)
+        gj = float(S[lay.G + j])
+        g_next = -s * gj
+        S[lay.G + j + 1] = float(g_next)
+        S[lay.G + j] = float(c * gj)
+        S[sc("J")] = float(j + 1)
+        F[dl.RUNNING] = (not abs(g_next) / float(S[sc("SAFE_B")]) < float(
+            S[sc("TOL")]) and j + 1 < m)
+        S[lay.TRIPS + lay.arn(copy) + j] += 1.0
+    return row
+
+
+RAW_CASES = ("seeded", "h_zero", "h_1e-31", "nan", "negative_pivot",
+             "zero_column")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", RAW_CASES)
+def test_raw_inputs_equal_the_glue(case, dtype):
+    """START, ARNOLDI (j = 0 .. m - 1) and ACCEPT of the twin from the raw
+    dot products against the same modes after the glue as separate
+    PyTorch operations (_glue_mode): S and F bit for bit after each mode
+    (NaNs as NaNs), and the basis row the scale makes, torch.mul(vec,
+    scale), bit for bit vec * inv_norm(h) in the basis dtype. Cases: seeded
+    columns; the self-dot at step 2 zero (h = 0), 1e-62 (h = 1e-31, below
+    the scale's 1e-30) or NaN; a first column with a negative pivot or
+    zero."""
+    m, n = 5, 37
+    rng = np.random.default_rng(RAW_CASES.index(case))
+    lay, S, F = _state(m)
+    dl.gmres_qr_plain(dl.BEGIN, 0, S, F, m,
+                      (0.0, math.inf, 0.0, 0.0, 4, 0, 1, 1, 1, 1, 1))
+    _put(S, lay, BN=2.0, RN=1.5)
+    dl.gmres_qr_plain(dl.HEAD, 0, S, F, m)
+    Sg, Fg = S.clone(), F.clone()
+    scale = torch.zeros(1, dtype=dtype)
+    f64 = functools.partial(torch.tensor, dtype=torch.float64)
+    steps = []
+    for j in range(m):
+        h = abs(rng.normal()) + 0.1
+        steps.append({"c1": f64(rng.normal(size=j + 1)),
+                      "c2": f64(1e-3 * rng.normal(size=j + 1)),
+                      "dot": f64(h * h)})
+    special = {"h_zero": 0.0, "h_1e-31": 1e-62, "nan": math.nan}
+    if case in special:
+        steps[2]["dot"] = f64(special[case])
+    if case in ("negative_pivot", "zero_column"):
+        steps[0] = {"c1": f64([-2.0 if case == "negative_pivot" else 0.0]),
+                    "c2": f64([0.0]), "dot": f64(0.0)}
+    seq = [(dl.START, 0, {"dot": f64(2.25)}),
+           *((dl.ARNOLDI, j, raw) for j, raw in enumerate(steps)),
+           (dl.ACCEPT, 0, {"dot": f64(0.49)})]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for mode, j, raw in seq:
+            vec = None if mode == dl.ACCEPT else torch.tensor(
+                rng.normal(size=n), dtype=dtype)
+            if mode == dl.ACCEPT:
+                dl.gmres_qr_plain(dl.FINISH, 0, S, F, m)
+                dl.gmres_qr_plain(dl.FINISH, 0, Sg, Fg, m)
+                S[lay.sc("RNEW")] = raw["dot"]
+                dl.gmres_qr_plain(mode, j, S, F, m)
+            else:
+                dl.gmres_qr_plain(mode, j, S, F, m, scale=scale, **raw)
+            want = _glue_mode(mode, j, Sg, Fg, lay, raw, vec)
+            _same_bits(S, Sg)
+            assert torch.equal(F, Fg), (mode, j)
+            if vec is not None:
+                got = torch.mul(vec, scale)
+                assert torch.equal(_bits(got), _bits(want)), (mode, j)
+            if mode == dl.ARNOLDI and j == 2 and case in special:
+                assert float(scale) == 0.0      # a zero vector is kept
+    if case == "negative_pivot":
+        assert float(S[lay.CS]) == -1.0
 
 
 @pytest.mark.parametrize("m", [4, 25])
@@ -212,12 +364,13 @@ def test_twin_counts_each_cycle_loop_apart(m):
     cycle's end after j steps, each cycle and accepted restart of its own
     loop, and nothing outside the counters but the state's own fields."""
     lay, S, F = _state(m, cap=4)
+    scale = torch.zeros(1, dtype=torch.float32)
     half = max(m // 2, 2)
     with np.errstate(divide="ignore", invalid="ignore"):
         for mode, j, arg in qr_check_sequence(m, np.random.default_rng(m)):
-            qr_apply(lay, S, arg, j)
+            raw = qr_apply(lay, S, arg, scale)
             dl.gmres_qr_plain(mode, j, S, F, m,
-                              arg if mode == dl.BEGIN else None)
+                              arg if mode == dl.BEGIN else None, **raw)
     trips = S[lay.TRIPS:lay.ROWS].tolist()
     want = [0.0] * lay.n_trips
     for c, arn, ends, cyc, take in (
@@ -258,8 +411,11 @@ def test_solve_start_and_acceptance(bn, rn, tol, ncyc):
     assert bool(F[dl.ACTIVE]) == (0 < ncyc and res > tol)
     for r_new, j in ((0.5 * rn, 2), (2.0 * rn, 1), (math.nan, 3),
                      (0.1 * rn, 0)):
-        _put(S, lay, RNEW=r_new, J=float(j))
+        # RNEW holds the candidate's self-dot; ACCEPT takes its root
+        _put(S, lay, RNEW=r_new * r_new, J=float(j))
         dl.gmres_qr_plain(dl.ACCEPT, 0, S, F, m)
+        r_new = math.sqrt(r_new * r_new)
+        assert repr(float(S[lay.sc("RNEW")])) == repr(r_new)
         res_new = r_new / safe_b
         take = res_new < res and j > 0
         res = res_new if math.isnan(res_new) else min(res_new, res)

@@ -1,6 +1,7 @@
 """The PyTorch port (its multi-GPU ``parallel`` package included), and its
 scripts in scripts/ (the calibration scripts, the warm-start measurement,
-the profiler-window probe, the conditional-node and step-route costs),
+the profiler-window probe, the conditional-node and step-route costs,
+gmres_qr's per-mode times),
 must import without JAX and without the JAX package (the machine with the
 card has no JAX), and must build nothing on import."""
 
@@ -12,7 +13,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = [os.path.join(ROOT, "scripts", name) for name in (
     "calibration_torch.py", "calibrate_3d_torch.py", "calibrate_2d_torch.py",
     "measure_warm_start_torch.py", "profiler_windows_torch.py",
-    "cond_graph_costs_torch.py", "step_route_costs_torch.py")]
+    "cond_graph_costs_torch.py", "step_route_costs_torch.py",
+    "gmres_qr_modes_torch.py")]
 
 _PROBE = """
 import importlib, pkgutil, sys
