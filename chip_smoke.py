@@ -50,30 +50,44 @@ argument all of them run, in this order):
    explicit step, and profiles a window of explicit steps.
 7. ``main3d``, 3D main path: ``cli.run`` on params_3d.cfg at full size on
    CUDA, capped by MAIN3D_CAPS (one cycle of 20 implicit steps at the 30 s
-   dt ceiling, one checkpoint); checks the run and the 3D path's kernels,
-   reloads the checkpoint, and holds the 20 rows against the banked
-   docs/runs/3d_1M/diagnostics.csv within BANKED_GATES; prints the peak
-   device memory, whether assembly or the steps set it, and whether the
-   operator held a dense W.
-8. ``warm3d``, the warm-started flagship: ``cli.run`` on params_3d.cfg at
-   full size on CUDA with flow_warm_start=2 and MAIN3D_CAPS: the coarse
+   dt ceiling, one checkpoint), on the route the configuration selects:
+   the fused coupling cycles (coupled_fused_cycles = 8: one CUDA graph
+   launch and one read a launch, no read inside); checks the run and the
+   fused 3D path's kernels (PATH_CYCLES), reloads the checkpoint, and
+   holds the 20 rows against the banked docs/runs/3d_1M/diagnostics.csv
+   within BANKED_GATES; prints the peak device memory, whether assembly
+   or the steps set it, and whether the operator held a dense W.
+8. ``cycles3d``, the flagship's fused coupling cycles at full size to
+   T_final = 7,000 s (~400 steps, the bank's first two phase changes and
+   their re-solves) from one kit, on the fused route as shipped and on
+   the host loop (coupled_fused_cycles = 0), with their phase timers and
+   walls: CSV, VTI and PVD bytes, steps a cycle, flow solves and final
+   state equal, rows against the bank (solid_nodes exact, time_s within
+   CYCLES3D_TIME_GATE, the rest within BANKED_GATES), one read a launch, every kernel of
+   PATH_CYCLES launched (cycle_qr and pack3d with the 3D path's); then
+   one 2,000-iteration flow segment of the program against solve_steady's
+   (the same bits, ms an iteration each) and the operator's assembly on
+   the device (assemble_into, pack3d) against the host loop's.
+9. ``warm3d``, the warm-started flagship: ``cli.run`` on params_3d.cfg at
+   full size on CUDA with flow_warm_start=2 and MAIN3D_CAPS on the host
+   loop (coupled_fused_cycles = 0: the fine solve is solve_steady's): the coarse
    solve at 2 dx (166,050 nodes) and the fine solve both on ns3d, then
    main3d's implicit cycle; prints both solves, ns3d's launches on each
    grid, ms per implicit step and peak memory, and the FLUID-node relative
-   L2 of vel and rho against the cold solve (main3d's, or a solve_steady
-   of its own when main3d did not run); both solves must converge, the
+   L2 of vel and rho against a cold solve_steady of its own; both solves
+   must converge, the
    fine one in fewer iterations than the cold one, vel within
    WARM_L2_GATE, and every kernel of the 3D path must launch.
-9. ``explicit3d``, 3D explicit transport (plain PyTorch: no kernel, as in
+10. ``explicit3d``, 3D explicit transport (plain PyTorch: no kernel, as in
    the JAX package): ``cli.run`` on params_3d.cfg at full size with
-   use_implicit=0 after the warm start, the flow capped, one chunk of a
-   few hundred explicit steps; ms per step, a profiler window (device ops
-   per step, busy share) and peak memory; then the 8,303-node grid of
+   use_implicit=0 after the warm start, the flow capped, one chunk of
+   ~140 explicit steps; ms per step, a profiler window (device ops per
+   step, busy share) and peak memory; then the 8,303-node grid of
    tests/test_torch_3d_slice.py on CUDA against the CPU path.
-10. ``subcell3d``, the sub-cell 3D wall mirror: the same small grid with
+11. ``subcell3d``, the sub-cell 3D wall mirror: the same small grid with
    wall_mirror_subcell=1, CUDA against the CPU path; the flagship kit built
    with it (primary columns, and how many carry more than one weight).
-11. ``amr``, block AMR on config/params_amr.cfg at full size (blocks
+12. ``amr``, block AMR on config/params_amr.cfg at full size (blocks
    208 x 80 and 194 x 120, 39,920 nodes): ns2d, matvec2d and ard2d on
    each block and basis_dots / basis_axpy on GMRES's (26, 39,920) basis
    against their twins, with times, in-situ times, bounds and library
@@ -85,7 +99,7 @@ argument all of them run, in this order):
    and per implicit step, and its rows beside the banked
    docs/runs/amr/diagnostics.csv (printed, not a gate). PATH_AMR must
    launch in the warm run, PATH_AMR_EXPLICIT in the explicit one.
-12. ``amrg``, the gather AMR backend (``amr_backend = gather``) on
+13. ``amrg``, the gather AMR backend (``amr_backend = gather``) on
    params_amr.cfg at full size (38,976 nodes, padded degree K = 40; its
    flow, BCs, transport and matvec are plain PyTorch gathers, as in the
    JAX package): basis_dots / basis_axpy on GMRES's (26, 38,976) basis
@@ -98,10 +112,10 @@ argument all of them run, in this order):
    card within BANKED_GATES (solid_nodes and time_s exact); PATH_AMRG
    must launch, the run must print the JAX package's AMR line, and no
    GMRES warning may appear.
-13. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
+14. ``amr3d``, the 7,655-node 3D block grid (params_3d.cfg at SMALL_3D's
    geometry with use_amr = 1), CUDA against the CPU within 1e-4; PATH_AMR3D
    must launch.
-14. ``calib``, the calibration scripts' path: ns3d, matvec3d (f32, bf16),
+15. ``calib``, the calibration scripts' path: ns3d, matvec3d (f32, bf16),
    slots3d_f64 and basis_dots / basis_axpy (26 rows and k = 1) at the
    3D calibration grid's shapes (params_3d.cfg at dx = 8e-6: 45 x 45 x 82 =
    166,050 nodes), ns2d, matvec2d and the basis kernels at the 2D one's
@@ -114,13 +128,14 @@ argument all of them run, in this order):
    docs/runs/calib_3d/twoanchor-c and docs/runs/calib_2d/twoanchor-a
    within BANKED_GATES (solid_nodes and time_s exact); PATH_3D / PATH_2D
    must launch.
-15. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
-   implicit and the explicit path and the gs_parity path in float32, on
-   CUDA (kernels) and on the CPU (plain twins); diagnostics.csv must
-   agree. And the whole gs_parity run in float64 on CUDA against the C++
+16. ``parity``, kernels vs plain end to end: tests/golden/parity.cfg, the
+   implicit and the explicit path, the gs_parity path and the fused
+   coupling cycles (PARITY_FUSED_CAPS: graph launches with one read each)
+   in float32, on CUDA (kernels) and on the CPU (plain twins);
+   diagnostics.csv must agree. And the whole gs_parity run in float64 on CUDA against the C++
    reference binary's tests/golden/parity_diagnostics_ref.csv, byte for
    byte and with tests/test_parity.py's gates.
-16. ``shard``, the flagship over a mesh: params_3d.cfg at full size
+17. ``shard``, the flagship over a mesh: params_3d.cfg at full size
    padded to 158 axial rows (157 is prime), SHARD_RANKS = 2 ranks on this
    one card (``parallel.launch.spawn`` over gloo: the halo rows staged
    through pinned host memory; NCCL refuses two ranks on one card). The
@@ -137,7 +152,7 @@ argument all of them run, in this order):
    rank resumes it for two steps. Prints ms per flow iteration and per
    implicit step of each rank beside one rank's, and each rank's
    launches (``launches_per_rank`` in the JSON line).
-17. ``flowgraph``, the flow solve's CUDA graph (``solvers.FlowRunner``)
+18. ``flowgraph``, the flow solve's CUDA graph (``solvers.FlowRunner``)
    on the four flows it serves (FLOW_CASES: the fine-calibration grid,
    the flagship, params_amr.cfg's blocks and its gather grid; the kits
    and seeded states of the kernels, kernels3d and amr phases when they
@@ -150,7 +165,7 @@ argument all of them run, in this order):
    per iteration (a replay must be one), the work a replay stands for,
    the busy share in a profiler window, the capture's ms and the graph
    pool's bytes.
-18. ``gmresgraph``, GMRES's solve as one CUDA graph with conditional
+19. ``gmresgraph``, GMRES's solve as one CUDA graph with conditional
    nodes (``gmres.implicit_step``'s program: the restart cycles a WHILE,
    the Arnoldi steps nested IFs, the cycle ends a SWITCH, the refinement
    passes IFs, each decision the gmres_qr kernel's) on the same four
@@ -165,7 +180,7 @@ argument all of them run, in this order):
    (windows of GMRESGRAPH_WINDOW solves), host records and host reads a
    solve, the busy share in a profiler window, Arnoldi steps a solve,
    the graph's kernel nodes, capture ms and pool.
-19. ``stepgraph``, the implicit step loop as one CUDA graph
+20. ``stepgraph``, the implicit step loop as one CUDA graph
    (``coupling.StepRunner.steps``: a WHILE over the steps, each its head
    with the adaptive dt and the BCs, the solve, its tail with the
    smoothing, the diagnostics and gmres_qr's exits) on the same four
@@ -179,7 +194,7 @@ argument all of them run, in this order):
    implicit step, host records (at most STEPGRAPH_RECORDS a graphed
    step) and host reads an implicit step, busy share, the step graphs'
    kernel nodes, capture ms, graph pool and peak memory.
-20. ``configs``, the shipped configurations no other phase runs
+21. ``configs``, the shipped configurations no other phase runs
    (params.cfg, the CLI's default; params_diagnostic, params_calibration,
    params_poiseuille, params_transport_viz, params_fine,
    params_calibration_v2) and the flagship's geometry at dx = 16e-6
@@ -267,12 +282,27 @@ EXPLICIT_PROFILE_STEPS = 100
 # the warm-started flagship: MAIN3D_CAPS with the coarse warm start at 2 dx;
 # the JAX package recorded a FLUID-node relative L2 of vel of 5.9e-3 between
 # the warm and the cold solve at this configuration (its config.py)
-WARM3D_CAPS = MAIN3D_CAPS + ["flow_warm_start=2"]
+# (the host loop: the phase times the fine solve through solve_steady)
+WARM3D_CAPS = MAIN3D_CAPS + ["flow_warm_start=2", "coupled_fused_cycles=0"]
+# cycles3d: the flagship as shipped (coupled_fused_cycles = 8, launches of
+# at most 200 steps and 6,000 flow iterations) to T_final = 7,000 s, about
+# 400 implicit steps with the bank's first two phase changes (4,558.972 s:
+# 31,600 -> 31,524 solid; 6,783.001 s: -> 31,391) and their re-solves, on
+# the fused route and on the host loop from one kit; then one flow segment
+# of the program (2,000 iterations) against solve_steady's from the
+# initial state
+CYCLES3D_T_FINAL = 7000.0
+CYCLES3D_SOLIDS = (31600, 31524, 31391)
+# the bank prints time_s to 7 digits; after the first phase change the
+# port's times (both routes, byte-identical CSVs) differ from it in the
+# last of them (3.67e-7 relative at most on an H100 at 700 W; PERF.md)
+CYCLES3D_TIME_GATE = 1e-6
 WARM_L2_GATE = 2e-2
 # 3D explicit transport at full size: the warm start, both solves capped at
-# 2,000 iterations, then one chunk of explicit steps up to T_final (a few
-# hundred steps at a CFL dt of ~2e-6 s)
-EXPLICIT3D_T_FINAL = 6e-4
+# 2,000 iterations, then one chunk of explicit steps up to T_final (~140
+# steps at a CFL dt of ~2.1e-6 s; 283 before the fused cycles' phase took
+# its time)
+EXPLICIT3D_T_FINAL = 3e-4
 EXPLICIT3D_CAPS = ["use_implicit=0", "flow_warm_start=2", "flow_max_iters=2000",
                    "corrosion_steps_per_check=1000", "output_every_corr=1000",
                    f"T_final={EXPLICIT3D_T_FINAL}"]
@@ -297,6 +327,10 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "parity_diagnostics_ref.csv")
 # the CPU slice tests' flow cap (tests/test_torch_slice.py), in f32; the
 # explicit run as tests/test_torch_explicit.py: 151 steps of 6.6e-7 s
 PARITY_CAPS = ["precision=f32", "flow_max_iters=300"]
+# the implicit run on the fused coupling cycles, three a launch (nine
+# cycles, the wire dissolved at 6 s; the CUDA rows are the host loop's
+# bit for bit, so the gate is parity_implicit's)
+PARITY_FUSED_CAPS = PARITY_CAPS + ["coupled_fused_cycles=3"]
 PARITY_EXPLICIT_CAPS = PARITY_CAPS + ["use_implicit=0", "T_final=1e-4",
                                       "output_every_corr=25"]
 # 4 units in the last place of a float32 sum of 180 values near 1, as a
@@ -378,8 +412,11 @@ CALIB2D_CFG = os.path.join(ROOT, "config", "params_implicit_test.cfg")
 # for two steps more
 SHARD_RANKS = 2
 SHARD_FLOW_ITERS = 1000
+# (the host loop on every side: a mesh takes no fused cycles, and the
+# one-rank runs it is held against take the same route)
 SHARD_CAPS = [f"flow_max_iters={SHARD_FLOW_ITERS}", "T_final=150",
-              "corrosion_steps_per_check=5", "checkpoint_every=1"]
+              "corrosion_steps_per_check=5", "checkpoint_every=1",
+              "coupled_fused_cycles=0"]
 SHARD_RESUME_T_FINAL = 210
 SEED = 20261016
 # configs: the seven shipped configurations that no other phase runs
@@ -457,6 +494,7 @@ FLOW_CASES = {"fine": (FINE, (), 196_749),
 FLOW_KITS = {}
 FLOWED = {}
 PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
+          "cycles3d",
           "warm3d", "explicit3d", "subcell3d", "amr", "amrg", "amr3d",
           "calib", "parity", "shard", "flowgraph", "gmresgraph",
           "stepgraph", "configs")
@@ -464,6 +502,8 @@ PHASES = ("kernels", "kernels3d", "ladder", "main", "explicit", "main3d",
 PATH_2D = ("ns2d", "matvec2d", "basis_dots", "basis_axpy", "gmres_qr")
 PATH_3D = ("ns3d", "matvec3d", "matvec3d_bf16", "slots3d_f64", "basis_dots",
            "basis_axpy", "gmres_qr")
+# and the fused coupling cycles' (params_3d.cfg's coupled_fused_cycles)
+PATH_CYCLES = PATH_3D + ("cycle_qr", "pack3d")
 PATH_EXPLICIT = ("ard2d",)
 PATH_AMR = ("ns2d", "matvec2d", "basis_dots", "basis_axpy", "gmres_qr")
 PATH_AMR_EXPLICIT = ("ns2d", "ard2d")
@@ -886,6 +926,133 @@ def record_gmres_qr(record, m, rng):
                R, g[:, None], upper=True)[:, 0].neg())
 
 
+def record_cycle_qr(record):
+    """cycle_qr: every mode on cycle_loop.walk's sequences (every exit,
+    launches resumed from carried values) bit for bit against the plain
+    twin on the host after each mode (Y, CF and gmres_qr's S, F); then one
+    INNER_START launch (an inner window's start: seven scalars of Y read,
+    six of gmres_qr's and its step flag written; a mode that leaves Y as
+    it found it) timed against the twin. Bound: those bytes over HBM; a
+    launch's latency sits far above it. No library call takes a coupling
+    cycle's decisions."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels import cycle_loop as cl
+    from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
+
+    def states(device):
+        lay, glay = cl.CycleLayout(4), dl.QrLayout(4, 8)
+        S = torch.zeros(glay.size, dtype=torch.float64, device=device)
+        S[glay.sc("T_FINAL")] = 40.0
+        return [torch.zeros(lay.size, dtype=torch.float64, device=device),
+                torch.zeros(cl.N_FLAGS, dtype=torch.bool, device=device), S,
+                torch.zeros(dl.N_FLAGS, dtype=torch.bool, device=device),
+                glay.SC]
+
+    same, n_modes, seen = True, 0, set()
+    for seed in range(4):
+        dev, host = states("cuda"), states("cpu")
+
+        def run_mode(mode, params, ys, ss):
+            nonlocal same
+            for Y, CF, S, F, sc in (dev, host):
+                for k, v in ys.items():
+                    Y[cl.SC[k]] = v
+                for k, v in ss.items():
+                    S[sc + dl.SC_INDEX[k]] = v
+                cl.cycle_qr(mode, Y, CF, S, F, sc, params)
+            same = same and all(torch.equal(a.cpu(), b)
+                                for a, b in zip(dev[:4], host[:4]))
+
+        modes = cl.walk(run_mode, lambda: (host[0].tolist(),
+                                           host[1].tolist()), seed)
+        n_modes += len(modes)
+        seen |= set(modes)
+    Y, CF, S, F, sc = dev
+    Yh, CFh, Sh, Fh, _ = host
+    err = float((Y.cpu() - Yh).abs().max())
+    print(f"[kernels] cycle_qr: {n_modes} modes over 4 sequences, "
+          f"{len(seen)} of {cl.N_MODES} kinds, every one bit-equal to the "
+          f"twin: {same}")
+
+    def kernel():
+        cl.cycle_qr(cl.INNER_START, Y, CF, S, F, sc)
+        return (S.clone(), F.clone())
+
+    def plain():
+        cl.cycle_qr_plain(cl.INNER_START, Yh, CFh, Sh, Fh, sc)
+        return (Sh, Fh)
+
+    record("cycle_qr", err, same and err == 0.0 and len(seen) == cl.N_MODES,
+           kernel, plain, f"every mode bit-equal {same}; INNER_START timed",
+           8 * 7 + 8 * 6 + 1, 4.0, F64_RATE)
+
+
+def record_pack3d(record, tag, kit, W, op):
+    """pack3d at the flagship's shape: the operator's dense W packed into
+    capacity buffers with PACKED_HEADROOM of room, count, slice_ptr, the
+    stored slots and the float32 and bfloat16 values byte for byte against
+    pack_stencil's (the operator's own packing); a capacity one entry
+    short sets the overflow flag and writes no value; timed against
+    pack_stencil with the bfloat16 copy (the plain version, which reads
+    two sizes back). Bound: W read once, the unknown mask and the slot
+    offsets, the outputs written once (count, slice_ptr, stored slots and
+    both values)."""
+    from pd_mg_pin_corrosion_tpu_torch import kernels
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import SLICE, pack3d
+    from pd_mg_pin_corrosion_tpu_torch.ops.gmres import PACKED_HEADROOM
+
+    ref, ref16 = op.packed, op.W16
+    n = ref.values.numel()
+
+    def buffers(cap):
+        packed = dataclasses.replace(
+            ref, count=torch.zeros_like(ref.count),
+            slice_ptr=torch.zeros_like(ref.slice_ptr),
+            slots=torch.zeros(cap, dtype=torch.uint8, device="cuda"),
+            values=torch.zeros(cap, device="cuda"))
+        return packed, dataclasses.replace(packed, values=torch.zeros(
+            cap, dtype=torch.bfloat16, device="cuda"))
+
+    status = torch.zeros(2, dtype=torch.int64, device="cuda")
+    packed, packed16 = buffers(math.ceil(n * PACKED_HEADROOM))
+    short, short16 = buffers(n - 1)
+    pack3d(W, op.unknown, kit, short, short16, status)
+    overflow = status.tolist() == [ref.nnz, 1] and not bool(
+        short.slots.any())
+    del short, short16
+
+    def kernel():
+        pack3d(W, op.unknown, kit, packed, packed16, status)
+        return (packed.count.clone(), packed.slice_ptr.clone(),
+                packed.slots[:n].clone(), packed.values[:n].clone(),
+                packed16.values[:n].clone())
+
+    def plain():
+        again = kernels.pack_stencil(W, op.unknown, kit)
+        return (again.count, again.slice_ptr, again.slots, again.values,
+                again.to(torch.bfloat16).values)
+
+    out = kernel()
+    same = (torch.equal(out[0], ref.count) and torch.equal(out[1],
+                                                           ref.slice_ptr)
+            and torch.equal(out[2], ref.slots)
+            and torch.equal(out[3].view(torch.int32),
+                            ref.values.view(torch.int32))
+            and torch.equal(out[4].view(torch.int16),
+                            ref16.values.view(torch.int16))
+            and status.tolist() == [ref.nnz, 0])
+    err = float((out[3] - ref.values).abs().max())
+    del out
+    N = math.prod(kit.shape)
+    nbytes = (W.numel() * 4 + N + 12 * kit.S + 2 * N
+              + 4 * (ref.slice_ptr.numel()) + n * (1 + 4 + 2))
+    print(f"[{tag}] pack3d: {n} stored entries ({n // SLICE} value rows), "
+          f"{ref.nnz} nonzeros; byte-equal to pack_stencil {same}; a "
+          f"capacity one entry short overflows and writes nothing: "
+          f"{overflow}")
+    record("pack3d", err, same and overflow, kernel, plain,
+           "byte-equal to pack_stencil", nbytes, 0.0)
+
+
 def phase_kernels(pkg):
     """Phase 2; returns {name: JSON row fields}."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
@@ -999,6 +1166,7 @@ def phase_kernels(pkg):
     record_basis_axpy(record, "basis_axpy_k13", c[:13], V[:13], w)
     del V, w
     record_gmres_qr(record, 25, rng)
+    record_cycle_qr(record)
 
     # ard2d: 26 B/node (C, vel[2], |v|, Ds, node_type, salt in; C out). C
     # seeded so that some FLUID neighbours of the wire reach C_sat: their
@@ -1318,6 +1486,8 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
           f"repacking gives the same bits: {same_pack}")
     if not same_pack:
         fail("pack_stencil: two packings of one operator differ")
+    if not suffix and not slab:
+        record_pack3d(record, tag, kit, W, op)
     A = csr_of(W, op.diag, op.unknown, kit)
     xf = x.reshape(-1)
     print(f"[{tag}] CSR operator: {A.values().numel()} nonzeros")
@@ -1604,8 +1774,9 @@ def phase_main(tmp):
 
 
 def phase_main3d(tmp):
-    """Phase 7; returns the launch counts of the 3D main path's run and its
-    initial flow solve (state, iterations, seconds)."""
+    """Phase 7; returns (the launch counts of the 3D main path's run,
+    None): params_3d.cfg runs the fused coupling cycles, whose flow solves
+    run inside their program, so warm3d makes its own cold solve."""
     from pd_mg_pin_corrosion_tpu_torch import kernels
     from pd_mg_pin_corrosion_tpu_torch.checkpoint import load_checkpoint
 
@@ -1626,12 +1797,10 @@ def phase_main3d(tmp):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     coupling.assemble = assemble
-    solves = []
     try:
         t0 = time.time()
-        with recording(coupling, "solve_steady", solves):
-            solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS,
-                                             "--device", "cuda"])
+        solver, rows = run_cli(out_dir, [FLAGSHIP, *MAIN3D_CAPS, "--device",
+                                         "cuda"])
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
@@ -1643,36 +1812,29 @@ def phase_main3d(tmp):
     with open(os.path.join(out_dir, "run.log")) as f:
         for line in f:
             if any(k in line for k in ("Grid:", "Flow:", "Implicit cycle",
-                                       "WARNING", "Checkpoint", "[Timer]")):
+                                       "WARNING", "Checkpoint", "[Timer]",
+                                       "=== Fused chunk")):
                 print(f"[main3d] log: {line.rstrip()}")
     st = solver.final_state
-    flow_rate = solver.flow_iters / max(solver.flow_seconds, 1e-9)
-    step_ms = 1e3 * solver.implicit_seconds / max(solver.total_implicit_steps, 1)
     print(f"[main3d] params_3d.cfg {' '.join(MAIN3D_CAPS)}: {solver.cycles} "
           f"cycles, steps per cycle {solver.cycle_steps}, flow solves "
-          f"{solver.flow_results}, {solver.flow_iters} flow iterations in "
-          f"{solver.flow_seconds:.3f} s, wall {wall:.2f} s")
-    print(f"[main3d] flow iterations/s {flow_rate:.2f}; ms per implicit step "
-          f"{step_ms:.3f} ({solver.total_implicit_steps} steps in "
-          f"{solver.implicit_seconds:.3f} s); peak device memory "
-          f"{peak / 2**30:.2f} GiB")
+          f"{solver.flow_results}, {solver.flow_iters} flow iterations and "
+          f"{solver.total_implicit_steps} implicit steps in fused launches "
+          f"of {solver.fused_seconds:.3f} s, wall {wall:.2f} s; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
     print(f"[main3d] {len(assembled)} operator(s) assembled, "
           f"{'one holding' if dense_w else 'none holding'} a dense W; peak "
           f"device memory {peak / 2**30:.2f} GiB, set by "
           f"{'assembly' if peak == at_assembly else 'the steps'} (peak right "
           f"after the last assembly {at_assembly / 2**30:.2f} GiB)")
-    print(f"[main3d] assemble (packing included) "
-          f"{1e3 * solver.assemble_seconds / max(solver.cycles, 1):.2f} ms "
-          f"per cycle; with it "
-          f"{1e3 * (solver.implicit_seconds + solver.assemble_seconds) / max(solver.total_implicit_steps, 1):.3f}"
-          f" ms per implicit step")
     print(f"[main3d] launches {json.dumps(counts)}")
-    t = solver.step_graph
-    print(f"[main3d] implicit_fused_chunk = 50: {t['chunks']} chunks, "
-          f"{t['steps']} steps, {t['launches']} graph launches, "
-          f"{t['host_reads']} host reads ({t['chunks'] / max(solver.cycles, 1):.2f} "
-          f"chunks and {t['host_reads'] / max(solver.cycles, 1):.2f} reads a "
-          f"cycle)")
+    t, cyc = solver.step_graph, solver.cycle_graph
+    print(f"[main3d] coupled_fused_cycles = 8: {cyc['launches']} graph "
+          f"launches of the fused cycles in {solver.fused_seconds:.3f} s, "
+          f"{cyc['host_reads']} host reads, {cyc['captures']} captures, "
+          f"{cyc['micro_ops']} micro-ops, {cyc['flow_iters']} flow "
+          f"iterations in graphs; inside them {t['steps']} steps, "
+          f"{t['host_reads']} step reads, {t['chunks']} chunks")
 
     ck, t_ck, _ = load_checkpoint(f"{out_dir}/out/checkpoint.npz", st)
     same_ckpt = (t_ck == float(rows["time_s"][-1]) and all(
@@ -1697,9 +1859,13 @@ def phase_main3d(tmp):
             solver.gmres_graph["replays"] > 0,
         "the implicit steps ran in CUDA graphs":
             solver.step_graph["replays"] > 0,
-        "the steps ran in device-decided chunks, one launch and one read "
-        "a chunk": t["chunks"] > 0 and t["launches"] == t["chunks"]
-            and t["host_reads"] == t["chunks"],
+        "the cycles ran as fused launches, one graph launch and one read "
+        "each, no read inside (no chunk, step, GMRES or gate read)":
+            cyc["launches"] > 0 and cyc["host_reads"] == cyc["launches"]
+            and cyc["eager_launches"] == 0 and t["host_reads"] == 0
+            and t["chunks"] == 0 and solver.gmres_graph["host_reads"] == 0
+            and t["steps"] == solver.total_implicit_steps
+            and cyc["cycles"] == solver.cycles,
         "the initial flow solve converged":
             bool(solver.flow_results) and bool(solver.flow_results[0][2]),
         "it stopped where the banked run's did (6,500 iterations, eps "
@@ -1709,8 +1875,8 @@ def phase_main3d(tmp):
         "20 rows, all finite": len(rows) == 20 and all(
             np.isfinite(rows[c]).all() for c in rows.dtype.names),
         "no GMRES non-convergence warning": solver.gmres_warnings == 0,
-        "every kernel of the 3D path launched":
-            all(counts[k] > 0 for k in PATH_3D),
+        "every kernel of the fused 3D path launched":
+            all(counts[k] > 0 for k in PATH_CYCLES),
         "no operator kept a dense W": bool(assembled) and not dense_w,
         "all state tensors on cuda": all(t.is_cuda for t in st.tensors()),
         "the checkpoint reloads equal to final_state": same_ckpt,
@@ -1725,8 +1891,244 @@ def phase_main3d(tmp):
         print(f"[main3d] check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         fail("3D main path checks")
-    (_, (flow, iters, *_), seconds, _) = solves[0]
-    return counts, (flow, iters, seconds)
+    return counts, None
+
+
+def _listing(out):
+    """{name: sha256} of a run's CSV, VTI and PVD files."""
+    import hashlib
+    return {n: hashlib.sha256(open(os.path.join(out, n), "rb").read()
+                              ).hexdigest()
+            for n in sorted(os.listdir(out))
+            if n.endswith((".csv", ".vti", ".pvd"))}
+
+
+def phase_cycles3d(tmp, pkg):
+    """Phase 8: the flagship's fused coupling cycles at full size
+    (CYCLES3D_T_FINAL). The kit is built once; the configuration as
+    shipped runs on the fused route (``coupling.CycleRunner``: up to 8
+    cycles a launch, one CUDA graph launch and one read each) and with
+    coupled_fused_cycles = 0 on the host loop, both with
+    PD_TPU_PHASE_TIMERS=1. Checks: the CSVs, VTI and PVD files byte for
+    byte, the steps a cycle, the flow solves and the final state equal;
+    the rows against docs/runs/3d_1M within BANKED_GATES with solid_nodes
+    exact and time_s within CYCLES3D_TIME_GATE, the bank's solid counts
+    CYCLES3D_SOLIDS reached; one
+    read a launch and none inside (no step, GMRES or gate read); every
+    kernel of PATH_CYCLES launched in the fused run. Then, from the
+    initial state on the same kit: one flow segment of the program (2,000
+    iterations: a launch with a flow budget of one segment) against
+    solve_steady's 2,000 iterations (the FlowRunner graph between host
+    checks), the same rho and vel bits, ms an iteration each; the
+    operator's assembly on the device into the runner's buffers
+    (``assemble_into``: pack3d) against the host loop's (``assemble`` with
+    pack_stencil, then the copy into the buffers). Returns the fused run's
+    launch counts."""
+    import copy
+
+    from pd_mg_pin_corrosion_tpu_torch import cli, coupling, kernels, solvers
+    from pd_mg_pin_corrosion_tpu_torch.kernels import cycle_loop as cl
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres as gm
+    from pd_mg_pin_corrosion_tpu_torch.ops.ard_implicit import assemble_into
+
+    cfg = pkg.Config.load(FLAGSHIP)
+    cfg.apply_overrides([f"T_final={CYCLES3D_T_FINAL}"])
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        grid, kit, state = cli.build(cfg, torch.device("cuda"))
+    print(f"[cycles3d] params_3d.cfg T_final={CYCLES3D_T_FINAL:g}: kit "
+          f"built once in {time.time() - t0:.2f} s; coupled_fused_cycles "
+          f"{cfg.coupled_fused_cycles}, coupled_launch_steps "
+          f"{cfg.coupled_launch_steps}, coupled_launch_flow_iters "
+          f"{cfg.coupled_launch_flow_iters}")
+    runs = {}
+    was = os.environ.get("PD_TPU_PHASE_TIMERS")
+    os.environ["PD_TPU_PHASE_TIMERS"] = "1"
+    try:
+        for tag, fused in (("fused", cfg.coupled_fused_cycles), ("host", 0)):
+            c = copy.copy(cfg)
+            c.coupled_fused_cycles = fused
+            out = c.output_dir = os.path.join(tmp, f"cycles3d_{tag}")
+            os.makedirs(out, exist_ok=True)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            with open(os.path.join(out, "run.log"), "w") as log, \
+                    contextlib.redirect_stdout(log):
+                solver = coupling.CoupledSolver()
+                solver.run(grid, state, kit, c)
+            torch.cuda.synchronize()
+            runs[tag] = (solver, time.time() - t1, kernels.launch_counts(),
+                         out)
+            if tag == "fused":
+                fs_capture_ms = coupling.cycle_runner_for(kit).run.capture_ms
+    finally:
+        if was is None:
+            del os.environ["PD_TPU_PHASE_TIMERS"]
+        else:
+            os.environ["PD_TPU_PHASE_TIMERS"] = was
+    (fs, f_wall, counts, f_out), (hs, h_wall, h_counts, h_out) = (
+        runs["fused"], runs["host"])
+    for tag, (solver, wall, _, out) in runs.items():
+        for line in log_lines(out, "[launch]", "=== Fused chunk",
+                              "Flow:", "Phase change", "WARNING"):
+            print(f"[cycles3d] {tag} log: {line}")
+        print(f"[cycles3d] {tag}: wall {wall:.3f} s; {solver.cycles} cycles, "
+              f"steps per cycle {solver.cycle_steps}, flow solves "
+              f"{solver.flow_results}, {solver.flow_iters} flow iterations; "
+              f"[flow] {json.dumps(solver.flow_graph)}")
+        print_gmres(f"cycles3d_{tag}", solver)
+    g = fs.cycle_graph
+    host_reads = (hs.step_graph["host_reads"] + hs.flow_graph["eager"])
+    print(f"[cycles3d] fused: {g['launches']} graph launches, "
+          f"{g['host_reads']} host reads, {g['captures']} captures, "
+          f"{g['cycles']} cycles, {g['micro_ops']} micro-ops, "
+          f"{g['flow_iters']} flow iterations in graphs, "
+          f"{g['pack_overflows']} pack overflows, kernel nodes "
+          f"{g['captured_kernels']} captured / {g['replayed_kernels']} "
+          f"replayed, the runner's captures {fs_capture_ms:.1f} ms in all; "
+          f"host loop: {hs.step_graph['chunks']} step chunks "
+          f"and {hs.flow_graph['eager']} eager flow iterations (check "
+          f"iterations, each a read), {host_reads} reads in all; wall "
+          f"fused {f_wall:.3f} s / host loop {h_wall:.3f} s "
+          f"({100.0 * (f_wall / h_wall - 1.0):+.2f} %)")
+    print(f"[cycles3d] launches fused {json.dumps(counts)}")
+    print(f"[cycles3d] launches host loop {json.dumps(h_counts)}")
+    f_files, h_files = _listing(os.path.join(f_out)), _listing(h_out)
+    f_rows = np.atleast_1d(np.genfromtxt(f"{f_out}/diagnostics.csv",
+                                         delimiter=",", names=True))
+    banked = np.atleast_1d(np.genfromtxt(BANKED, delimiter=",", names=True))
+    banked = banked[:len(f_rows)]
+    diffs = {}
+    if len(banked) == len(f_rows):
+        diffs = {c: float(np.abs(f_rows[c] / banked[c] - 1.0).max())
+                 for c in BANKED_GATES}
+    t_rel = solid_off = None
+    if len(banked) == len(f_rows):
+        t_rel = float(np.abs(f_rows["time_s"] / banked["time_s"] - 1.0).max())
+        solid_off = [(float(a), int(b), int(c)) for a, b, c in zip(
+            f_rows["time_s"], f_rows["solid_nodes"], banked["solid_nodes"])
+            if b != c]
+    print(f"[cycles3d] {len(f_rows)} rows vs docs/runs/3d_1M: max rel diff "
+          f"{json.dumps(diffs)} (gates {json.dumps(BANKED_GATES)}); time_s "
+          f"max rel diff {t_rel}; rows whose solid_nodes differ (t, ours, "
+          f"bank's) {solid_off}")
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        fs.final_state.tensors(), hs.final_state.tensors()))
+
+    # one flow segment of the program against solve_steady, from the
+    # initial state (the fused run's recorded graph serves it)
+    cy = coupling.cycle_runner_for(kit)
+    cy.prepare(state, kit, cfg.coupled_fused_cycles, cy.run.lay.cap,
+               bool(cfg.implicit_extrapolate_x0))
+    params = {**dict.fromkeys(cl.PARAMS, 0.0),
+              **dict(T_FINAL=cfg.T_final, MAX_CYCLES=8, MAX_INNER=200,
+                     FLOW_CAP=2000, FLOW_CAP_INIT=cfg.flow_max_iters,
+                     STEP_CAP=200,
+                     FLOW_ITER_CAP=1, OUT_EVERY=200, FLOW_STRIDE=2 ** 30,
+                     CYCLE_CAP=8, NREC=cy.lay.nrec, NEED_FLOW=1)}
+    chunk = dict(t0=0.0, T_final=cfg.T_final, total0=0, steps_left=200,
+                 cap=200, batch=cfg.dissolution_batch, diag_every=1,
+                 out_every=200)
+    # launches from the initial state until one records no program (the
+    # host loop's larger operator may have grown the runner's buffers,
+    # which drops their graphs); the last is timed
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    for _ in range(3):
+        cy.prepare(state, kit, cfg.coupled_fused_cycles, cy.run.lay.cap,
+                   bool(cfg.implicit_extrapolate_x0))
+        captures = gm.CYCLE_COUNTS["captures"]
+        a.record()
+        y, _ = cy.launch(kit, params, chunk)
+        b.record()
+        b.synchronize()
+        if gm.CYCLE_COUNTS["captures"] == captures:
+            break
+    recorded = gm.CYCLE_COUNTS["captures"] - captures
+    seg_ms = a.elapsed_time(b)
+    seg_iters = int(y[cl.SC["FLOW_ITERS"]])
+    prog = cy.state()
+    a.record()
+    flow, iters, *_ = solvers.solve_steady(state, kit, max_iters=seg_iters)
+    b.record()
+    b.synchronize()
+    host_ms = a.elapsed_time(b)
+    same_flow = (torch.equal(prog.rho, flow.rho)
+                 and torch.equal(prog.vel, flow.vel))
+    print(f"[cycles3d] one flow segment in the program: {seg_iters} "
+          f"iterations in {seg_ms:.1f} ms ({seg_ms / max(seg_iters, 1):.4f} "
+          f"ms an iteration, the launch's BEGINs and read included, "
+          f"{recorded} recordings in it); solve_steady "
+          f"(FlowRunner): {iters - 1} iterations in {host_ms:.1f} ms "
+          f"({host_ms / max(iters - 1, 1):.4f} ms an iteration); rho and "
+          f"vel bit-equal: {same_flow}")
+    # the operator's assembly, device route against the host loop's
+    st = cy.state()
+    vol = coupling.volume_loss_fraction(st, kit)
+    dev_ms, host_s = [], []
+    for _ in range(3):
+        a.record()
+        assemble_into(cy.run.op, st, kit, vol, cy.status)
+        b.record()
+        b.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+        t1 = time.time()
+        cy.run.load(coupling.assemble(st, kit, vol))
+        torch.cuda.synchronize()
+        host_s.append(time.time() - t1)
+    print(f"[cycles3d] assembly a cycle: on the device into the runner's "
+          f"buffers (assemble_into, pack3d) {statistics.median(dev_ms):.2f} "
+          f"ms (CUDA events, eager launches); host loop (assemble with "
+          f"pack_stencil's two reads, then the copy into the buffers) "
+          f"{1e3 * statistics.median(host_s):.2f} ms (host clock); median "
+          f"of 3; the host loop's runs measured "
+          f"{1e3 * hs.assemble_seconds / max(hs.cycles, 1):.2f} ms a cycle")
+
+    solids = set(int(v) for v in f_rows["solid_nodes"])
+    checks = {
+        "the fused route ran: graph launches, one host read each, no "
+        "direct run": g["launches"] > 0 and g["host_reads"] == g["launches"]
+        and g["eager_launches"] == 0 and g["captures"] >= 1,
+        "no read inside a launch (no step, GMRES or gate read)":
+            fs.step_graph["host_reads"] == 0
+            and fs.gmres_graph["host_reads"] == 0
+            and fs.step_graph["chunks"] == 0,
+        "the flow, the Arnoldi steps and the steps ran in graphs":
+            fs.flow_graph["replays"] > 0 == fs.flow_graph["eager"]
+            and fs.gmres_graph["replays"] > 0 == fs.gmres_graph["eager"]
+            and fs.step_graph["replays"] > 0 == fs.step_graph["eager"],
+        "up to 8 cycles a launch": g["cycles"] == fs.cycles
+        and g["launches"] >= 1,
+        "the host loop took no fused launch": hs.cycle_graph["launches"] == 0
+        and hs.cycle_graph["eager_launches"] == 0,
+        "CSV, VTI and PVD files byte for byte": f_files == h_files
+        and any(n.endswith(".vti") for n in f_files),
+        "steps per cycle and flow solves equal":
+            fs.cycle_steps == hs.cycle_steps
+            and fs.flow_results == hs.flow_results
+            and fs.flow_solve_count == hs.flow_solve_count,
+        "final state equal": same_state,
+        "the bank's first two phase changes":
+            solids == set(CYCLES3D_SOLIDS),
+        "rows finite": all(np.isfinite(f_rows[c]).all()
+                           for c in f_rows.dtype.names),
+        "solid_nodes equal to the bank's, time_s within one unit of its "
+        "7th printed digit": len(banked) == len(f_rows) and not solid_off
+            and t_rel <= CYCLES3D_TIME_GATE,
+        "the banked-run gates": bool(diffs) and all(
+            diffs[c] <= lim for c, lim in BANKED_GATES.items()),
+        "no GMRES non-convergence warning": fs.gmres_warnings == 0,
+        "every kernel of the fused path launched":
+            all(counts[k] > 0 for k in PATH_CYCLES),
+        "the flow segment in the program equals solve_steady's":
+            same_flow and seg_iters == iters - 1 == 2000 and recorded == 0,
+    }
+    for what, ok in checks.items():
+        print(f"[cycles3d] check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        fail("cycles3d checks")
+    return counts
 
 
 def fluid_l2(a, b, fluid):
@@ -1742,7 +2144,7 @@ WARM_LINE = re.compile(r"Warm start: coarse \((\d+)x dx, (\d+) nodes\) solve "
 
 
 def phase_warm3d(tmp, cold):
-    """Phase 8: the warm-started flagship; ``cold`` is main3d's initial
+    """Phase 9: the warm-started flagship; ``cold`` is main3d's initial
     flow solve (state, iterations, seconds) or None. Returns the launch
     counts of the run."""
     import pd_mg_pin_corrosion_tpu_torch as pkg
@@ -1875,7 +2277,7 @@ def phase_explicit3d(tmp):
     last = rows[-1]
     checks = {
         "the flow replayed its CUDA graph": solver.flow_graph["replays"] > 0,
-        "a few hundred explicit steps in one chunk":
+        "at least 100 explicit steps in one chunk":
             steps >= 100 and len(chunks) == 1
             and solver.total_implicit_steps == 0,
         "no kernel of the 2D step launched": counts["ard2d"] == 0,
@@ -2718,9 +3120,19 @@ def phase_parity(tmp):
     for tag, caps, loss_atol in (
             ("implicit", PARITY_CAPS, 0.0),
             ("explicit", PARITY_EXPLICIT_CAPS, LOSS_ATOL),
-            ("gs", PARITY_CAPS + ["gs_parity=1"], 0.0)):
-        run_cuda_and_cpu(tmp, "parity", f"parity_{tag}", [PARITY, *caps],
-                         loss_atol)
+            ("gs", PARITY_CAPS + ["gs_parity=1"], 0.0),
+            ("fused", PARITY_FUSED_CAPS, 0.0)):
+        solver, _, counts = run_cuda_and_cpu(
+            tmp, "parity", f"parity_{tag}", [PARITY, *caps], loss_atol)
+        if tag == "fused":
+            g = solver.cycle_graph
+            print(f"[parity] fused cycles on CUDA: {g['launches']} graph "
+                  f"launches, {g['host_reads']} host reads, {g['cycles']} "
+                  f"cycles, cycle_qr launched {counts['cycle_qr']} times")
+            if not (g["launches"] > 0 and g["host_reads"] == g["launches"]
+                    and g["cycles"] > 1 and counts["cycle_qr"] > 0):
+                fail("parity.cfg's fused cycles did not run as graph "
+                     "launches with one read each")
 
     t0 = time.time()
     solver, ours = run_cli(os.path.join(tmp, "parity_gs_f64"),
@@ -3471,6 +3883,7 @@ def main():
                 ("main", lambda: phase_main(tmp)),
                 ("explicit", lambda: phase_explicit(tmp)),
                 ("main3d", lambda: phase_main3d(tmp)),
+                ("cycles3d", lambda: phase_cycles3d(tmp, pkg)),
                 ("warm3d", lambda: phase_warm3d(tmp, cold)),
                 ("explicit3d", lambda: phase_explicit3d(tmp)),
                 ("subcell3d", lambda: phase_subcell3d(tmp)),
@@ -3509,6 +3922,7 @@ def main():
     # else warm3d) for ns3d
     owner = {**{k: ("ladder",) for k in PATH_LADDER},
              **{k: ("main3d", "warm3d") for k in PATH_3D},
+             **{k: ("cycles3d", "main3d") for k in ("cycle_qr", "pack3d")},
              **{k: ("main",) for k in PATH_2D},
              **{k: ("explicit",) for k in PATH_EXPLICIT}}
     # and at other shapes (name@shape), on the run at that shape: the

@@ -30,8 +30,25 @@ steps in chunks whose exits the device decides, one host read a chunk, as
 the JAX package's ``implicit_inner_chunk``; the extrapolated start's
 history is carried across chunks and restarts at each cycle (a JAX launch
 re-seeds it at each chunk, so the two part where a chunk ends inside a
-cycle). ``coupled_fused_cycles`` (the JAX package's fused coupling cycles)
-produces the same CSVs as this loop and is parsed and ignored here.
+cycle).
+
+``coupled_fused_cycles = N`` (implicit runs on a uniform grid, without
+gs_parity tables and off a mesh; a run on an AMR backend, with gs_parity
+or on a mesh prints one line and keeps the host loop) runs the JAX package's fused branch (its
+``coupling.py:622-782``) instead: launches of ``CycleRunner``, each up to
+N whole cycles ([a flow segment of up to 2000 iterations] -> assemble ->
+implicit steps -> phase change) decided on the device by cycle_qr, one
+CUDA graph launch and one read on the card's float32 route. The launch
+ends at a VTI output step or a flow snapshot, which the host writes, at
+``coupled_launch_steps`` steps or ``coupled_launch_flow_iters`` flow
+iterations (checked between micro-ops), and at the cycle boundary where
+a checkpoint falls due; a re-solve is capped at flow_max_iters_resolve
+or min(flow_max_iters, 10000). Its CSVs, snapshots and final state equal
+this loop's bit for bit, but under implicit_extrapolate_x0, whose start
+history it seeds once a launch and carries across the cycles in it, as
+the JAX machine does, and where a re-solve without
+flow_max_iters_resolve would run past 10000 iterations. It prints no
+flow or Poiseuille lines: one ``=== Fused chunk`` line a launch.
 """
 
 from __future__ import annotations
@@ -48,19 +65,23 @@ import torch
 
 from .checkpoint import (cfg_items_json, fingerprint, grid_fingerprint,
                          load_checkpoint, save_checkpoint)
-from .dispatch import is_block, ops_for
+from .dispatch import is_block, is_structured, ops_for
 from .fields import State
 from .grid import FLUID, SOLID_MG
 from .io_vtk import VTKWriter
+from .kernels import cycle_loop as cl
+from .kernels import cycle_qr
 from .kernels import device_loop as qr
 from .kernels import launch_counts
-from .ops.gmres import (GMRES_COUNTS, STEP_COUNTS, default_tol, load_rhs,
-                         prepare, solution, solve, solve_params)
+from .ops.ard_implicit import assemble_into
+from .ops.gmres import (CYCLE_COUNTS, GMRES_COUNTS, STEP_COUNTS, default_tol,
+                         load_rhs, prepare, solution, solve, solve_params)
 from .ops.gmres import runner_for as gmres_runner_for
 from .ops.ns import vel_magnitude
 from .parallel.sharding import all_reduce, gather_state, own_rows
-from .solvers import (FLOW_COUNTS, coarse_warm_start, parity_tables,
-                      poiseuille_l2_error, solve_steady)
+from .solvers import (FLOW_COUNTS, check_values, coarse_warm_start,
+                      parity_tables, poiseuille_l2_error, solve_steady)
+from .solvers import runner_for as flow_runner_for
 
 # the two CSVs (coupling.cpp:55-80): file name and header; each gets one
 # row at every diagnostics write (_write_diagnostics)
@@ -307,6 +328,295 @@ def implicit_inner_step(state: State, op, kit, C_prev=None,
     return stepper.result(state), dt, n_below, res, diag
 
 
+class CycleRunner:
+    """One kit's fused coupling cycles: the JAX package's
+    ``coupled_cycles_chunk`` (its ``coupling.py:184-433``) over static
+    buffers, up to coupled_fused_cycles cycles a launch.
+
+    One program, recorded once into a CUDA graph with conditional nodes on
+    the graph route (``GmresRunner.program``, key ``("cycles", x0)``) or run
+    directly with each gate read on the host (the eager route: the CPU,
+    float64, ``eager``): WHILE "more" (cycle_qr's OUTER) over one micro-op
+    chosen by a SWITCH on the phase, as the JAX machine's ``lax.switch``:
+
+    * cycle start (cycle_qr's CYC_START): under "a flow segment runs", one
+      segment of the flow solve of up to 2000 iterations on the kit's
+      ``FlowRunner`` buffers (the state copied in; dt computed for a fresh
+      solve, else carried), looped as WHILE "the segment goes on" over a
+      SWITCH on the next block (cycle_qr's FLOW_NEXT): a check iteration
+      (its numbers ``solvers.check_values`` into Y, cycle_qr's FLOW_CHECK,
+      then the pre-step buffers on a break and the stepped ones otherwise,
+      and dt refreshed every 200th, each selected on the device), or 64,
+      32, ..., 1 plain iterations recorded back to back
+      (``FlowRunner.body``); the segment's end (FLOW_END) copies the state
+      back. Under "the solve finished", the pressure from rho and the
+      fictitious refresh (``solve_steady``'s result); under "assemble",
+      the operator into the GmresRunner's static buffers
+      (``ops.ard_implicit.assemble_into``: pack3d on the card's 3D float32
+      operator) and ASM_END;
+    * inner window: INNER_START writes gmres_qr's chunk parameters from Y,
+      then ``StepRunner``'s loop of implicit steps while the step flag
+      holds, then INNER_END;
+    * phase change: ``apply_phase_change`` on the state, its count and the
+      solid count into Y, PC_END.
+
+    The state lives in the StepRunner's buffers (``stepper.state``) for
+    the whole run: the host reads it (``state``) only for snapshots,
+    checkpoints and the end. Each launch is gmres_qr's BEGIN and
+    cycle_qr's BEGIN (the launch's parameters as kernel arguments), the
+    program, and one read of Y and of S's scalars, trip counters and rows
+    (``read``). ``implicit_extrapolate_x0``'s C_prev is seeded with C at
+    each launch and carried across the cycles within it, as the JAX
+    machine's."""
+
+    def __init__(self, kit):
+        self.stepper = step_runner_for(kit)
+        self.run = self.stepper.run
+        self.flow = flow_runner_for(kit)
+        self.ops = ops_for(kit)
+        self.graph_route = self.stepper.graph_route and self.flow.graph_route
+        self.lay: cl.CycleLayout | None = None
+        self.Y = self.CF = self.status = self.Y_host = None
+        self._trips_seen = None
+        self.verbose = False       # PD_TPU_VERBOSE_FLOW's flow lines
+        self.eager = False         # run the program directly
+        self._print_flow = False   # the lines, on this launch's route
+
+    # -- set-up and the host's side of a launch ----------------------------
+    def prepare(self, state: State, kit, max_cycles: int, rows: int,
+                x0: bool) -> None:
+        """Load ``state`` into the static buffers with a template operator
+        (assembled on the host; the program assembles its own before any
+        step reads it), and size Y for ``max_cycles`` cycles and S for
+        ``rows`` diagnostic rows a launch."""
+        op = assemble(state, kit, volume_loss_fraction(state, kit))
+        self.stepper.begin(state, op, kit, state.C if x0 else None)
+        self.flow.load(state, kit)
+        # one NS step run directly (its result unused): the NS kernel's
+        # slot tables are built at its first call, which no capture holds
+        self.flow.advance(kit)
+        # the basis's device (kit.device may carry no index, which no
+        # tensor's device equals: every buffer would be allocated anew)
+        run = self.run
+        dev = run.V.device
+        run.qr_state(self.stepper.system(kit).restart, rows, dev)
+        self.lay = cl.CycleLayout(max_cycles + 1)
+        Y = run.buffer("cycle.Y", (self.lay.size,), torch.float64, dev)
+        if Y is not self.Y:
+            Y.zero_()
+            self._trips_seen = [0.0] * len(cl.TRIPS)
+        self.Y = Y
+        self.CF = run.buffer("cycle.F", (cl.N_FLAGS,), torch.bool, dev)
+        self.status = run.buffer("cycle.pack", (2,), torch.int64, dev)
+        self.Y_host = torch.zeros(self.lay.size, dtype=torch.float64,
+                                  pin_memory=dev.type == "cuda")
+
+    def state(self) -> State:
+        """A copy of the state in the static buffers."""
+        return State(*(t.clone() for t in self.stepper.state.tensors()))
+
+    def repack(self, kit) -> None:
+        """After a launch whose packed operator outgrew its buffers: the
+        operator of the state assembled on the host and loaded into
+        buffers grown to hold it (``GmresRunner.load``; the graphs are
+        dropped and recorded again at the next launch)."""
+        st = self.state()
+        self.run.load(assemble(st, kit, volume_loss_fraction(st, kit)))
+
+    def launch(self, kit, params: dict, chunk: dict) -> tuple:
+        """One launch from ``params`` (cycle_loop.PARAMS by name): gmres_qr's
+        BEGIN (the solve's tolerances and the chunk's exits ``chunk``,
+        ``gmres.solve_params``' keywords) and cycle_qr's, C_prev seeded
+        with C, the program, one read. Returns (Y's values, S's values
+        from its scalars on)."""
+        run = self.run
+        sys = self.stepper.system(kit)
+        run.qr(qr.BEGIN, params=solve_params(sys, default_tol(kit.dtype),
+                                             200, **chunk))
+        if self.stepper.C_prev is not None:
+            self.stepper.C_prev.copy_(self.stepper.state.C)
+        self._cq(cl.BEGIN, [params[n] for n in cl.PARAMS])
+        graphed = self.graph_route and not self.eager
+        run.program(("cycles", self.stepper.C_prev is not None),
+                    lambda: self.program(kit, sys, graphed), graphed)
+        return self.read(graphed)
+
+    def read(self, graphed: bool) -> tuple:
+        """Y and S's scalars, trip counters and rows, by two copies into
+        pinned buffers and one stream sync; what ran counted from the trip
+        counters."""
+        run, lay = self.run, self.run.lay
+        n = lay.size - lay.SC
+        run.S_host[:n].copy_(run.S[lay.SC:], non_blocking=True)
+        self.Y_host.copy_(self.Y, non_blocking=True)
+        run._sync()
+        vals = run.S_host[:n].tolist()
+        y = self.Y_host.tolist()
+        CYCLE_COUNTS["host_reads"] += 1
+        at = self.lay.TRIPS
+        trips = y[at:at + len(cl.TRIPS)]
+        d = {name: int(now - seen) for name, now, seen in
+             zip(cl.TRIPS, trips, self._trips_seen)}
+        self._trips_seen = trips
+        run._settle(vals[lay.TRIPS - lay.SC:lay.ROWS - lay.SC],
+                    {_trip(k): v for k, v in d.items()})
+        iters = d["check"] + sum(b * d[f"b{b}"] for b in cl.BLOCKS)
+        FLOW_COUNTS["replays" if graphed else "eager"] += iters
+        CYCLE_COUNTS["flow_iters"] += iters
+        CYCLE_COUNTS["cycles"] += d["pc"]
+        CYCLE_COUNTS["micro_ops"] += d["pass"]
+        return y, vals
+
+    # -- the program ----------------------------------------------------------
+    def _cq(self, mode: int, params=None) -> None:
+        run = self.run
+        cycle_qr(mode, self.Y, self.CF, run.S, run.F, run.lay.SC, params)
+
+    def _y(self, name: str) -> torch.Tensor:
+        return self.Y[cl.SC[name]]
+
+    def program(self, kit, sys, graphed: bool) -> None:
+        """The launch's device work (see the class): the loop of micro-ops
+        while cycle_qr's "more" holds."""
+        run = self.run
+
+        def pass_():
+            run.switch(self._y("PHASE"),
+                       [_trip("start"), _trip("inner"), _trip("pc")],
+                       [lambda: self._cycle_start(kit),
+                        lambda: self._inner(kit, sys),
+                        lambda: self._phase_change(kit)])
+            self._cq(cl.OUTER)
+
+        self._print_flow = self.verbose and not graphed
+        run.loop(self.CF[cl.MORE], _trip("pass"), pass_)
+
+    def _cycle_start(self, kit) -> None:
+        run, CF = self.run, self.CF
+        self._cq(cl.CYC_START)
+        run.gate(CF[cl.FLOW], _trip("flow"), lambda: self._flow_segment(kit))
+        run.gate(CF[cl.FIN], _trip("fin"), lambda: self._finish(kit))
+        run.gate(CF[cl.ASM], _trip("asm"), lambda: self._assemble(kit))
+
+    def _flow_segment(self, kit) -> None:
+        """One segment of the flow solve (JAX coupling.py:263-316)."""
+        run, CF, fl, ops = self.run, self.CF, self.flow, self.ops
+        for buf, t in zip(fl.state.tensors(), self.stepper.state.tensors()):
+            buf.copy_(t)
+        dt = ops.compute_dt_ns(fl.state, kit)
+        fl.dt.copy_(torch.where(CF[cl.FRESH], dt,
+                                self._y("F_DT").to(fl.dt.dtype)))
+        bodies = [lambda: self._check(kit)] + [
+            functools.partial(self._plain, kit, b) for b in cl.BLOCKS]
+
+        def pass_():
+            self._cq(cl.FLOW_NEXT)
+            run.switch(self._y("KIND"), [_trip(n) for n in cl.TRIPS[
+                cl.TRIP["check"]:cl.TRIP["b1"] + 1]], bodies)
+
+        run.loop(CF[cl.FLOW_GO], _trip("flowpass"), pass_)
+        self._y("F_DT").copy_(fl.dt)
+        self._cq(cl.FLOW_END)
+        for buf, t in zip(self.stepper.state.tensors(), fl.state.tensors()):
+            buf.copy_(t)
+
+    def _check(self, kit) -> None:
+        """A check iteration (solve_steady's): its numbers into Y,
+        cycle_qr's decisions, then the pre-step buffers on a break, the
+        stepped ones with the fictitious refresh otherwise, and dt
+        refreshed every 200th iteration, each selected on the device."""
+        fl, ops, CF = self.flow, self.ops, self.CF
+        st_bc, st_new = fl.advance(kit)
+        at = cl.SC["CHK_EPS"]
+        self.Y[at:at + 6].copy_(check_values(st_bc, st_new, kit))
+        if self._print_flow:
+            it = int(self._y("IT").item())
+            if it <= 10 or it % kit.cfg.output_every_flow == 0:
+                eps, v_max, rmin, rmax = self.Y[at:at + 4].tolist()
+                print(f"  Flow iter {it}: eps={eps:.3e}  v_max={v_max:.4e}  "
+                      f"rho=[{rmin:.2f},{rmax:.2f}]  dt={float(fl.dt):.3e}")
+        self._cq(cl.FLOW_CHECK)
+        nxt = ops.update_fictitious(st_new, kit)
+        brk = CF[cl.BRK]
+        for f in fields(State):
+            buf = getattr(fl.state, f.name)
+            a, b = getattr(st_bc, f.name), getattr(nxt, f.name)
+            if a is buf and b is buf:
+                continue
+            buf.copy_(torch.where(brk, a, b))
+        dt = ops.compute_dt_ns(fl.state, kit)
+        fl.dt.copy_(torch.where(CF[cl.REFRESH], dt, fl.dt))
+
+    def _plain(self, kit, n: int) -> None:
+        for _ in range(n):
+            self.flow.body(kit)
+
+    def _finish(self, kit) -> None:
+        """The finished solve's state: the pressure from rho
+        (``FlowRunner.result``), the fictitious refresh."""
+        st = self.stepper.state
+        st.pressure.copy_(self.ops.tait_pressure(st.rho, kit))
+        self.stepper.store(self.ops.update_fictitious(st, kit))
+
+    def _assemble(self, kit) -> None:
+        st = self.stepper.state
+        assemble_into(self.run.op, st, kit, volume_loss_fraction(st, kit),
+                      self.status)
+        self._y("OVERFLOW").copy_(self.status[1])
+        self._cq(cl.ASM_END)
+
+    def _inner(self, kit, sys) -> None:
+        run, stepper = self.run, self.stepper
+
+        def step():
+            stepper.head(kit, sys)
+            solve(run, sys)
+            stepper.tail(kit, sys)
+
+        self._cq(cl.INNER_START)
+        run.loop(qr.STEP, run.lay.trip["head"], step)
+        self._cq(cl.INNER_END)
+
+    def _phase_change(self, kit) -> None:
+        st = self.stepper.state
+        new, n = self.ops.apply_phase_change(st, kit)
+        self.stepper.store(new)
+        self._y("N_DISS").copy_(n)
+        self._y("N_SOLID").copy_((st.node_type == SOLID_MG).sum())
+        self._cq(cl.PC_END)
+
+
+def _trip(name: str) -> tuple:
+    """The key of a fused-cycles body's trip counter (cycle_loop.TRIPS) in
+    a recorded program's tally."""
+    return ("cycle", name)
+
+
+# {kit: CycleRunner}
+_cyclers: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def cycle_runner_for(kit) -> CycleRunner:
+    """The kit's CycleRunner, made at its first fused launch."""
+    run = _cyclers.get(kit)
+    if run is None:
+        run = _cyclers[kit] = CycleRunner(kit)
+    return run
+
+
+def fused_route_refusal(kit) -> str | None:
+    """Why the fused coupling cycles do not take ``kit``, or None: they run
+    on a uniform grid's kit without gs_parity tables (whose sweeps read
+    node values on the host) and off a mesh."""
+    if not is_structured(kit):
+        return "an AMR backend"
+    if parity_tables(kit):
+        return "gs_parity's host sweeps"
+    if getattr(kit, "slab", None) is not None:
+        return "a mesh"
+    return None
+
+
 def explicit_chunk(state: State, kit, dt: float, vol_loss, n_steps: int):
     """n explicit corrosion steps, each the inlet, outlet and wall
     concentration BCs then one transport step (coupling.cpp:232-252; no
@@ -320,7 +630,17 @@ def explicit_chunk(state: State, kit, dt: float, vol_loss, n_steps: int):
     return state
 
 
+# steps a fused launch runs at most: the diagnostic rows gmres_qr's state
+# holds (a longer coupled_launch_steps, or none with more cycles of more
+# steps than this, is cut to it)
+LAUNCH_ROWS = 4096
+
+
 class CoupledSolver:
+    # the fused cycles' program run directly, each gate read on the host,
+    # where it would be a CUDA graph (the same bits; for comparison)
+    eager_cycles = False
+
     def __init__(self):
         self.writer = VTKWriter()
         self.flow_writer = VTKWriter()
@@ -356,6 +676,11 @@ class CoupledSolver:
         # (gmres.STEP_COUNTS)
         self.gmres_graph = dict.fromkeys(GMRES_COUNTS, 0)
         self.step_graph = dict.fromkeys(STEP_COUNTS, 0)
+        # the fused cycles' launches, captures, host reads, cycles,
+        # micro-ops and pack overflows (gmres.CYCLE_COUNTS), and the wall
+        # time of their launches
+        self.cycle_graph = dict.fromkeys(CYCLE_COUNTS, 0)
+        self.fused_seconds = 0.0
         self.final_state = None
 
     # ------------------------------------------------------------------
@@ -497,6 +822,14 @@ class CoupledSolver:
               f"{g['host_reads']} host reads; kernel nodes "
               f"{g['captured_kernels']} captured, {g['replayed_kernels']} "
               f"replayed ({g['traced_kernels']} traced)")
+        g = self.cycle_graph
+        print(f"  [Timer] fused cycles: {g['launches']} graph launches, "
+              f"{g['eager_launches']} direct, {g['captures']} captures "
+              f"({g['recaptures']} recaptures), {g['host_reads']} host "
+              f"reads, {g['cycles']} cycles, {g['micro_ops']} micro-ops, "
+              f"{g['flow_iters']} flow iterations, {g['pack_overflows']} "
+              f"pack overflows; kernel nodes {g['captured_kernels']} "
+              f"captured, {g['replayed_kernels']} replayed")
         # the process's wrapper launches, graph replays counted by the
         # trip counters
         print(f"  [Timer] kernel launches: "
@@ -579,6 +912,163 @@ class CoupledSolver:
               f"({t_corr / 3600.0:.4f} h)")
         return state, t_corr
 
+    def _run_fused(self, cfg, grid, state, kit, t_corr, gmres_tol, ckpt):
+        """The JAX package's fused branch of ``CoupledSolver.run`` (its
+        coupling.py:622-782): launches of the kit's ``CycleRunner``, each up
+        to coupled_fused_cycles whole cycles ([flow segment] -> assemble ->
+        implicit steps -> phase change) with one read, until T_final (a
+        pending phase change included) or no solid is left. The flow warm
+        start runs on the host before the first launch; the run's first
+        solve takes flow_max_iters, a re-solve flow_max_iters_resolve or
+        min(flow_max_iters, 10000); coupled_launch_steps and
+        coupled_launch_flow_iters bound a launch (the flow's at segment
+        ends). After a launch the host writes the diagnostics rows, the
+        snapshot at an output or flow-snapshot exit, and the checkpoint
+        at a cycle boundary that ends no flow segment mid-solve; a launch
+        that stops at a checkpoint due ends at that cycle's boundary
+        (cycle_cap). Returns (state, t_corr)."""
+        fp, fp_grid, cfg_json = ckpt
+        fused = int(cfg.coupled_fused_cycles)
+        verbose = bool(os.environ.get("PD_TPU_VERBOSE_FLOW"))
+        cy = cycle_runner_for(kit)
+        cy.eager, cy.verbose = self.eager_cycles or verbose, verbose
+        flow_cap = (cfg.flow_max_iters_resolve
+                    if cfg.flow_max_iters_resolve > 0
+                    else min(cfg.flow_max_iters, 10000))
+        step_cap = (cfg.coupled_launch_steps
+                    if cfg.coupled_launch_steps > 0 else 2 ** 30)
+        flow_iter_cap = (cfg.coupled_launch_flow_iters
+                         if cfg.coupled_launch_flow_iters > 0 else 2 ** 30)
+        max_inner = cfg.corrosion_steps_per_check
+        out_every = min(max(cfg.implicit_output_every, 1), 2 ** 30)
+        rows = min(step_cap, fused * max(max_inner, 1))
+        if rows > LAUNCH_ROWS:
+            step_cap = rows = LAUNCH_ROWS
+        # the warm start of the run's first solve stays on the host (JAX
+        # coupling.py:659-664)
+        if (self.cycles == 0 and cfg.flow_warm_start
+                and self.total_dissolved == 0):
+            t_ph = time.time()
+            state, self.coarse_iters = coarse_warm_start(state, grid, kit,
+                                                         cfg)
+            self._phase("warm_start", t_ph, fence=True)
+        t_ph = time.time()
+        cy.prepare(state, kit, fused, rows,
+                   bool(cfg.implicit_extrapolate_x0))
+        self._phase("assemble", t_ph, fence=True)
+        print("Launching fused coupled-cycles chunk (the first launch "
+              "records its CUDA graph)...", flush=True)
+        phase = inner_k = f_it = 0
+        f_eps = f_dt = 0.0
+        need_flow = True
+        cycle = ckpt_cycle = self.cycles
+        while t_corr < cfg.T_final or phase != cl.PH_START:
+            # a launch ends at the cycle boundary where a checkpoint falls
+            # due (cycle-boundary-only saves would otherwise be preempted by
+            # output and budget exits)
+            ckpt_cap = (max(1, cfg.checkpoint_every - (cycle - ckpt_cycle))
+                        if cfg.checkpoint_every else 2 ** 30)
+            params = dict(
+                T_FINAL=cfg.T_final, MAX_CYCLES=fused, MAX_INNER=max_inner,
+                FLOW_CAP=flow_cap, FLOW_CAP_INIT=cfg.flow_max_iters,
+                STEP_CAP=step_cap,
+                FLOW_ITER_CAP=flow_iter_cap, OUT_EVERY=out_every,
+                FLOW_STRIDE=max(cfg.flow_output_stride, 1),
+                FLOW_SOLVES0=self.flow_solve_count, CYCLE_CAP=ckpt_cap,
+                TOTAL0=self.total_implicit_steps, NREC=cy.lay.nrec,
+                T=t_corr, PHASE=phase, INNER_K=inner_k,
+                NEED_FLOW=int(need_flow), F_IT=f_it, F_EPS=f_eps, F_DT=f_dt)
+            chunk = dict(t0=t_corr, T_final=cfg.T_final,
+                         total0=self.total_implicit_steps,
+                         steps_left=max_inner, cap=step_cap,
+                         batch=max(cfg.dissolution_batch, 1),
+                         diag_every=max(cfg.diagnostic_every, 1),
+                         out_every=out_every)
+            t_ph = time.time()
+            y, vals = cy.launch(kit, params, chunk)
+            wall = time.time() - t_ph
+            lay = cy.run.lay
+
+            def Y(name):
+                return y[cl.SC[name]]
+
+            n_cyc, k = int(Y("CYCLES")), int(Y("STEPS"))
+            flow_iters, flow_solves = int(Y("FLOW_ITERS")), int(
+                Y("FLOW_SOLVES"))
+            t_corr = Y("T")
+            if self._prof:
+                print(f"  [launch] {wall:.2f}s: {k} steps, {flow_iters} flow "
+                      f"iters, t={t_corr:.1f}s", flush=True)
+            self._phase("coupled_chunk", t_ph)
+            self.fused_seconds += wall
+            phase, inner_k = int(Y("PHASE")), int(Y("INNER_K"))
+            f_it, f_eps, f_dt = int(Y("F_IT")), Y("F_EPS"), Y("F_DT")
+            need_flow = Y("NEED_FLOW") != 0.0
+            cycle += n_cyc
+            self.cycles = cycle
+            self.total_implicit_steps += k
+            n_dissolved = int(Y("DISSOLVED"))
+            self.total_dissolved += n_dissolved
+            self.flow_solve_count += flow_solves
+            self.flow_iters += flow_iters
+            self.dissolved_since_flow = n_dissolved if need_flow else 0
+            at = cy.lay.REC_STEPS
+            self.cycle_steps += [int(v) for v in y[at:at + n_cyc]]
+            at = cy.lay.REC_FLOW
+            for i in range(flow_solves):
+                it, eps, conv, div = y[at + 4 * i:at + 4 * i + 4]
+                self.flow_results.append((int(it), eps, bool(conv),
+                                          bool(div)))
+            max_res = cy.run.sc(vals, "MAXRES")
+            if max_res > 100.0 * gmres_tol:
+                self.gmres_warnings += 1
+                print(f"WARNING: GMRES did not converge in at least one "
+                      f"step (max |res|={max_res:.2e})")
+            if Y("DIVERGED"):
+                print("WARNING: flow solve diverged inside fused chunk")
+            at = lay.ROWS - lay.SC
+            for i in range(int(cy.run.sc(vals, "NROWS"))):
+                t_row, *diag = vals[at + 5 * i:at + 5 * i + 5]
+                self._write_diagnostics(cfg, t_row, diag)
+            # the host-I/O exits: the state the host loop would write there
+            if Y("EXIT_OUTPUT"):
+                self._write_state(cfg, grid, cy.state(), "corr", t_corr,
+                                  self.writer)
+            if Y("EXIT_FLOW"):
+                self._write_state(cfg, grid, cy.state(), "flow", t_corr,
+                                  self.flow_writer)
+            if Y("EXIT_PACK"):
+                CYCLE_COUNTS["pack_overflows"] += 1
+                print("  Fused chunk: the packed operator outgrew its "
+                      "buffers; repacked on the host into larger ones")
+                cy.repack(kit)
+            print(f"=== Fused chunk: {n_cyc} cycles, {k} implicit steps, "
+                  f"{flow_iters} flow iters in {flow_solves} re-solves "
+                  f"(last eps={Y('EPS_LAST'):.2e}), {n_dissolved} dissolved, "
+                  f"t={t_corr:.1f} s ({t_corr / 3600.0:.2f} h) ===")
+            # checkpoints at cycle boundaries only, with no flow solve under
+            # way (JAX coupling.py:755-776)
+            if (cfg.checkpoint_every and n_cyc > 0 and phase == cl.PH_START
+                    and f_it == 0
+                    and cycle - ckpt_cycle >= cfg.checkpoint_every):
+                ckpt_cycle = cycle
+                t_ph = time.time()
+                self._flush_writers()
+                save_checkpoint(
+                    f"{cfg.output_dir}/checkpoint.npz", cy.state(), t_corr,
+                    {"cycle": cycle,
+                     "total_implicit_steps": self.total_implicit_steps,
+                     "total_dissolved": self.total_dissolved,
+                     "frame_count": self.frame_count,
+                     "flow_solve_count": self.flow_solve_count},
+                    fp, fp_grid=fp_grid, cfg_json=cfg_json)
+                self._phase("checkpoint", t_ph)
+            if not Y("ANY_SOLID"):
+                print(f"\n=== All solid nodes dissolved at t={t_corr:.1f} s "
+                      f"({t_corr / 3600.0:.2f} h) ===")
+                break
+        return cy.state(), t_corr
+
     def _explicit_cycle(self, cfg, grid, state, kit, t_corr):
         """Phase 2, explicit (coupling.cpp:232-252): one CFL dt for the
         cycle, then chunks of output_every_corr steps (the last cut at
@@ -622,6 +1112,7 @@ class CoupledSolver:
         flow_at_start = dict(FLOW_COUNTS)
         gmres_at_start = dict(GMRES_COUNTS)
         step_at_start = dict(STEP_COUNTS)
+        cycle_at_start = dict(CYCLE_COUNTS)
         self._prof = bool(os.environ.get("PD_TPU_PHASE_TIMERS"))
         self._device = kit.device
         self._mesh = getattr(kit, "mesh", None)
@@ -675,7 +1166,16 @@ class CoupledSolver:
         need_flow_solve = True
         self.dissolved_since_flow = 0
 
-        while t_corr < cfg.T_final:
+        fused = int(cfg.coupled_fused_cycles) if cfg.use_implicit else 0
+        refusal = fused_route_refusal(kit) if fused > 0 else None
+        if refusal is not None:
+            print(f"coupled_fused_cycles = {fused}: the fused coupling cycles "
+                  f"do not run on {refusal}; this run takes the host loop")
+        if fused > 0 and refusal is None:
+            state, t_corr = self._run_fused(cfg, grid, state, kit, t_corr,
+                                            gmres_tol, (fp, fp_grid, cfg_json))
+
+        while (fused <= 0 or refusal is not None) and t_corr < cfg.T_final:
             self.cycles += 1
             cycle = self.cycles
             print(f"\n=== Coupling cycle {cycle}, t={t_corr:.1f} s "
@@ -786,6 +1286,8 @@ class CoupledSolver:
                             for k, n in gmres_at_start.items()}
         self.step_graph = {k: STEP_COUNTS[k] - n
                            for k, n in step_at_start.items()}
+        self.cycle_graph = {k: CYCLE_COUNTS[k] - n
+                            for k, n in cycle_at_start.items()}
         self._report_phases(total)
         self.final_state = state
         return state

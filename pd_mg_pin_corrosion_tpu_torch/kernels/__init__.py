@@ -23,12 +23,13 @@ from .ard2d import (ard2d, ard2d_geometry, ard2d_plain, ard2d_staged_plain,
 from .basis import (basis_axpy, basis_axpy_plain, basis_dots,
                     basis_dots_plain, basis_dots_walk_plain, dots_grid,
                     pitched_basis, reserve_dots_scratch)
+from .cycle_loop import cycle_qr, cycle_qr_plain
 from .device_loop import gmres_qr, gmres_qr_plain
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
-                       matvec3d_plain, pack_stencil, slots3d_f64,
-                       slots3d_f64_packed_plain, slots3d_f64_plain,
-                       unpack_stencil)
+                       matvec3d_plain, pack3d, pack3d_plain, pack_stencil,
+                       slots3d_f64, slots3d_f64_packed_plain,
+                       slots3d_f64_plain, unpack_stencil)
 from .ns2d import (Ns2dTables, ns2d, ns2d_geometry, ns2d_plain,
                    ns2d_staged_plain, ns2d_staging, ns2d_tables)
 from .ns3d import (Ns3dTables, ns3d, ns3d_geometry, ns3d_plain,
@@ -89,6 +90,17 @@ KERNELS = (
     KernelInfo("gmres_qr", gmres_qr,
                "pd_mg_pin_corrosion_tpu_torch/csrc/gmres_qr.cu",
                "pd_mg_pin_corrosion_tpu/ops/gmres.py:186"),
+    # no Pallas kernel: the JAX package's fused cycles decide their
+    # micro-ops and flow segments in XLA (coupled_cycles_chunk's
+    # while_loop and switch)
+    KernelInfo("cycle_qr", cycle_qr,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/cycle_qr.cu",
+               "pd_mg_pin_corrosion_tpu/coupling.py:382"),
+    # no Pallas kernel: the JAX package's 3D matvec streams the dense W
+    # its fused cycles assemble in XLA (coupled_cycles_chunk)
+    KernelInfo("pack3d", pack3d,
+               "pd_mg_pin_corrosion_tpu_torch/csrc/pack3d.cu",
+               "pd_mg_pin_corrosion_tpu/coupling.py:283"),
 )
 
 

@@ -112,6 +112,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_gmres_qr.restype = i32
     lib.pd_gmres_qr.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, i32,
                                 i32, vp]
+    lib.pd_cycle_qr.restype = i32
+    lib.pd_cycle_qr.argtypes = [i32, vp, vp, vp, vp, i64,
+                                ctypes.POINTER(f64), i32, i32, vp]
+    lib.pd_cycle_qr_layout.restype = None
+    lib.pd_cycle_qr_layout.argtypes = [ctypes.POINTER(i32)]
+    lib.pd_pack3d.restype = i32
+    lib.pd_pack3d.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp, vp,
+                              vp, vp, vp, vp, i64, vp, i32, vp]
     lib.pd_cg_runtime_version.restype = i32
     lib.pd_cg_runtime_version.argtypes = []
     lib.pd_cg_create.restype = i32

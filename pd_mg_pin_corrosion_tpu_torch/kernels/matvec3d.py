@@ -359,3 +359,118 @@ def slots3d_f64(x, W, kit: Kit):
 matvec3d.launches = 0
 matvec3d.launches_bf16 = 0
 slots3d_f64.launches = 0
+
+
+def _packed_at(base, q, group: int, lane, chunk: int):
+    """Entry of the q-th packed value of lane ``lane`` of a slice whose rows
+    start at value row ``base`` (csrc/pack3d.cu ``at``)."""
+    return ((base + q - q % group) * SLICE + (q % group) // chunk
+            * (SLICE * chunk) + lane * chunk + q % chunk)
+
+
+def _pack3d_check(W, unknown, kit: Kit, packed, packed16, status):
+    n = math.prod(kit.shape)
+    n_slices = -(-n // SLICE)
+    if (W.shape != (kit.S,) + tuple(kit.shape) or W.dtype != torch.float32
+            or unknown.shape != tuple(kit.shape)
+            or unknown.dtype != torch.bool
+            or packed.count.shape != (n,) or packed.count.dtype != torch.int16
+            or packed.slice_ptr.shape != (n_slices + 1,)
+            or packed.slice_ptr.dtype != torch.int32
+            or packed.slots.dtype != torch.uint8
+            or packed.values.dtype != torch.float32
+            or packed16.values.dtype != torch.bfloat16
+            or packed16.count is not packed.count
+            or packed16.slice_ptr is not packed.slice_ptr
+            or packed16.slots is not packed.slots
+            or packed.group != packed16.group
+            or status.dtype != torch.int64 or status.numel() < 2):
+        raise ValueError("pack3d: W [S, *shape] float32, unknown bool, and "
+                         "a float32 and a bfloat16 PackedStencil sharing "
+                         "count, slice_ptr and slots of this grid")
+    return n, n_slices
+
+
+def pack3d_plain(W, unknown, kit: Kit, packed: PackedStencil,
+                 packed16: PackedStencil, status) -> None:
+    """pack3d's walk in PyTorch: each row's kept bonds counted slot by slot,
+    each slice's length the group-rounded count of its fullest row, the
+    lengths' running sum, then every row's kept bonds written at the
+    packed index of their rank and zeros up to its slice's length (rows
+    past N included). ``status`` gets (nonzeros, overflow)."""
+    n, n_slices = _pack3d_check(W, unknown, kit, packed, packed16, status)
+    group, dev = packed.group, W.device
+    Wf, unk = W.reshape(kit.S, n), unknown.reshape(n)
+    inside = _inside_tables(kit, dev)
+    count = torch.zeros(n, dtype=torch.int32, device=dev)
+    for s in range(kit.S):
+        count += _kept(Wf, unk, kit, inside, s, s + 1)[0]
+    packed.count.copy_(count.to(torch.int16))
+    lens = torch.nn.functional.pad(count, (0, n_slices * SLICE - n)).view(
+        n_slices, SLICE).max(1).values
+    lens = (lens + (group - 1)) // group * group
+    packed.slice_ptr[0] = 0
+    packed.slice_ptr[1:] = lens.cumsum(0)
+    status[0] = count.sum()
+    capacity = min(t.numel() for t in (packed.slots, packed.values,
+                                       packed16.values))
+    stored = int(packed.slice_ptr[-1])
+    status[1] = int(stored * SLICE > capacity)
+    if stored * SLICE > capacity:
+        return
+    rows = torch.arange(n_slices * SLICE, device=dev)
+    lane = rows % SLICE
+    base = packed.slice_ptr[rows // SLICE].to(torch.int64)
+    q = torch.zeros(n, dtype=torch.int64, device=dev)
+    c32, c16 = lane_chunk(torch.float32, group), lane_chunk(torch.bfloat16,
+                                                            group)
+    for s in range(kit.S):
+        node = _kept(Wf, unk, kit, inside, s, s + 1)[0].nonzero().squeeze(1)
+        args = (base[node], q[node], group, lane[node])
+        packed.slots[_packed_at(*args, group)] = s
+        w = Wf[s, node]
+        packed.values[_packed_at(*args, c32)] = w
+        packed16.values[_packed_at(*args, c16)] = w.to(torch.bfloat16)
+        q[node] += 1
+    filled = torch.nn.functional.pad(q, (0, n_slices * SLICE - n))
+    length = lens[rows // SLICE].to(torch.int64)
+    for qq in range(int(length.max()) if rows.numel() else 0):
+        pad = rows[(qq >= filled) & (qq < length)]
+        args = (base[pad], qq, group, lane[pad])
+        packed.slots[_packed_at(*args, group)] = 0
+        packed.values[_packed_at(*args, c32)] = 0.0
+        packed16.values[_packed_at(*args, c16)] = 0.0
+
+
+def pack3d(W, unknown, kit: Kit, packed: PackedStencil,
+           packed16: PackedStencil, status) -> None:
+    """pack_stencil's weights written into the buffers of ``packed`` (its
+    count, slice_ptr, slots and float32 values) and ``packed16`` (the
+    bfloat16 values; count, slice_ptr and slots shared with ``packed``),
+    whose values and slots have a fixed capacity, with no host read: the
+    kernel (csrc/pack3d.cu) on CUDA tensors, ``pack3d_plain`` on CPU ones.
+    ``status`` (int64 [2]) receives the nonzeros and an overflow flag: 1
+    when the stored entries exceed the capacity, and then no value or slot
+    is written. The same bytes as ``pack_stencil`` and
+    ``PackedStencil.to(torch.bfloat16)`` up to the stored length."""
+    if use_plain("pack3d", W, unknown, packed.values, status):
+        return pack3d_plain(W, unknown, kit, packed, packed16, status)
+    _, n_slices = _pack3d_check(W, unknown, kit, packed, packed16, status)
+    if not all(t.is_contiguous() for t in (
+            packed.count, packed.slice_ptr, packed.slots, packed16.values)):
+        raise ValueError("pack3d: non-contiguous packed buffers")
+    if kit.slot_offsets.device != W.device:
+        raise ValueError("pack3d: the kit lies on another device")
+    lens = torch.empty(n_slices, dtype=torch.int32, device=W.device)
+    capacity = min(t.numel() for t in (packed.slots, packed.values,
+                                       packed16.values))
+    rc = load().lib.pd_pack3d(
+        ptr(W), ptr(unknown), ptr(kit.slot_offsets), kit.S, *kit.shape,
+        packed.group, ptr(packed.count), ptr(lens), ptr(packed.slice_ptr),
+        ptr(packed.slots), ptr(packed.values), ptr(packed16.values),
+        capacity, ptr(status), W.device.index, stream(W))
+    check(rc, "pack3d")
+    pack3d.launches += 1
+
+
+pack3d.launches = 0

@@ -54,7 +54,8 @@ def micro_d_factor(cfg, volume_loss_fraction, dtype,
 def solid_diffusivity(is_gb, is_precip, cfg, factor) -> torch.Tensor:
     """Solid-side micro-diffusivity GB > precipitate > grain, times the
     volume-loss factor (a 0-d tensor fixing dtype and device)."""
-    D_grain = factor.new_tensor(cfg.D_grain)
+    # filled on the device: the fused cycles' CUDA graph captures this
+    D_grain = torch.full_like(factor, cfg.D_grain)
     return torch.where(is_gb, cfg.D_gb,
                        torch.where(is_precip, cfg.D_precip, D_grain)) * factor
 

@@ -36,7 +36,7 @@ from ..fields import State
 from ..grid import (FICTITIOUS, FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG,
                     WALL)
 from ..kernels import (PackedStencil, matvec2d, matvec2d_plain, matvec3d,
-                       matvec3d_plain, pack_stencil, slots3d_f64)
+                       matvec3d_plain, pack3d, pack_stencil, slots3d_f64)
 from ..kit import Kit
 from ..parallel.sharding import all_reduce, reducer
 from .ard import compute_salt_blocked, micro_d_factor, solid_diffusivity
@@ -82,6 +82,28 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
         return assemble_sharded(state, kit, volume_loss_fraction)
     return finish_operator(ImplicitOperator(
         *_dense_operator(state, kit, volume_loss_fraction)), kit)
+
+
+def assemble_into(op: ImplicitOperator, state: State, kit: Kit,
+                  volume_loss_fraction, status: torch.Tensor) -> None:
+    """``assemble``'s operator of ``state`` written into ``op``'s tensors
+    (a GmresRunner's static operator, ``GmresRunner.load``) with no host
+    read, as a CUDA graph may record it: diag and unknown copied; the
+    weights copied into a dense ``op.W`` (and ``op.W16`` as its bfloat16
+    copy where it is one), or packed by ``kernels.pack3d`` into the
+    capacity buffers of ``op.packed`` and ``op.W16``. ``status`` (int64
+    [2]) receives pack3d's nonzeros and overflow flag (0 without
+    packing). The same bytes as ``assemble`` loaded into ``op``."""
+    W, diag, unknown = _dense_operator(state, kit, volume_loss_fraction)
+    op.diag.copy_(diag)
+    op.unknown.copy_(unknown)
+    if op.packed is not None:
+        pack3d(W, unknown, kit, op.packed, op.W16, status)
+        return
+    op.W.copy_(W)
+    if op.W16 is not None:
+        op.W16.copy_(W.to(torch.bfloat16))
+    status.zero_()
 
 
 def finish_operator(op: ImplicitOperator, kit: Kit) -> ImplicitOperator:

@@ -82,6 +82,17 @@ STEP_COUNTS = {"replays": 0, "eager": 0, "launches": 0, "captures": 0,
                "recaptures": 0, "captured_kernels": 0, "replayed_kernels": 0,
                "traced_kernels": 0, "host_reads": 0, "steps": 0,
                "chunks": 0}
+# CYCLE_COUNTS: the fused coupling cycles' program (``coupling.CycleRunner``):
+# its graph launches and direct runs, captures, recaptures, kernel nodes,
+# host reads (one a launch on the graph route; each gate's besides on the
+# eager route), and from the device's counters the cycles, the micro-ops
+# (passes of its outer loop), the flow iterations and the launches that
+# ended because a packed operator outgrew its buffers
+CYCLE_COUNTS = {"launches": 0, "eager_launches": 0, "captures": 0,
+                "recaptures": 0, "captured_kernels": 0,
+                "replayed_kernels": 0, "traced_kernels": 0, "host_reads": 0,
+                "cycles": 0, "micro_ops": 0, "flow_iters": 0,
+                "pack_overflows": 0}
 # room a packed operator's buffers leave for a longer store in a later cycle
 PACKED_HEADROOM = 1.25
 # diagnostic rows the state vector holds at first (a longer chunk grows it)
@@ -94,6 +105,10 @@ def reset_gmres_counts() -> None:
 
 def reset_step_counts() -> None:
     STEP_COUNTS.update(dict.fromkeys(STEP_COUNTS, 0))
+
+
+def reset_cycle_counts() -> None:
+    CYCLE_COUNTS.update(dict.fromkeys(CYCLE_COUNTS, 0))
 
 
 def vector_norm_t(x: torch.Tensor, allreduce=None) -> torch.Tensor:
@@ -494,11 +509,14 @@ class GmresRunner:
         """Scalar ``name`` of a ``read``."""
         return vals[qr.SC_INDEX[name]]
 
-    def _settle(self, trips: list) -> None:
+    def _settle(self, trips: list, other: dict | None = None) -> None:
         """Count what ran since the last read from the trip counters: a
         body of a program launched as a graph since then adds the launches,
         kernel nodes and device operations its capture recorded, once per
-        run; a body run directly counted its own launches."""
+        run; a body run directly counted its own launches. ``other`` holds
+        the runs since the last read of bodies whose trip counters lie
+        outside S (keys that are not S's trip indices: the fused cycles'
+        bodies, counted in CYCLE_COUNTS)."""
         lay = self.lay
         now = np.asarray(trips)
         d = (now - self._trips_seen).astype(np.int64)
@@ -511,14 +529,19 @@ class GmresRunner:
             if prog is None:
                 continue
             for trip, (launched, nodes, traced) in prog.tally.items():
-                if trip is None or not d[trip]:
+                if trip is None:
+                    continue
+                runs = (int(d[trip]) if isinstance(trip, int)
+                        else int((other or {}).get(trip, 0)))
+                if not runs:
                     continue
                 graphed.add(trip)
-                add_launch_counts({k: v * int(d[trip])
-                                   for k, v in launched.items()})
-                counts = GMRES_COUNTS if trip in gmres_trips else STEP_COUNTS
-                counts["replayed_kernels"] += nodes * int(d[trip])
-                counts["traced_kernels"] += traced * int(d[trip])
+                add_launch_counts({k: v * runs for k, v in launched.items()})
+                counts = (CYCLE_COUNTS if not isinstance(trip, int)
+                          else GMRES_COUNTS if trip in gmres_trips
+                          else STEP_COUNTS)
+                counts["replayed_kernels"] += nodes * runs
+                counts["traced_kernels"] += traced * runs
         for c in range(qr.COPIES):
             arn = int(d[lay.arn(c):lay.arn(c) + lay.m].sum())
             GMRES_COUNTS["replays" if lay.arn(c) in graphed
@@ -532,43 +555,52 @@ class GmresRunner:
 
     # -- programs --------------------------------------------------------
     def _counts(self) -> dict:
-        return GMRES_COUNTS if self._kind == "solve" else STEP_COUNTS
+        return {"solve": GMRES_COUNTS, "cycles": CYCLE_COUNTS}.get(
+            self._kind, STEP_COUNTS)
 
-    def gate(self, flag: int, trip: int, body) -> None:
-        """``body`` (device work) gated by flag ``F[flag]``: an IF node of
-        the program being recorded, else run if the flag reads true (a host
-        read). ``trip`` is the counter gmres_qr adds one to when the body
-        runs."""
+    def _flag(self, flag) -> torch.Tensor:
+        """``F[flag]`` for an index, else the 0-d bool device tensor
+        itself (another state's flag)."""
+        return self.F[flag] if isinstance(flag, int) else flag
+
+    def gate(self, flag, trip, body) -> None:
+        """``body`` (device work) gated by flag ``F[flag]`` (or a 0-d bool
+        tensor ``flag``): an IF node of the program being recorded, else
+        run if the flag reads true (a host read). ``trip`` is the counter
+        gmres_qr (or the kernel that set the flag) adds one to when the
+        body runs."""
+        flag = self._flag(flag)
         if self._rec is not None:
-            self._rec.gate(self.F[flag], trip, body)
+            self._rec.gate(flag, trip, body)
             return
         self._counts()["host_reads"] += 1
-        if bool(self.F[flag].item()):
+        if bool(flag.item()):
             body()
 
-    def loop(self, flag: int, trip: int, body) -> None:
-        """``body`` run while flag ``F[flag]`` holds (it is read before
-        each run): a WHILE node of the program being recorded, else a host
-        loop over the flag's reads."""
+    def loop(self, flag, trip, body) -> None:
+        """``body`` run while flag ``F[flag]`` (or a 0-d bool tensor
+        ``flag``) holds (it is read before each run): a WHILE node of the
+        program being recorded, else a host loop over the flag's reads."""
+        flag = self._flag(flag)
         if self._rec is not None:
-            self._rec.loop(self.F[flag], trip, body)
+            self._rec.loop(flag, trip, body)
             return
         while True:
             self._counts()["host_reads"] += 1
-            if not bool(self.F[flag].item()):
+            if not bool(flag.item()):
                 return
             body()
 
-    def switch(self, name: str, trips: list, bodies: list) -> None:
-        """``bodies[i]`` run when S's scalar ``name`` is i: a SWITCH node of
-        the program being recorded, else the body the scalar reads (a host
-        read)."""
-        at = self.lay.sc(name)
+    def switch(self, name, trips: list, bodies: list) -> None:
+        """``bodies[i]`` run when S's scalar ``name`` (or the 0-d float64
+        tensor ``name``) is i: a SWITCH node of the program being
+        recorded, else the body the scalar reads (a host read)."""
+        value = self.S[self.lay.sc(name)] if isinstance(name, str) else name
         if self._rec is not None:
-            self._rec.switch(self.S[at], trips, bodies)
+            self._rec.switch(value, trips, bodies)
             return
         self._counts()["host_reads"] += 1
-        i = int(self.S[at].item())
+        i = int(value.item())
         if i < len(bodies):
             bodies[i]()
 
@@ -578,10 +610,13 @@ class GmresRunner:
         directly, or as one launch of its graph, recorded at its first use
         (the recording runs nothing). Nothing is read back: the caller's
         ``read`` counts what ran. Keys: ``("solve",)`` (GMRES and the
-        refinement; counted in GMRES_COUNTS) and ``("step", x0)`` (the
-        step loop; STEP_COUNTS)."""
+        refinement; counted in GMRES_COUNTS), ``("step", x0)`` (the
+        step loop; STEP_COUNTS) and ``("cycles", x0)`` (the fused coupling
+        cycles, ``coupling.CycleRunner``; CYCLE_COUNTS)."""
         self._kind = key[0]
         if not graphed:
+            if self._kind == "cycles":
+                CYCLE_COUNTS["eager_launches"] += 1
             fn()
             return
         prog = self.graphs.get(key)

@@ -48,7 +48,8 @@ def compute_dt(state: State, kit: Kit) -> torch.Tensor:
     v_max = fluid_vmax(state, kit)
     # a tensor numerator: torch turns scalar / tensor into a reciprocal
     # times the scalar, one rounding more than the reference's division
-    dt_cfl = v_max.new_tensor(cfg.dx) / (cfg.c0 + v_max + 1e-30)
+    # (filled on the device: a CUDA graph may capture this)
+    dt_cfl = torch.full_like(v_max, cfg.dx) / (cfg.c0 + v_max + 1e-30)
     nu = cfg.mu_f / cfg.rho_f
     dt_visc = 0.25 * cfg.dx * cfg.dx / (nu + 1e-30)
     D_v = cfg.eta_density * cfg.c0 * cfg.delta

@@ -80,12 +80,12 @@ def _pre_bcs(st: State, kit, ops) -> State:
     return ops.apply_solid_surface_bc(st, kit)
 
 
-def _check(st_bc: State, st_new: State, kit):
-    """(eps, v_max, rho_min, rho_max, converged-if-past-100, diverged),
-    computed on the device in the run dtype and read in ONE transfer.
-    Under a mesh the sums of eps and the extremes are reduced over the
-    ranks first (the extremes exactly; eps rounds as the ranks' order of
-    sums does)."""
+def check_values(st_bc: State, st_new: State, kit) -> torch.Tensor:
+    """(eps, v_max, rho_min, rho_max, eps < flow_conv_tol, diverged) of a
+    check iteration (pd_ns.cpp:273-322) as one tensor of the run dtype on
+    the device, no host read. Under a mesh the sums of eps and the
+    extremes are reduced over the ranks first (the extremes exactly; eps
+    rounds as the ranks' order of sums does)."""
     cfg = kit.cfg
     fluid = st_bc.node_type == FLUID
     f2 = fluid[..., None]
@@ -103,10 +103,15 @@ def _check(st_bc: State, st_new: State, kit):
     v_max, has_nan, rho_max = all_reduce(
         kit, (v_max, has_nan, rho_fl.max()), "max")
     rho_min = all_reduce(kit, rho_fl.min(), "min")
-    flags = torch.stack([eps, v_max, rho_min, rho_max,
-                         (eps < cfg.flow_conv_tol).to(eps.dtype),
-                         (has_nan | (v_max > 100.0 * cfg.U_in)).to(eps.dtype)])
-    e, vm, rmin, rmax, conv, div = flags.tolist()
+    return torch.stack([eps, v_max, rho_min, rho_max,
+                        (eps < cfg.flow_conv_tol).to(eps.dtype),
+                        (has_nan | (v_max > 100.0 * cfg.U_in)).to(eps.dtype)])
+
+
+def _check(st_bc: State, st_new: State, kit):
+    """``check_values`` read in ONE transfer: (eps, v_max, rho_min,
+    rho_max, converged-if-past-100, diverged) as Python numbers."""
+    e, vm, rmin, rmax, conv, div = check_values(st_bc, st_new, kit).tolist()
     return e, vm, rmin, rmax, bool(conv), bool(div)
 
 

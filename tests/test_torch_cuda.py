@@ -1588,3 +1588,155 @@ def test_step_graph_route_is_the_cards_alone():
     cfg3.apply_overrides(["precision=f64"])
     assert not coupling.StepRunner(build_kit(build_grid(cfg3), cfg3,
                                              device="cuda")).graph_route
+
+
+def _cycle_states(device, m=4):
+    """cycle_qr's Y and CF with gmres_qr's S (QrLayout(m, 8), T_FINAL set)
+    and F on ``device``, zeros."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels import cycle_loop as cl
+    from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
+
+    lay, glay = cl.CycleLayout(4), dl.QrLayout(m, 8)
+    S = torch.zeros(glay.size, dtype=torch.float64, device=device)
+    S[glay.sc("T_FINAL")] = 40.0
+    return (torch.zeros(lay.size, dtype=torch.float64, device=device),
+            torch.zeros(cl.N_FLAGS, dtype=torch.bool, device=device), S,
+            torch.zeros(dl.N_FLAGS, dtype=torch.bool, device=device),
+            glay.SC)
+
+
+def test_cycle_qr_equals_plain_on_every_mode_and_exit():
+    """cycle_qr against its twin on cycle_loop.walk's sequences (every
+    mode, every exit, launches resumed from carried values): Y, CF, S and
+    F equal after each mode."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels import cycle_loop as cl
+    from pd_mg_pin_corrosion_tpu_torch.kernels import device_loop as dl
+
+    _card()
+    for seed in range(4):
+        dev, host = _cycle_states("cuda"), _cycle_states("cpu")
+        n0 = cl.cycle_qr.launches
+
+        def run_mode(mode, params, ys, ss):
+            for (Y, CF, S, F, sc) in (dev, host):
+                for k, v in ys.items():
+                    Y[cl.SC[k]] = v
+                for k, v in ss.items():
+                    S[sc + dl.SC_INDEX[k]] = v
+                cl.cycle_qr(mode, Y, CF, S, F, sc, params)
+            for a, b in zip(dev[:4], host[:4]):
+                assert torch.equal(a.cpu(), b), (seed, mode)
+
+        modes = cl.walk(run_mode, lambda: (host[0].tolist(), host[1].tolist()),
+                        seed)
+        assert set(modes) == set(range(cl.N_MODES))
+        assert cl.cycle_qr.launches - n0 == len(modes)
+    assert cl.layout_of_library() == (len(cl.SCALARS), len(cl.TRIPS),
+                                      cl.N_FLAGS, len(cl.PARAMS), cl.N_MODES)
+
+
+def test_pack3d_equals_pack_stencil():
+    """pack3d into capacity buffers against pack_stencil on the 8,303-node
+    3D grid, before and after a phase change: count, slice_ptr, and the
+    stored slots, float32 and bfloat16 values byte for byte; a capacity
+    one entry short sets the overflow flag and writes no value."""
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import SLICE, pack3d
+
+    _card()
+    kit, st = _flow_case("grid3d")
+    st = _seeded_C(st)
+    ops = ops_for(kit)
+    for state in (st, ops.apply_phase_change(st, kit)[0]):
+        W, _, unknown = ai._dense_operator(state, kit, 0.0)
+        ref = kernels.pack_stencil(W, unknown, kit)
+        ref16 = ref.to(torch.bfloat16)
+        n = ref.values.numel()
+        for cap in (n + 3 * SLICE, n - 1):
+            packed = dataclasses.replace(
+                ref, count=torch.zeros_like(ref.count),
+                slice_ptr=torch.zeros_like(ref.slice_ptr),
+                slots=torch.full((cap,), 7, dtype=torch.uint8, device="cuda"),
+                values=torch.full((cap,), 7.0, device="cuda"))
+            packed16 = dataclasses.replace(
+                packed, values=torch.full((cap,), 7.0, dtype=torch.bfloat16,
+                                          device="cuda"))
+            status = torch.zeros(2, dtype=torch.int64, device="cuda")
+            n0 = pack3d.launches
+            pack3d(W, unknown, kit, packed, packed16, status)
+            assert pack3d.launches == n0 + 1
+            assert torch.equal(packed.count, ref.count)
+            assert torch.equal(packed.slice_ptr, ref.slice_ptr)
+            assert status.tolist() == [ref.nnz, int(cap < n)]
+            if cap < n:
+                assert bool((packed.slots == 7).all())
+                continue
+            assert torch.equal(packed.slots[:n], ref.slots)
+            assert torch.equal(packed.values[:n].view(torch.int32),
+                               ref.values.view(torch.int32))
+            assert torch.equal(packed16.values[:n].view(torch.int16),
+                               ref16.values.view(torch.int16))
+
+
+def _cycles_run(tmp_path, tag, cfg_args, eager, monkeypatch):
+    from pd_mg_pin_corrosion_tpu_torch import cli, coupling
+    from pd_mg_pin_corrosion_tpu_torch.ops import gmres
+
+    gmres.reset_cycle_counts()
+    with monkeypatch.context() as m:
+        m.setattr(coupling.CoupledSolver, "eager_cycles", eager)
+        solver = cli.run([*cfg_args, f"output_dir={tmp_path / tag}",
+                          "--device", "cuda"])
+    files = {n: (tmp_path / tag / n).read_bytes()
+             for n in sorted(os.listdir(tmp_path / tag))
+             if n.endswith((".csv", ".vti", ".pvd"))}
+    return solver, files
+
+
+CYCLES_CASES = {
+    "parity": [PARITY, "precision=f32", "flow_max_iters=300",
+               "dissolution_batch=20", "T_final=4.2", "coupled_fused_cycles=3",
+               "implicit_output_every=2", "flow_output_stride=2",
+               "coupled_launch_steps=4"],
+    "grid3d": [os.path.join(os.path.dirname(PARITY), "..", "..", "config",
+                            "params_3d.cfg"),
+               "dx=8e-6", "R_wire=16e-6", "L_wire=64e-6", "R_tube=48e-6",
+               "L_upstream=32e-6", "L_downstream=32e-6", "Q_flow=1.667e-10",
+               "D_grain=5e-12", "D_gb=5e-10", "corrosion_accel_l=0",
+               "dissolution_batch=1", "flow_max_iters=300",
+               "flow_max_iters_resolve=150", "T_final=21",
+               "coupled_launch_steps=5", "implicit_output_every=3",
+               "checkpoint_every=2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CYCLES_CASES))
+def test_cycles_graph_equals_eager_route(case, tmp_path, monkeypatch):
+    """The fused cycles' program as one CUDA graph launch against the same
+    program run directly: the same CSV, VTI and PVD bytes, steps a cycle,
+    flow solves and final state; the graph route reads the host once a
+    launch and nowhere inside (no gate read, no GMRES or step read), and
+    launches cycle_qr (and pack3d in 3D) inside its graph."""
+    _card()
+    args = CYCLES_CASES[case]
+    eager, e_files = _cycles_run(tmp_path, "eager", args, True, monkeypatch)
+    n0 = kernels.launch_counts()
+    graph, g_files = _cycles_run(tmp_path, "graph", args, False, monkeypatch)
+    launched = {k: v - n0[k] for k, v in kernels.launch_counts().items()}
+    assert g_files == e_files
+    assert graph.cycle_steps == eager.cycle_steps
+    assert graph.flow_results == eager.flow_results
+    for a, b in zip(graph.final_state.tensors(), eager.final_state.tensors()):
+        assert torch.equal(_flow_bits(a), _flow_bits(b))
+    g, e = graph.cycle_graph, eager.cycle_graph
+    assert e["launches"] == 0 < e["eager_launches"]
+    assert g["eager_launches"] == 0 < g["launches"] == g["host_reads"]
+    assert g["captures"] >= 1 and g["cycles"] == e["cycles"] > 1
+    assert graph.step_graph["host_reads"] == 0
+    assert graph.gmres_graph["host_reads"] == 0
+    assert graph.flow_graph["replays"] > 0 == graph.flow_graph["eager"]
+    assert launched["cycle_qr"] > 0 and launched["gmres_qr"] > 0
+    if case == "grid3d":
+        assert launched["pack3d"] > 0 and launched["ns3d"] > 0
+        assert launched["matvec3d"] > 0 and launched["slots3d_f64"] > 0
+    print(f"{case}: {json.dumps(g)}")
