@@ -36,8 +36,10 @@ argument all of them run, in this order):
    another kernel, on
    config/params_3d.cfg's 157 x 82 x 82 = 1,055,668-node grid (S = 178)
    with a real Kit, seeded State and its assembled operator (which keeps
-   no dense W on the card: the twins get one built for them); the same
-   checks and numbers.
+   no dense W on the card: the twins get one built for them); pack3d
+   from that state against its twin and the operator's packing, timed
+   beside the route it replaced (the dense assembly, then the W-reading
+   pack); the same checks and numbers.
 4. ``ladder``, the chunked / j-static kernels' main path:
    scripts/exp_ns3d_chunked_torch.py's ladder (every rung checked against
    ns3d and timed, each rung's BZ -> tile printed) on the flagship grid.
@@ -644,13 +646,14 @@ def library_ms(name, fn, ref, calls):
 
 def recorder(tag, results, calls=20, plain_calls=3):
     """record(name, err, ok, fn, plain, what, nbytes, flops, rate,
-    library): two launches of fn() must give the same bits; median times of
-    fn and plain; the bound from nbytes and flops; the library call's time
-    (a zero-argument function whose result must match fn()'s first output)
-    or None; fails unless ok. Fills results[name] with the kernel's row of
-    the JSON line."""
+    library, timed): two launches of fn() must give the same bits; median
+    times of fn (or of ``timed``, the launch alone where fn copies its
+    outputs out of fixed buffers) and plain; the bound from nbytes and
+    flops; the library call's time (a zero-argument function whose result
+    must match fn()'s first output) or None; fails unless ok. Fills
+    results[name] with the kernel's row of the JSON line."""
     def record(name, err, ok, fn, plain, what, nbytes, flops, rate=F32_RATE,
-               library=None):
+               library=None, timed=None):
         k1, k2 = fn(), fn()
         same = all(torch.equal(a, b) for a, b in zip(k1, k2))
         if not same:
@@ -658,7 +661,8 @@ def recorder(tag, results, calls=20, plain_calls=3):
         lib_ms = (library_ms(name, library, k1[0], calls)
                   if library is not None else None)
         del k1, k2
-        ms, plain_ms = median_ms(fn, calls), median_ms(plain, plain_calls)
+        ms = median_ms(fn if timed is None else timed, calls)
+        plain_ms = median_ms(plain, plain_calls)
         b_ms, b_by = bound(nbytes, flops, rate)
         print(f"[{tag}] {name}: max_abs_err={err:.3e} ({what}) "
               f"repeat-identical={same} kernel {ms:.4f} ms, plain "
@@ -986,22 +990,35 @@ def record_cycle_qr(record):
            8 * 7 + 8 * 6 + 1, 4.0, F64_RATE)
 
 
-def record_pack3d(record, tag, kit, W, op):
-    """pack3d at the flagship's shape: the operator's dense W packed into
-    capacity buffers with PACKED_HEADROOM of room, count, slice_ptr, the
-    stored slots and the float32 and bfloat16 values byte for byte against
-    pack_stencil's (the operator's own packing); a capacity one entry
-    short sets the overflow flag and writes no value; timed against
-    pack_stencil with the bfloat16 copy (the plain version, which reads
-    two sizes back). Bound: W read once, the unknown mask and the slot
-    offsets, the outputs written once (count, slice_ptr, stored slots and
-    both values)."""
-    from pd_mg_pin_corrosion_tpu_torch import kernels
-    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import SLICE, pack3d
+def record_pack3d(record, tag, kit, st, op, W):
+    """pack3d at the flagship's shape from the state (volume loss 0) into
+    capacity buffers with PACKED_HEADROOM of room: diag, unknown, count,
+    slice_ptr, the stored slots, the float32 and bfloat16 values and
+    status byte for byte against its twin (the dense assembly, then the
+    packing walk) and the operator's own packing (``assemble``:
+    pack3d_alloc, one sizing read); a capacity one entry short sets the
+    overflow flag and writes no slot or value. Timed alone and with its
+    outputs copied out (the recipe of the dense-W kernel's earlier time),
+    against the twin; beside them the route it replaced, the dense
+    assembly (``_dense_operator``: the salt-blocking pass and every slot
+    over the whole grid) then the W-reading pack (``pack3d_dense``), and
+    that pack alone. Bound: the state's per-node fields read once
+    (node_type, vel, C, is_gb, is_precip), the slot tables, the outputs
+    written once (diag, unknown, count, slice_ptr, the stored slots and
+    both values); operations: the float32 operations of this state's
+    bonds (2 a bond of an unknown row, V_j and the diagonal's subtraction;
+    15 more a liquid-liquid bond, 8 more an interface bond), 1 a row."""
+    from pd_mg_pin_corrosion_tpu_torch.grid import (FICTITIOUS, FLUID, INLET,
+                                                    OUTLET, OUTSIDE, SOLID_MG)
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import (
+        SLICE, pack3d, pack3d_dense, pack3d_plain)
+    from pd_mg_pin_corrosion_tpu_torch.ops import ard_implicit as ai
+    from pd_mg_pin_corrosion_tpu_torch.ops.ard import micro_d_factor
     from pd_mg_pin_corrosion_tpu_torch.ops.gmres import PACKED_HEADROOM
 
     ref, ref16 = op.packed, op.W16
     n = ref.values.numel()
+    decay = micro_d_factor(kit.cfg, 0.0, kit.dtype, kit.device)
 
     def buffers(cap):
         packed = dataclasses.replace(
@@ -1009,48 +1026,89 @@ def record_pack3d(record, tag, kit, W, op):
             slice_ptr=torch.zeros_like(ref.slice_ptr),
             slots=torch.zeros(cap, dtype=torch.uint8, device="cuda"),
             values=torch.zeros(cap, device="cuda"))
-        return packed, dataclasses.replace(packed, values=torch.zeros(
-            cap, dtype=torch.bfloat16, device="cuda"))
+        return (torch.zeros_like(op.diag), torch.zeros_like(op.unknown),
+                packed, dataclasses.replace(packed, values=torch.zeros(
+                    cap, dtype=torch.bfloat16, device="cuda")),
+                torch.zeros(2, dtype=torch.int64, device="cuda"))
 
-    status = torch.zeros(2, dtype=torch.int64, device="cuda")
-    packed, packed16 = buffers(math.ceil(n * PACKED_HEADROOM))
-    short, short16 = buffers(n - 1)
-    pack3d(W, op.unknown, kit, short, short16, status)
-    overflow = status.tolist() == [ref.nnz, 1] and not bool(
-        short.slots.any())
-    del short, short16
+    def bits(diag, unknown, packed, packed16, status):
+        return (diag.view(torch.int32), unknown, packed.count,
+                packed.slice_ptr, packed.slots[:n],
+                packed.values[:n].view(torch.int32),
+                packed16.values[:n].view(torch.int16), status)
+
+    short = buffers(n - 1)
+    pack3d(st, decay, kit, *short)
+    overflow = (short[4].tolist() == [ref.nnz, 1]
+                and not bool(short[2].slots.any())
+                and not bool(short[2].values.any())
+                and torch.equal(short[2].count, ref.count))
+    del short
+    out = buffers(math.ceil(n * PACKED_HEADROOM))
+    twin = buffers(math.ceil(n * PACKED_HEADROOM))
+
+    def launch():
+        pack3d(st, decay, kit, *out)
 
     def kernel():
-        pack3d(W, op.unknown, kit, packed, packed16, status)
-        return (packed.count.clone(), packed.slice_ptr.clone(),
-                packed.slots[:n].clone(), packed.values[:n].clone(),
-                packed16.values[:n].clone())
+        launch()
+        return tuple(t.clone() for t in bits(*out))
 
     def plain():
-        again = kernels.pack_stencil(W, op.unknown, kit)
-        return (again.count, again.slice_ptr, again.slots, again.values,
-                again.to(torch.bfloat16).values)
+        pack3d_plain(st, decay, kit, *twin)
+        return bits(*twin)
 
-    out = kernel()
-    same = (torch.equal(out[0], ref.count) and torch.equal(out[1],
-                                                           ref.slice_ptr)
-            and torch.equal(out[2], ref.slots)
-            and torch.equal(out[3].view(torch.int32),
-                            ref.values.view(torch.int32))
-            and torch.equal(out[4].view(torch.int16),
-                            ref16.values.view(torch.int16))
-            and status.tolist() == [ref.nnz, 0])
-    err = float((out[3] - ref.values).abs().max())
-    del out
+    got = kernel()
+    same_twin = all(torch.equal(a, b) for a, b in zip(got, plain()))
+    same_op = all(torch.equal(a, b) for a, b in zip(got, bits(
+        op.diag, op.unknown, ref, ref16, torch.tensor(
+            [ref.nnz, 0], device="cuda"))))
+    err = float((got[5].view(torch.float32) - ref.values).abs().max())
+    del got
+    dense = buffers(n)
+
+    def dense_route():
+        W_now = ai._dense_operator(st, kit, 0.0)[0]
+        pack3d_dense(W_now, op.unknown, kit, *dense[2:])
+
+    dense_route()
+    same_dense = all(torch.equal(a, b) for a, b in zip(
+        bits(op.diag, op.unknown, *dense[2:])[2:], bits(
+            op.diag, op.unknown, ref, ref16, torch.tensor(
+                [ref.nnz, 0], device="cuda"))[2:]))
+    route_ms = median_ms(dense_route, 3)
+    pack_ms = median_ms(lambda: pack3d_dense(W, op.unknown, kit, *dense[2:]),
+                        10)
+    cloned_ms = median_ms(kernel, 10)
+    del dense
     N = math.prod(kit.shape)
-    nbytes = (W.numel() * 4 + N + 12 * kit.S + 2 * N
-              + 4 * (ref.slice_ptr.numel()) + n * (1 + 4 + 2))
+    n_slices = ref.slice_ptr.numel() - 1
+    nbytes = (19 * N + 4 + 36 * kit.S + 7 * N + 4 * (n_slices + 1)
+              + n * (1 + 4 + 2))
+    fluid, solid = st.node_type == FLUID, st.node_type == SOLID_MG
+    nt = kit.pad(st.node_type, OUTSIDE)
+    liquid = (lambda nb: (nb["nt"] == FLUID) | (nb["nt"] == INLET)
+              | (nb["nt"] == OUTLET) | (nb["nt"] == FICTITIOUS))
+    from_fluid = bond_counts(kit, fluid, {"nt": nt}, {
+        "ll": liquid, "iface": lambda nb: nb["nt"] == SOLID_MG})
+    from_solid = bond_counts(kit, solid, {"nt": nt}, {"iface": liquid})
+    n_unk = int(op.unknown.sum())
+    flops = (2 * kit.S * n_unk + n_unk + 15 * float(from_fluid["ll"].sum())
+             + 8 * float(from_fluid["iface"].sum() + from_solid["iface"].sum()))
     print(f"[{tag}] pack3d: {n} stored entries ({n // SLICE} value rows), "
-          f"{ref.nnz} nonzeros; byte-equal to pack_stencil {same}; a "
-          f"capacity one entry short overflows and writes nothing: "
-          f"{overflow}")
-    record("pack3d", err, same and overflow, kernel, plain,
-           "byte-equal to pack_stencil", nbytes, 0.0)
+          f"{ref.nnz} nonzeros, from the state with no dense W; byte-equal "
+          f"to its twin {same_twin} and to the operator's own packing "
+          f"(assemble: pack3d_alloc) {same_op}; a capacity one entry short "
+          f"overflows and writes nothing: {overflow}")
+    print(f"[{tag}] pack3d with its outputs copied out each call (the dense-W "
+          f"kernel's earlier recipe) {cloned_ms:.4f} ms; the route it "
+          f"replaced, the dense assembly then the W-reading pack "
+          f"(pack3d_dense, byte-equal {same_dense}) {route_ms:.4f} ms, that "
+          f"pack alone {pack_ms:.4f} ms ({W.numel() * 4 / 1e6:.1f} MB of W "
+          f"read by its count)")
+    record("pack3d", err, same_twin and same_op and same_dense and overflow,
+           kernel, plain, "byte-equal to its twin and to pack_stencil",
+           nbytes, flops, timed=launch)
 
 
 def phase_kernels(pkg):
@@ -1480,14 +1538,16 @@ def phase_kernels3d(pkg, overrides=(), suffix="", tag="kernels3d",
           f"values, {op.W16.nbytes() / 1e6:.1f} MB with bf16 values (slot "
           f"bytes, counts and slice_ptr shared, "
           f"{(op.packed.nbytes() - 4 * stored) / 1e6:.1f} MB); pack_stencil "
-          f"+ bf16 copy "
+          f"+ bf16 copy of the dense W "
           f"{1e3 * statistics.median(pack_s):.2f} ms per cycle (median of "
-          f"3, host clock), assemble with it {1e3 * t_assemble:.2f} ms; "
-          f"repacking gives the same bits: {same_pack}")
+          f"3, host clock), assemble (pack3d from the state, one sizing "
+          f"read) {1e3 * t_assemble:.2f} ms; pack_stencil gives the "
+          f"operator's bits: {same_pack}")
     if not same_pack:
-        fail("pack_stencil: two packings of one operator differ")
+        fail("pack_stencil of the dense W differs from the operator's "
+             "packing (pack3d)")
     if not suffix and not slab:
-        record_pack3d(record, tag, kit, W, op)
+        record_pack3d(record, tag, kit, st, op, W)
     A = csr_of(W, op.diag, op.unknown, kit)
     xf = x.reshape(-1)
     print(f"[{tag}] CSR operator: {A.values().numel()} nonzeros")
@@ -1921,9 +1981,9 @@ def phase_cycles3d(tmp, pkg):
     solve_steady's 2,000 iterations (the FlowRunner graph between host
     checks), the same rho and vel bits, ms an iteration each; the
     operator's assembly on the device into the runner's buffers
-    (``assemble_into``: pack3d) against the host loop's (``assemble`` with
-    pack_stencil, then the copy into the buffers). Returns the fused run's
-    launch counts."""
+    (``assemble_into``: pack3d from the state) against the host loop's
+    (``assemble``: pack3d with one sizing read, then the copy into the
+    buffers). Returns the fused run's launch counts."""
     import copy
 
     from pd_mg_pin_corrosion_tpu_torch import cli, coupling, kernels, solvers
@@ -2078,9 +2138,10 @@ def phase_cycles3d(tmp, pkg):
         torch.cuda.synchronize()
         host_s.append(time.time() - t1)
     print(f"[cycles3d] assembly a cycle: on the device into the runner's "
-          f"buffers (assemble_into, pack3d) {statistics.median(dev_ms):.2f} "
-          f"ms (CUDA events, eager launches); host loop (assemble with "
-          f"pack_stencil's two reads, then the copy into the buffers) "
+          f"buffers (assemble_into: pack3d from the state) "
+          f"{statistics.median(dev_ms):.2f} ms (CUDA events, eager "
+          f"launches); host loop (assemble: pack3d with one sizing read, "
+          f"then the copy into the buffers) "
           f"{1e3 * statistics.median(host_s):.2f} ms (host clock); median "
           f"of 3; the host loop's runs measured "
           f"{1e3 * hs.assemble_seconds / max(hs.cycles, 1):.2f} ms a cycle")
@@ -2450,7 +2511,8 @@ def rank0_slab(kit, st, ranks):
     import dataclasses
 
     from pd_mg_pin_corrosion_tpu_torch.fields import State
-    from pd_mg_pin_corrosion_tpu_torch.grid import OUTSIDE
+    from pd_mg_pin_corrosion_tpu_torch.grid import (FICTITIOUS, FLUID, INLET,
+                                                    OUTLET, OUTSIDE, SOLID_MG)
     from pd_mg_pin_corrosion_tpu_torch.parallel.sharding import (Mesh,
                                                                  shard_kit)
 

@@ -27,7 +27,8 @@ from .cycle_loop import cycle_qr, cycle_qr_plain
 from .device_loop import gmres_qr, gmres_qr_plain
 from .matvec2d import matvec2d, matvec2d_plain
 from .matvec3d import (PackedStencil, matvec3d, matvec3d_packed_plain,
-                       matvec3d_plain, pack3d, pack3d_plain, pack_stencil,
+                       matvec3d_plain, pack3d, pack3d_alloc, pack3d_dense,
+                       pack3d_plain, pack_stencil,
                        slots3d_f64, slots3d_f64_packed_plain,
                        slots3d_f64_plain, unpack_stencil)
 from .ns2d import (Ns2dTables, ns2d, ns2d_geometry, ns2d_plain,

@@ -117,9 +117,18 @@ def _declare(lib: ctypes.CDLL) -> None:
                                 ctypes.POINTER(f64), i32, i32, vp]
     lib.pd_cycle_qr_layout.restype = None
     lib.pd_cycle_qr_layout.argtypes = [ctypes.POINTER(i32)]
-    lib.pd_pack3d.restype = i32
-    lib.pd_pack3d.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp, vp,
-                              vp, vp, vp, vp, i64, vp, i32, vp]
+    consts = ctypes.POINTER(f32)
+    lib.pd_pack3d_count.restype = i32
+    lib.pd_pack3d_count.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                    i32, i32, consts, vp, vp, vp, vp, vp, vp,
+                                    vp, vp, i32, vp]
+    lib.pd_pack3d_fill.restype = i32
+    lib.pd_pack3d_fill.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, consts,
+                                   vp, vp, vp, vp, i64, vp, vp, vp, vp, i32,
+                                   vp]
+    lib.pd_pack3d_dense.restype = i32
+    lib.pd_pack3d_dense.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp, vp,
+                                    vp, vp, i64, vp, vp, vp, vp, i32, vp]
     lib.pd_cg_runtime_version.restype = i32
     lib.pd_cg_runtime_version.argtypes = []
     lib.pd_cg_create.restype = i32

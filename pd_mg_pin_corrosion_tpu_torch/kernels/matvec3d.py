@@ -1,7 +1,8 @@
-"""matvec3d and slots3d_f64 — the 3D implicit-transport stencil sums: CUDA
-kernel wrappers and plain twins.
+"""matvec3d and slots3d_f64 — the 3D implicit-transport stencil sums — and
+pack3d, which builds their packed weights: CUDA kernel wrappers and plain
+twins.
 
-Kernels: ``csrc/matvec3d.cu``.
+Kernels: ``csrc/matvec3d.cu``, ``csrc/pack3d.cu``.
 
 * ``matvec3d`` replaces ``pallas_kernels._matvec_kernel_3d`` /
   ``matvec_M_pallas_3d_core``: y = diag*x + sum_s W_s*shift_s(x) on unknown
@@ -24,12 +25,20 @@ Kernels: ``csrc/matvec3d.cu``.
   gives the dense twin's bits wherever the dense W is zero off the unknown
   rows, as an assembled operator's is.
 
+* ``pack3d`` (``csrc/pack3d.cu``) replaces no TPU kernel: it builds the
+  packed operator of a 3D state on the card, each weight formed from the
+  per-node fields where it is packed (no dense W), into capacity buffers
+  with no host read (the fused coupling cycles) or, in ``pack3d_alloc``,
+  into buffers sized by one read (the host loop). ``pack3d_plain``, the
+  dense assembly followed by the packing walk, is its twin.
+
 The dense twins evaluate the rows they write (matvec3d: the unknown rows)
 and accumulate in stencil order over slot chunks (``kit.slot_chunks``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass, replace
 
@@ -368,13 +377,10 @@ def _packed_at(base, q, group: int, lane, chunk: int):
             * (SLICE * chunk) + lane * chunk + q % chunk)
 
 
-def _pack3d_check(W, unknown, kit: Kit, packed, packed16, status):
+def _pack3d_check(kit: Kit, packed, packed16, status):
     n = math.prod(kit.shape)
     n_slices = -(-n // SLICE)
-    if (W.shape != (kit.S,) + tuple(kit.shape) or W.dtype != torch.float32
-            or unknown.shape != tuple(kit.shape)
-            or unknown.dtype != torch.bool
-            or packed.count.shape != (n,) or packed.count.dtype != torch.int16
+    if (packed.count.shape != (n,) or packed.count.dtype != torch.int16
             or packed.slice_ptr.shape != (n_slices + 1,)
             or packed.slice_ptr.dtype != torch.int32
             or packed.slots.dtype != torch.uint8
@@ -383,22 +389,46 @@ def _pack3d_check(W, unknown, kit: Kit, packed, packed16, status):
             or packed16.count is not packed.count
             or packed16.slice_ptr is not packed.slice_ptr
             or packed16.slots is not packed.slots
-            or packed.group != packed16.group
+            or packed.group != GROUP or packed16.group != GROUP
             or status.dtype != torch.int64 or status.numel() < 2):
-        raise ValueError("pack3d: W [S, *shape] float32, unknown bool, and "
-                         "a float32 and a bfloat16 PackedStencil sharing "
-                         "count, slice_ptr and slots of this grid")
+        raise ValueError("pack3d: a float32 and a bfloat16 PackedStencil "
+                         f"of group {GROUP} sharing count, slice_ptr and "
+                         "slots of this grid, and an int64 status [2]")
     return n, n_slices
 
 
-def pack3d_plain(W, unknown, kit: Kit, packed: PackedStencil,
-                 packed16: PackedStencil, status) -> None:
-    """pack3d's walk in PyTorch: each row's kept bonds counted slot by slot,
-    each slice's length the group-rounded count of its fullest row, the
-    lengths' running sum, then every row's kept bonds written at the
-    packed index of their rank and zeros up to its slice's length (rows
-    past N included). ``status`` gets (nonzeros, overflow)."""
-    n, n_slices = _pack3d_check(W, unknown, kit, packed, packed16, status)
+def _pack3d_check_state(state, decay, kit: Kit, diag=None, unknown=None):
+    shape = tuple(kit.shape)
+    if (kit.dim != 3 or state.node_type.shape != shape
+            or state.node_type.dtype != torch.uint8
+            or state.vel.shape != shape + (3,)
+            or state.vel.dtype != torch.float32
+            or state.C.shape != shape or state.C.dtype != torch.float32
+            or state.is_gb.shape != shape or state.is_gb.dtype != torch.bool
+            or state.is_precip.shape != shape
+            or state.is_precip.dtype != torch.bool
+            or decay.shape != () or decay.dtype != torch.float32
+            or (diag is not None and (diag.shape != shape
+                                      or diag.dtype != torch.float32))
+            or (unknown is not None and (unknown.shape != shape
+                                         or unknown.dtype != torch.bool))):
+        raise ValueError("pack3d: a 3D float32 state of the kit's grid "
+                         "(node_type uint8, vel [*shape, 3], C, is_gb and "
+                         "is_precip bool), a 0-d float32 decay factor, and "
+                         "diag float32 and unknown bool of the grid's shape")
+    if kit.slot_offsets.device != state.C.device:
+        raise ValueError("pack3d: the kit lies on another device")
+
+
+def _pack_walk(W, unknown, kit: Kit, packed: PackedStencil,
+               packed16: PackedStencil, status) -> None:
+    """pack3d's packing walk in PyTorch over dense weights W [S, *shape]:
+    each row's kept bonds counted slot by slot, each slice's length the
+    group-rounded count of its fullest row, the lengths' running sum, then
+    every row's kept bonds written at the packed index of their rank and
+    zeros up to its slice's length (rows past N included). ``status`` gets
+    (nonzeros, overflow)."""
+    n, n_slices = _pack3d_check(kit, packed, packed16, status)
     group, dev = packed.group, W.device
     Wf, unk = W.reshape(kit.S, n), unknown.reshape(n)
     inside = _inside_tables(kit, dev)
@@ -442,35 +472,179 @@ def pack3d_plain(W, unknown, kit: Kit, packed: PackedStencil,
         packed16.values[_packed_at(*args, c16)] = 0.0
 
 
-def pack3d(W, unknown, kit: Kit, packed: PackedStencil,
-           packed16: PackedStencil, status) -> None:
-    """pack_stencil's weights written into the buffers of ``packed`` (its
-    count, slice_ptr, slots and float32 values) and ``packed16`` (the
-    bfloat16 values; count, slice_ptr and slots shared with ``packed``),
-    whose values and slots have a fixed capacity, with no host read: the
-    kernel (csrc/pack3d.cu) on CUDA tensors, ``pack3d_plain`` on CPU ones.
-    ``status`` (int64 [2]) receives the nonzeros and an overflow flag: 1
-    when the stored entries exceed the capacity, and then no value or slot
-    is written. The same bytes as ``pack_stencil`` and
-    ``PackedStencil.to(torch.bfloat16)`` up to the stored length."""
-    if use_plain("pack3d", W, unknown, packed.values, status):
-        return pack3d_plain(W, unknown, kit, packed, packed16, status)
-    _, n_slices = _pack3d_check(W, unknown, kit, packed, packed16, status)
+def pack3d_plain(state, decay, kit: Kit, diag, unknown,
+                 packed: PackedStencil, packed16: PackedStencil,
+                 status) -> None:
+    """pack3d's twin: the dense assembly (``ops.ard_implicit``'s
+    ``_dense_weights``: the salt-blocking pass and every slot's weight over
+    the whole grid) with diag and unknown copied out, then the packing
+    walk (``_pack_walk``) of its W."""
+    from ..ops.ard_implicit import _dense_weights
+    _pack3d_check_state(state, decay, kit, diag, unknown)
+    W, d, u = _dense_weights(state, kit, decay)
+    diag.copy_(d)
+    unknown.copy_(u)
+    _pack_walk(W, u, kit, packed, packed16, status)
+
+
+def _pack3d_consts(kit: Kit):
+    """The dense assembly's scalar constants as the kernels take them:
+    beta_lap, D_liquid, 2 D_liquid, D_gb, D_precip, D_grain, C_sat, 1e-30
+    and alpha / V_H, each a double (the products formed in double, as the
+    assembly's Python expressions form them) that ctypes rounds to the
+    nearest float32, as PyTorch rounds a Python scalar against a float32
+    tensor."""
+    cfg = kit.cfg
+    return (ctypes.c_float * 9)(
+        kit.beta_lap, cfg.D_liquid, 2.0 * cfg.D_liquid, cfg.D_gb,
+        cfg.D_precip, cfg.D_grain, cfg.C_sat, 1e-30, kit.alpha / kit.V_H)
+
+
+def _mask_words(kit: Kit, n_slices: int) -> int:
+    """Elements of the kept-bond mask: a 32-bit word per 32 slots of every
+    row of every slice."""
+    return -(-kit.S // 32) * n_slices * SLICE
+
+
+def _pack3d_count(state, decay, kit: Kit, diag, unknown, count, slice_ptr,
+                  status):
+    """Launches 1-3 of csrc/pack3d.cu (pd_pack3d_count): code bytes, diag,
+    unknown, count, slice_ptr, the nonzeros in status[0]. Returns the
+    scratch the fill reads (code bytes, kept-bond mask, constants)."""
+    n = math.prod(kit.shape)
+    n_slices = -(-n // SLICE)
+    dev = state.C.device
     if not all(t.is_contiguous() for t in (
-            packed.count, packed.slice_ptr, packed.slots, packed16.values)):
-        raise ValueError("pack3d: non-contiguous packed buffers")
-    if kit.slot_offsets.device != W.device:
-        raise ValueError("pack3d: the kit lies on another device")
-    lens = torch.empty(n_slices, dtype=torch.int32, device=W.device)
-    capacity = min(t.numel() for t in (packed.slots, packed.values,
-                                       packed16.values))
-    rc = load().lib.pd_pack3d(
-        ptr(W), ptr(unknown), ptr(kit.slot_offsets), kit.S, *kit.shape,
-        packed.group, ptr(packed.count), ptr(lens), ptr(packed.slice_ptr),
-        ptr(packed.slots), ptr(packed.values), ptr(packed16.values),
-        capacity, ptr(status), W.device.index, stream(W))
+            state.node_type, state.is_gb, state.is_precip, unknown, count,
+            slice_ptr)):
+        raise ValueError("pack3d: non-contiguous state or buffers")
+    code = torch.empty(n, dtype=torch.uint8, device=dev)
+    mask = torch.empty(_mask_words(kit, n_slices), dtype=torch.int32,
+                       device=dev)
+    lens = torch.empty(n_slices, dtype=torch.int32, device=dev)
+    consts = _pack3d_consts(kit)
+    rc = load().lib.pd_pack3d_count(
+        ptr(state.node_type), ptr(state.vel), ptr(state.C), ptr(state.is_gb),
+        ptr(state.is_precip), ptr(decay), ptr(kit.slot_offsets),
+        ptr(kit.slot_coefs), kit.S, *kit.shape, consts, ptr(code), ptr(mask),
+        ptr(diag), ptr(unknown), ptr(count), ptr(lens), ptr(slice_ptr),
+        ptr(status), dev.index, stream(state.C))
     check(rc, "pack3d")
+    return code, mask, consts
+
+
+def _pack3d_fill(state, decay, kit: Kit, scratch, count, slice_ptr, slots,
+                 values, values16, status) -> None:
+    """Launch 4 of csrc/pack3d.cu (pd_pack3d_fill) into buffers of
+    ``min(numel)`` entries, each 16-byte aligned."""
+    code, mask, consts = scratch
+    bufs = (slots, values, values16)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in bufs):
+        raise ValueError("pack3d: packed buffers must be contiguous and "
+                         "16-byte aligned")
+    rc = load().lib.pd_pack3d_fill(
+        ptr(state.vel), ptr(decay), ptr(kit.slot_offsets),
+        ptr(kit.slot_coefs), kit.S, *kit.shape, consts, ptr(code), ptr(mask),
+        ptr(count), ptr(slice_ptr), min(t.numel() for t in bufs), ptr(slots),
+        ptr(values), ptr(values16), ptr(status), state.C.device.index,
+        stream(state.C))
+    check(rc, "pack3d")
+
+
+def pack3d(state, decay, kit: Kit, diag, unknown, packed: PackedStencil,
+           packed16: PackedStencil, status) -> None:
+    """The packed 3D operator of ``state`` (a uniform 3D float32 kit's;
+    ``decay`` the 0-d float32 volume-loss factor of
+    ``ops.ard.micro_d_factor``) written into ``diag``, ``unknown`` and the
+    buffers of ``packed`` (its count, slice_ptr, slots and float32 values)
+    and ``packed16`` (the bfloat16 values; count, slice_ptr and slots
+    shared with ``packed``), whose values and slots have a fixed capacity,
+    with no host read and no dense W: the kernels (csrc/pack3d.cu) on
+    CUDA tensors, ``pack3d_plain`` on CPU ones. ``status`` (int64 [2])
+    receives the nonzeros and an overflow flag: 1 when the stored entries
+    exceed the capacity, and then no value or slot is written. The same
+    bytes as the dense assembly (``ops.ard_implicit._dense_operator``)
+    followed by ``pack_stencil`` and ``PackedStencil.to(torch.bfloat16)``,
+    up to the stored length."""
+    if use_plain("pack3d", state.C, state.vel, decay, diag, packed.values,
+                 status):
+        return pack3d_plain(state, decay, kit, diag, unknown, packed,
+                            packed16, status)
+    _pack3d_check_state(state, decay, kit, diag, unknown)
+    _pack3d_check(kit, packed, packed16, status)
+    scratch = _pack3d_count(state, decay, kit, diag, unknown, packed.count,
+                            packed.slice_ptr, status)
+    _pack3d_fill(state, decay, kit, scratch, packed.count, packed.slice_ptr,
+                 packed.slots, packed.values, packed16.values, status)
     pack3d.launches += 1
 
 
+def pack3d_alloc(state, decay, kit: Kit):
+    """pack3d into buffers sized to hold it: (diag, unknown, packed,
+    packed16), the packed operator with float32 and bfloat16 values
+    sharing count, slice_ptr and slots. On CUDA tensors the kernels with
+    one host read between the count and the fill (the stored length and
+    the nonzeros, read together); on CPU tensors the dense assembly and
+    ``pack_stencil``, the same bytes."""
+    if use_plain("pack3d", state.C, state.vel, decay):
+        from ..ops.ard_implicit import _dense_weights
+        W, diag, unknown = _dense_weights(state, kit, decay)
+        packed = pack_stencil(W, unknown, kit)
+        return diag, unknown, packed, packed.to(torch.bfloat16)
+    _pack3d_check_state(state, decay, kit)
+    dev = state.C.device
+    n = math.prod(kit.shape)
+    diag = torch.empty(kit.shape, dtype=torch.float32, device=dev)
+    unknown = torch.empty(kit.shape, dtype=torch.bool, device=dev)
+    count = torch.empty(n, dtype=torch.int16, device=dev)
+    slice_ptr = torch.empty(-(-n // SLICE) + 1, dtype=torch.int32,
+                            device=dev)
+    status = torch.zeros(2, dtype=torch.int64, device=dev)
+    scratch = _pack3d_count(state, decay, kit, diag, unknown, count,
+                            slice_ptr, status)
+    stored, nnz = (int(v) for v in torch.stack(
+        [slice_ptr[-1].to(torch.int64), status[0]]).cpu())
+    slots = torch.empty(stored * SLICE, dtype=torch.uint8, device=dev)
+    values = torch.empty(stored * SLICE, dtype=torch.float32, device=dev)
+    values16 = torch.empty(stored * SLICE, dtype=torch.bfloat16, device=dev)
+    _pack3d_fill(state, decay, kit, scratch, count, slice_ptr, slots, values,
+                 values16, status)
+    pack3d.launches += 1
+    packed = PackedStencil(count=count, slice_ptr=slice_ptr, slots=slots,
+                           values=values, nnz=nnz)
+    return diag, unknown, packed, replace(packed, values=values16)
+
+
+def pack3d_dense(W, unknown, kit: Kit, packed: PackedStencil,
+                 packed16: PackedStencil, status) -> None:
+    """A dense W [S, *shape] float32 of the rows in ``unknown`` packed into
+    pack3d's capacity buffers by pack3d's count, scan and fill, the
+    weights read from W instead of formed (csrc/pack3d.cu
+    pd_pack3d_dense; ``_pack_walk`` on CPU tensors): the route that
+    assembled the dense W first, kept as chip_smoke.py's yardstick."""
+    if (W.shape != (kit.S,) + tuple(kit.shape) or W.dtype != torch.float32
+            or unknown.shape != tuple(kit.shape)
+            or unknown.dtype != torch.bool):
+        raise ValueError("pack3d_dense: W [S, *shape] float32 and unknown "
+                         "bool of the kit's grid")
+    if use_plain("pack3d_dense", W, unknown, packed.values, status):
+        return _pack_walk(W, unknown, kit, packed, packed16, status)
+    _, n_slices = _pack3d_check(kit, packed, packed16, status)
+    bufs = (packed.slots, packed.values, packed16.values)
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in bufs):
+        raise ValueError("pack3d_dense: packed buffers must be contiguous "
+                         "and 16-byte aligned")
+    mask = torch.empty(_mask_words(kit, n_slices), dtype=torch.int32,
+                       device=W.device)
+    lens = torch.empty(n_slices, dtype=torch.int32, device=W.device)
+    rc = load().lib.pd_pack3d_dense(
+        ptr(W), ptr(unknown), ptr(kit.slot_offsets), kit.S, *kit.shape,
+        ptr(mask), ptr(packed.count), ptr(lens), ptr(packed.slice_ptr),
+        min(t.numel() for t in bufs), *(ptr(t) for t in bufs), ptr(status),
+        W.device.index, stream(W))
+    check(rc, "pack3d_dense")
+    pack3d_dense.launches += 1
+
+
 pack3d.launches = 0
+pack3d_dense.launches = 0

@@ -21,9 +21,10 @@ Numerics kept from the JAX package's CLI, which always enables x64:
   refinement residual from the f64 slot sum of the f32 W
   (``kernels.slots3d_f64``). The same algorithm runs on every device. On
   the card all three sums stream the weights packed (each row's nonzero
-  weights with a slot byte beside each, ``kernels.pack_stencil``), which
-  gives the dense sums' bits, and the operator keeps no dense W once they
-  are packed.
+  weights with a slot byte beside each, ``kernels.pack_stencil``'s
+  layout), which gives the dense sums' bits; a uniform kit's operator is
+  built packed from the state by ``kernels.pack3d`` and never has a dense
+  W, and the routes that form dense weights drop them once packed.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from ..fields import State
 from ..grid import (FICTITIOUS, FLUID, INLET, OUTLET, OUTSIDE, SOLID_MG,
                     WALL)
 from ..kernels import (PackedStencil, matvec2d, matvec2d_plain, matvec3d,
-                       matvec3d_plain, pack3d, pack_stencil, slots3d_f64)
+                       matvec3d_plain, pack3d, pack3d_alloc, pack_stencil,
+                       slots3d_f64)
 from ..kit import Kit
 from ..parallel.sharding import all_reduce, reducer
 from .ard import compute_salt_blocked, micro_d_factor, solid_diffusivity
@@ -72,14 +74,21 @@ def assemble(state: State, kit: Kit, volume_loss_fraction=0.0) -> ImplicitOperat
     Velocity, node types, GB/precipitate flags and the salt-blocking mask
     are frozen for the cycle, exactly as the reference's once-per-cycle
     assemble. 3D float32 operators also get the weights the
-    preconditioner streams in bfloat16 and, on the card, the packed forms
-    of both (made after the dense pass has released its temporaries; the
-    dense W goes before the bf16 copy is made, as nothing reads it).
-    Under a mesh, the operator of the rank's own rows
+    preconditioner streams in bfloat16. On the card a uniform 3D float32
+    kit's operator is built packed by ``kernels.pack3d`` from the state
+    (one host read sizes its buffers; no dense W); elsewhere the dense
+    weights are formed and finished by ``finish_operator``. Under a mesh,
+    the operator of the rank's own rows
     (``parallel.shard_kernels.assemble_sharded``)."""
     if kit.slab is not None:
         from ..parallel.shard_kernels import assemble_sharded
         return assemble_sharded(state, kit, volume_loss_fraction)
+    if (kit.dim == 3 and kit.dtype == torch.float32
+            and kit.device.type == "cuda"):
+        diag, unknown, packed, packed16 = pack3d_alloc(
+            state, _decay(kit, volume_loss_fraction), kit)
+        return ImplicitOperator(None, diag, unknown, W16=packed16,
+                                packed=packed)
     return finish_operator(ImplicitOperator(
         *_dense_operator(state, kit, volume_loss_fraction)), kit)
 
@@ -88,29 +97,36 @@ def assemble_into(op: ImplicitOperator, state: State, kit: Kit,
                   volume_loss_fraction, status: torch.Tensor) -> None:
     """``assemble``'s operator of ``state`` written into ``op``'s tensors
     (a GmresRunner's static operator, ``GmresRunner.load``) with no host
-    read, as a CUDA graph may record it: diag and unknown copied; the
-    weights copied into a dense ``op.W`` (and ``op.W16`` as its bfloat16
-    copy where it is one), or packed by ``kernels.pack3d`` into the
-    capacity buffers of ``op.packed`` and ``op.W16``. ``status`` (int64
-    [2]) receives pack3d's nonzeros and overflow flag (0 without
-    packing). The same bytes as ``assemble`` loaded into ``op``."""
+    read, as a CUDA graph may record it: built by ``kernels.pack3d`` into
+    diag, unknown and the capacity buffers of ``op.packed`` and ``op.W16``
+    where the operator is packed; else the dense assembly's diag, unknown
+    and weights copied in (``op.W16`` as W's bfloat16 copy where it is
+    one). ``status`` (int64 [2]) receives pack3d's nonzeros and overflow
+    flag (0 without packing). The same bytes as ``assemble`` loaded into
+    ``op``."""
+    if op.packed is not None:
+        pack3d(state, _decay(kit, volume_loss_fraction), kit, op.diag,
+               op.unknown, op.packed, op.W16, status)
+        return
     W, diag, unknown = _dense_operator(state, kit, volume_loss_fraction)
     op.diag.copy_(diag)
     op.unknown.copy_(unknown)
-    if op.packed is not None:
-        pack3d(W, unknown, kit, op.packed, op.W16, status)
-        return
     op.W.copy_(W)
     if op.W16 is not None:
         op.W16.copy_(W.to(torch.bfloat16))
     status.zero_()
 
 
+def _decay(kit: Kit, volume_loss_fraction) -> torch.Tensor:
+    return micro_d_factor(kit.cfg, volume_loss_fraction, kit.dtype,
+                          kit.device)
+
+
 def finish_operator(op: ImplicitOperator, kit: Kit) -> ImplicitOperator:
     """``op`` (dense weights) finished in place: 3D float32 operators also
-    get the bf16 copy the preconditioner streams and, on the card, the
-    packed forms of both (``op.W``, the dense W's only reference, is
-    dropped once packed)."""
+    get the bf16 copy the preconditioner streams and, on the card (a
+    mesh's slab), the packed forms of both (``op.W``, the dense W's only
+    reference, is dropped once packed)."""
     if kit.dim == 3 and kit.dtype == torch.float32:
         if op.W.is_cuda:
             op.packed = pack_stencil(op.W, op.unknown, kit)
@@ -123,11 +139,20 @@ def finish_operator(op: ImplicitOperator, kit: Kit) -> ImplicitOperator:
 
 def _dense_operator(state: State, kit: Kit, volume_loss_fraction,
                     salt=None):
-    """(W, diag, unknown) of M. The weights are formed over slot chunks,
-    written into one [S, *shape] tensor, and the diagonal accumulates in
-    stencil order, so the result does not depend on the chunking. ``salt``
-    is the salt-blocking mask when the caller has formed it (a mesh
-    exchanges its halo rows)."""
+    """(W, diag, unknown) of M, the volume-loss factor formed from
+    ``volume_loss_fraction`` (``_dense_weights``)."""
+    return _dense_weights(state, kit, _decay(kit, volume_loss_fraction),
+                          salt)
+
+
+def _dense_weights(state: State, kit: Kit, decay, salt=None):
+    """(W, diag, unknown) of M with the solid micro-diffusivities scaled by
+    ``decay`` (a 0-d tensor, ``ops.ard.micro_d_factor``). The weights are
+    formed over slot chunks, written into one [S, *shape] tensor, and the
+    diagonal accumulates in stencil order, so the result does not depend
+    on the chunking. ``salt`` is the salt-blocking mask when the caller
+    has formed it (a mesh exchanges its halo rows). The definition of
+    ``kernels.pack3d``, which forms the same weights bond by bond."""
     cfg = kit.cfg
     nt = state.node_type
     i_fluid = nt == FLUID
@@ -136,7 +161,6 @@ def _dense_operator(state: State, kit: Kit, volume_loss_fraction,
 
     salt_blocked = (compute_salt_blocked(state, kit) if salt is None
                     else salt)
-    decay = micro_d_factor(cfg, volume_loss_fraction, kit.dtype, kit.device)
 
     vel_i = torch.where(i_fluid[..., None], state.vel, 0.0)
     D_s_i = solid_diffusivity(state.is_gb, state.is_precip, cfg, decay)

@@ -12,8 +12,9 @@ a VTI every step and a flow snapshot every second solve, T_final inside a
 cycle, the whole wire dissolved, and a checkpoint due under output exits
 whose resume equals the uninterrupted run. cycle_qr_plain's modes, the
 refusal of the routes the program does not take, the verbose flow lines,
-and pack3d's plain walk against pack_stencil byte for byte on the
-8,303-node 3D grid before and after a phase change.
+and pack3d's plain walk from the state against the dense assembly and
+pack_stencil byte for byte on the 8,303-node 3D grid before and after a
+phase change.
 """
 
 import dataclasses
@@ -368,19 +369,22 @@ def _grid3d():
 
 
 def test_pack3d_plain_equals_pack_stencil():
-    """pack3d's plain walk into capacity buffers against pack_stencil on
-    the 8,303-node 3D grid (S = 178), before and after a phase change:
-    count, slice_ptr, the stored slots, float32 and bfloat16 values byte
-    for byte, padding 0; a capacity one entry short sets the overflow
-    flag and writes no value. Launches nothing."""
+    """pack3d's plain walk from the state into capacity buffers against the
+    dense assembly and pack_stencil on the 8,303-node 3D grid (S = 178),
+    before and after a phase change: diag, unknown, count, slice_ptr, the
+    stored slots, float32 and bfloat16 values byte for byte, padding 0; a
+    capacity one entry short sets the overflow flag and writes no value.
+    Launches nothing."""
     from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import SLICE, pack3d
+    from pd_mg_pin_corrosion_tpu_torch.ops.ard import micro_d_factor
 
     kit, st = _grid3d()
     before = kernels.launch_counts()
     changed, n_dis = ops_for(kit).apply_phase_change(st, kit)
     assert int(n_dis) > 0
+    decay = micro_d_factor(kit.cfg, 0.0, kit.dtype, kit.device)
     for state in (st, changed):
-        W, _, unknown = ai._dense_operator(state, kit, 0.0)
+        W, diag, unknown = ai._dense_operator(state, kit, 0.0)
         ref = kernels.pack_stencil(W, unknown, kit)
         ref16 = ref.to(torch.bfloat16)
         n = ref.values.numel()
@@ -393,7 +397,10 @@ def test_pack3d_plain_equals_pack_stencil():
             packed16 = dataclasses.replace(
                 packed, values=torch.full((cap,), 7.0, dtype=torch.bfloat16))
             status = torch.zeros(2, dtype=torch.int64)
-            pack3d(W, unknown, kit, packed, packed16, status)
+            d, u = torch.full_like(diag, 7.0), torch.zeros_like(unknown)
+            pack3d(state, decay, kit, d, u, packed, packed16, status)
+            assert torch.equal(d.view(torch.int32), diag.view(torch.int32))
+            assert torch.equal(u, unknown)
             assert torch.equal(packed.count, ref.count)
             assert torch.equal(packed.slice_ptr, ref.slice_ptr)
             assert status.tolist() == [ref.nnz, int(cap < n)]

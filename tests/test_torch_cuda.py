@@ -1635,47 +1635,166 @@ def test_cycle_qr_equals_plain_on_every_mode_and_exit():
                                       cl.N_FLAGS, len(cl.PARAMS), cl.N_MODES)
 
 
-def test_pack3d_equals_pack_stencil():
-    """pack3d into capacity buffers against pack_stencil on the 8,303-node
-    3D grid, before and after a phase change: count, slice_ptr, and the
-    stored slots, float32 and bfloat16 values byte for byte; a capacity
-    one entry short sets the overflow flag and writes no value."""
+# the 3D calibration point twoanchor-c's grid (166,050 nodes; chip_smoke.py
+# CALIB3D_CFG)
+CALIB3D = ["dx=8e-6", "D_grain=2.1609e-17", "D_gb=2.1609e-15",
+           "gb_width_cells=0", "grain_size_mean=40e-6",
+           "corrosion_accel_l=1.2790"]
+
+
+def _pack3d_case(grid):
+    """(kit, state) on the card: the 8,303-node 3D grid or the 3D
+    calibration grid, SOLID C in [0.1, 1] and FLUID C up to 0.92 (salt
+    blocking at C_sat = 0.9), FLUID velocities perturbed by 0.5 m/s (the
+    upwind clamp acts)."""
+    if grid == "grid3d":
+        kit, st = _flow_case("grid3d")
+    else:
+        cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                       "config", "params_3d.cfg"))
+        cfg.apply_overrides(CALIB3D)
+        g = build_grid(cfg)
+        kit = build_kit(g, cfg, device="cuda")
+        st = initialize_state(g, cfg, grains=grains.generate(g, cfg),
+                              device="cuda")
+    rng = np.random.default_rng(21)
+    u = torch.tensor(rng.random(kit.shape), dtype=torch.float32,
+                     device="cuda")
+    solid, fluid = st.node_type == 1, st.node_type == 0
+    vel = st.vel + torch.tensor(rng.normal(0.0, 0.5, st.vel.shape),
+                                dtype=torch.float32, device="cuda")
+    return kit, dataclasses.replace(
+        st, C=torch.where(solid, 1.0 - 0.9 * u,
+                          torch.where(fluid, 0.92 * u, 0.0)),
+        vel=torch.where(fluid[..., None], vel, st.vel))
+
+
+def _capacity_buffers(ref, cap):
+    packed = dataclasses.replace(
+        ref, count=torch.zeros_like(ref.count),
+        slice_ptr=torch.zeros_like(ref.slice_ptr),
+        slots=torch.full((cap,), 7, dtype=torch.uint8, device="cuda"),
+        values=torch.full((cap,), 7.0, device="cuda"))
+    return packed, dataclasses.replace(
+        packed, values=torch.full((cap,), 7.0, dtype=torch.bfloat16,
+                                  device="cuda"))
+
+
+def _packed_bits(packed, packed16, n=None):
+    return (packed.count, packed.slice_ptr, packed.slots[:n],
+            packed.values[:n].view(torch.int32),
+            packed16.values[:n].view(torch.int16))
+
+
+@pytest.mark.parametrize("grid", ["grid3d", "calib3d"])
+def test_pack3d_equals_pack_stencil(grid):
+    """pack3d from the state into capacity buffers against its twin (the
+    dense assembly, then the packing walk) and against pack_stencil, on
+    the 8,303-node 3D grid and the 3D calibration grid (166,050 nodes),
+    before and after a phase change, with a volume loss of 0.1: diag,
+    unknown, count, slice_ptr, the slots, float32 and bfloat16 values of
+    the whole buffers and status byte for byte, one launch each; a
+    capacity one entry short sets the overflow flag and writes no slot or
+    value. pack3d_alloc (one sizing read, one launch) and the dense
+    yardstick pack3d_dense give pack_stencil's bytes."""
     from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
-    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import SLICE, pack3d
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import (
+        SLICE, pack3d, pack3d_alloc, pack3d_dense, pack3d_plain)
 
     _card()
-    kit, st = _flow_case("grid3d")
-    st = _seeded_C(st)
+    kit, st = _pack3d_case(grid)
+    decay = ard_ops.micro_d_factor(kit.cfg, 0.1, kit.dtype, kit.device)
+    assert bool(ard_ops.compute_salt_blocked(st, kit).any())
     ops = ops_for(kit)
     for state in (st, ops.apply_phase_change(st, kit)[0]):
-        W, _, unknown = ai._dense_operator(state, kit, 0.0)
+        W, diag, unknown = ai._dense_operator(state, kit, 0.1)
         ref = kernels.pack_stencil(W, unknown, kit)
         ref16 = ref.to(torch.bfloat16)
         n = ref.values.numel()
         for cap in (n + 3 * SLICE, n - 1):
-            packed = dataclasses.replace(
-                ref, count=torch.zeros_like(ref.count),
-                slice_ptr=torch.zeros_like(ref.slice_ptr),
-                slots=torch.full((cap,), 7, dtype=torch.uint8, device="cuda"),
-                values=torch.full((cap,), 7.0, device="cuda"))
-            packed16 = dataclasses.replace(
-                packed, values=torch.full((cap,), 7.0, dtype=torch.bfloat16,
-                                          device="cuda"))
-            status = torch.zeros(2, dtype=torch.int64, device="cuda")
-            n0 = pack3d.launches
-            pack3d(W, unknown, kit, packed, packed16, status)
-            assert pack3d.launches == n0 + 1
-            assert torch.equal(packed.count, ref.count)
-            assert torch.equal(packed.slice_ptr, ref.slice_ptr)
-            assert status.tolist() == [ref.nnz, int(cap < n)]
+            outs = []
+            for fn in (pack3d, pack3d_plain):
+                packed, packed16 = _capacity_buffers(ref, cap)
+                status = torch.zeros(2, dtype=torch.int64, device="cuda")
+                d, u = torch.full_like(diag, 7.0), torch.zeros_like(unknown)
+                n0 = pack3d.launches
+                fn(state, decay, kit, d, u, packed, packed16, status)
+                assert pack3d.launches == n0 + (fn is pack3d)
+                outs.append((d.view(torch.int32), u, status,
+                             *_packed_bits(packed, packed16)))
+            kernel, twin = outs
+            for a, b in zip(kernel, twin):
+                assert torch.equal(a, b)
+            assert torch.equal(kernel[0], diag.view(torch.int32))
+            assert torch.equal(kernel[1], unknown)
+            assert kernel[2].tolist() == [ref.nnz, int(cap < n)]
+            assert torch.equal(kernel[3], ref.count)
+            assert torch.equal(kernel[4], ref.slice_ptr)
             if cap < n:
-                assert bool((packed.slots == 7).all())
+                # the twin's buffers (the last filled), equal to the
+                # kernel's bit for bit
+                assert all(bool((t == 7).all()) for t in (
+                    packed.slots, packed.values, packed16.values))
                 continue
-            assert torch.equal(packed.slots[:n], ref.slots)
-            assert torch.equal(packed.values[:n].view(torch.int32),
-                               ref.values.view(torch.int32))
-            assert torch.equal(packed16.values[:n].view(torch.int16),
-                               ref16.values.view(torch.int16))
+            for a, b in zip(_packed_bits(ref, ref16),
+                            (kernel[3], kernel[4], kernel[5][:n],
+                             kernel[6][:n], kernel[7][:n])):
+                assert torch.equal(a, b)
+        n0 = pack3d.launches
+        a_diag, a_unknown, a_packed, a_packed16 = pack3d_alloc(state, decay,
+                                                               kit)
+        assert pack3d.launches == n0 + 1 and a_packed.nnz == ref.nnz
+        assert torch.equal(a_diag.view(torch.int32), diag.view(torch.int32))
+        assert torch.equal(a_unknown, unknown)
+        for a, b in zip(_packed_bits(a_packed, a_packed16),
+                        _packed_bits(ref, ref16)):
+            assert torch.equal(a, b)
+        packed, packed16 = _capacity_buffers(ref, n)
+        status = torch.zeros(2, dtype=torch.int64, device="cuda")
+        n0 = pack3d_dense.launches
+        pack3d_dense(W, unknown, kit, packed, packed16, status)
+        assert pack3d_dense.launches == n0 + 1
+        assert status.tolist() == [ref.nnz, 0]
+        for a, b in zip(_packed_bits(packed, packed16),
+                        _packed_bits(ref, ref16)):
+            assert torch.equal(a, b)
+
+
+def test_card_assembly_builds_no_dense_w(monkeypatch):
+    """On a CUDA float32 3D kit ``assemble`` (the host loop's, one sizing
+    read) and ``assemble_into`` (the fused cycles') build the operator
+    with pack3d and never call the dense assembly (a counter on
+    ``_dense_operator`` and ``_dense_weights``); both give the dense
+    route's bytes (``_dense_operator`` + ``finish_operator``)."""
+    from pd_mg_pin_corrosion_tpu_torch.kernels.matvec3d import pack3d
+    from pd_mg_pin_corrosion_tpu_torch.ops.gmres import GmresRunner
+
+    _card()
+    kit, st = _pack3d_case("grid3d")
+    dense = ai.finish_operator(ai.ImplicitOperator(
+        *ai._dense_operator(st, kit, 0.1)), kit)
+    calls = []
+    for name in ("_dense_operator", "_dense_weights"):
+        real = getattr(ai, name)
+        monkeypatch.setattr(ai, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    n0 = pack3d.launches
+    op = ai.assemble(st, kit, 0.1)
+    assert op.W is None and op.packed is not None
+    run = GmresRunner()
+    target = run.load(ai.assemble(st, kit, 0.0))
+    status = torch.zeros(2, dtype=torch.int64, device="cuda")
+    ai.assemble_into(target, st, kit, 0.1, status)
+    assert pack3d.launches == n0 + 3 and calls == []
+    assert status.tolist() == [dense.packed.nnz, 0]
+    n = dense.packed.values.numel()
+    for got in (op, target):
+        assert torch.equal(got.diag.view(torch.int32),
+                           dense.diag.view(torch.int32))
+        assert torch.equal(got.unknown, dense.unknown)
+        for a, b in zip(_packed_bits(got.packed, got.W16, n),
+                        _packed_bits(dense.packed, dense.W16)):
+            assert torch.equal(a, b)
 
 
 def _cycles_run(tmp_path, tag, cfg_args, eager, monkeypatch):
