@@ -49,7 +49,12 @@ argument all of them run, in this order):
 6. ``explicit``, 2D explicit-transport path: ``cli.run`` on
    params_fine_calibration.cfg with use_implicit=0 at full size on CUDA,
    capped by EXPLICIT_CAPS; checks the run, that ard2d launched once per
-   explicit step, and profiles a window of explicit steps.
+   explicit step and that the explicit step's CUDA graph
+   (``coupling.ExplicitRunner``) replayed once per step; the
+   ``[explicitgraph]`` line (EXPLICITGRAPH_STEPS steps from the run's
+   final state by route, eager, graph, graph, eager: ms a step, end states
+   bit for bit, the capture's ms and pool); and profiles a window of
+   explicit steps.
 7. ``main3d``, 3D main path: ``cli.run`` on params_3d.cfg at full size on
    CUDA, capped by MAIN3D_CAPS (one cycle of 20 implicit steps at the 30 s
    dt ceiling, one checkpoint), on the route the configuration selects:
@@ -83,9 +88,11 @@ argument all of them run, in this order):
 10. ``explicit3d``, 3D explicit transport (plain PyTorch: no kernel, as in
    the JAX package): ``cli.run`` on params_3d.cfg at full size with
    use_implicit=0 after the warm start, the flow capped, one chunk of
-   ~140 explicit steps; ms per step, a profiler window (device ops per
-   step, busy share) and peak memory; then the 8,303-node grid of
-   tests/test_torch_3d_slice.py on CUDA against the CPU path.
+   ~140 explicit steps, replays of the explicit step's graph; ms per
+   step, the ``[explicitgraph]`` line over EXPLICIT3D_PROFILE_STEPS steps,
+   a profiler window (device ops per step, busy share) and peak memory;
+   then the 8,303-node grid of tests/test_torch_3d_slice.py on CUDA
+   against the CPU path.
 11. ``subcell3d``, the sub-cell 3D wall mirror: the same small grid with
    wall_mirror_subcell=1, CUDA against the CPU path; the flagship kit built
    with it (primary columns, and how many carry more than one weight).
@@ -215,7 +222,8 @@ argument all of them run, in this order):
    (converged, L2 relative error < 5 %, v_max within 10 % of 1.5 U_in).
 
 Every CLI run on the card prints its flow iterations by route
-(``[flow]`` lines: graph replays, eager iterations, captures), its
+(``[flow]`` lines: graph replays, eager iterations, captures), an explicit
+run its explicit steps by route (``[xstep]`` lines), its
 Arnoldi steps (``[gmres]`` lines: in graphs and eager, cycles, solve
 graph launches, captures, chunks, host reads inside steps, kernel nodes)
 and its implicit steps (``[step]`` lines: in graphs and eager, graph
@@ -223,8 +231,10 @@ launches, captures, chunks, host reads and reads a step, kernel nodes);
 the main paths' checks and every CUDA-against-CPU run (but gs_parity's,
 whose host sweeps keep its flow on the eager route, and float64 ones,
 whose NS step is the plain twin) fail when the flow replayed no graph,
-and every implicit one when its Arnoldi steps or (but gs_parity's, whose
-steps' heads and tails run directly) its steps ran in no graph.
+every implicit one when its Arnoldi steps or (but gs_parity's, whose
+steps' heads and tails run directly) its steps ran in no graph, and every
+explicit one (but gs_parity's and float64 ones, which step eagerly) unless
+its explicit steps replayed the explicit step's graph once a step.
 
 Launch counts are set to 0 just before each main path and read just after
 it. Then one JSON line about the kernels (the AMR, gather AMR and calib
@@ -281,6 +291,9 @@ EXPLICIT_CAPS = ["use_implicit=0", "flow_max_iters=2000",
                  f"output_every_corr={EXPLICIT_EVERY}",
                  f"T_final={EXPLICIT_T_FINAL}"]
 EXPLICIT_PROFILE_STEPS = 100
+# explicitgraph: explicit steps a window from the explicit run's final
+# state, by route (eager, graph, graph, eager)
+EXPLICITGRAPH_STEPS = 50
 # the warm-started flagship: MAIN3D_CAPS with the coarse warm start at 2 dx;
 # the JAX package recorded a FLUID-node relative L2 of vel of 5.9e-3 between
 # the warm and the cold solve at this configuration (its config.py)
@@ -364,7 +377,9 @@ AMR_EXPLICIT_CAPS = ["precision=f32", "use_implicit=0", "flow_max_iters=100",
 # padded degree K = 40): AMR_CAPS and AMR_EXPLICIT_CAPS, CUDA against the
 # CPU, and the gather run on the card against the block run on the card
 # within BANKED_GATES (the grids hold the same nodes and the same grain
-# draw); parity.cfg with implicit_extrapolate_x0 = 1, CUDA against the CPU
+# draw); parity.cfg with implicit_extrapolate_x0 = 1 in chunks
+# (implicit_fused_chunk = 1: the knob acts in the device loops only, as
+# in the JAX package), CUDA against the CPU
 GATHER = ["amr_backend=gather"]
 # the mass loss 100 (1 - sum C / n0) over params_amr.cfg's n0 = 5,120
 # initially solid nodes keeps only the last bits of the float32 sum near
@@ -1243,7 +1258,11 @@ def phase_kernels(pkg):
     vmag = ns.vel_magnitude(st.vel)
     dt_corr = float(ard_ops.compute_dt(st, kit))
     ard = (st.C, st.vel, vmag, st.node_type, Ds, salt, dt_corr, kit)
-    cn, cp = kernels.ard2d(*ard), kernels.ard2d_plain(*ard)
+    # the kernel reads dt from the device, as the explicit step's graph
+    # hands it its dt buffer; the twin takes the float
+    ard_k = ard[:6] + (torch.full((), dt_corr, dtype=torch.float32,
+                                  device="cuda"), kit)
+    cn, cp = kernels.ard2d(*ard_k), kernels.ard2d_plain(*ard)
     torch.cuda.synchronize()
     err = float((cn - cp).abs().max())
     jf = (pkg.FLUID, pkg.INLET, pkg.OUTLET, pkg.FICTITIOUS)
@@ -1262,15 +1281,15 @@ def phase_kernels(pkg):
           + ", ".join(f"{k} {int(v.sum())}" for k, v in counts.items()))
     print(f"[kernels] ard2d bit-equal to its plain twin: {torch.equal(cn, cp)}")
     record("ard2d", err, torch.equal(cn, cp),
-           lambda: (kernels.ard2d(*ard),), lambda: kernels.ard2d_plain(*ard),
-           "bit-equal", 26 * n, flops)
+           lambda: (kernels.ard2d(*ard_k),),
+           lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n + 4, flops)
     geo = kernels.ard2d_geometry()
     tiles, busy, staged, halo = kernels.ard2d_staging(kit, st.node_type, geo)
     issue_ms = 1e3 * flops / (
         128 * torch.cuda.get_device_properties(0).multi_processor_count
         * 1e6 * torch.cuda.clock_rate())
     other = torch.empty_like(st.vel)
-    apart = apart_ms(lambda: kernels.ard2d(*ard),
+    apart = apart_ms(lambda: kernels.ard2d(*ard_k),
                      lambda: torch.add(st.vel, st.vel, out=other))
     del other
     print(f"[kernels] ard2d tile {geo.tx} x {geo.ty} (x, y), {geo.r} x nodes "
@@ -1675,6 +1694,15 @@ def print_gmres(tag, solver):
           f"{t['replayed_kernels']} replayed")
 
 
+def explicit_replayed(solver):
+    """Whether a run's explicit steps replayed the explicit step's CUDA
+    graph once a step: one capture (its warm-up the one eager step), a
+    replay for every other step."""
+    g, steps = solver.explicit_graph, solver.explicit_steps
+    return (steps > 0 and g["captures"] == 1 and g["eager"] == 1
+            and g["replays"] == steps - 1)
+
+
 def run_cli(out_dir, args):
     """cli.run with its console output kept in out_dir/run.log."""
     from pd_mg_pin_corrosion_tpu_torch import cli
@@ -1686,6 +1714,11 @@ def run_cli(out_dir, args):
     g = solver.flow_graph
     print(f"[flow] {os.path.basename(out_dir)}: {g['replays']} graph "
           f"replays, {g['eager']} eager iterations, {g['captures']} captures")
+    if solver.explicit_steps:
+        g = solver.explicit_graph
+        print(f"[xstep] {os.path.basename(out_dir)}: "
+              f"{solver.explicit_steps} explicit steps, {g['replays']} graph "
+              f"replays, {g['eager']} eager, {g['captures']} captures")
     print_gmres(os.path.basename(out_dir), solver)
     return solver, np.atleast_1d(np.genfromtxt(
         f"{out_dir}/out/diagnostics.csv", delimiter=",", names=True))
@@ -1772,6 +1805,12 @@ def run_cuda_and_cpu(tmp, tag, name, args, loss_atol=0.0, gates=None):
     if (not solver.step_graph["replays"] and implicit
             and "gs_parity=1" not in args):
         fail(f"{name}: the CUDA run's implicit steps ran in no CUDA graph")
+    # an explicit run replays the explicit step's graph once a step, off
+    # gs_parity and float64 (coupling.ExplicitRunner's route)
+    if (not implicit and "gs_parity=1" not in args
+            and "precision=f64" not in args and not explicit_replayed(solver)):
+        fail(f"{name}: the CUDA run's explicit steps did not replay the "
+             f"explicit step's CUDA graph once a step")
     t1 = time.time()
     _, c = run_cli(os.path.join(tmp, f"{name}_cpu"), args + ["--device",
                                                             "cpu"])
@@ -2312,7 +2351,7 @@ def phase_explicit3d(tmp):
     kernels.reset_launch_counts()
     chunks = []
     t0 = time.time()
-    with recording(coupling, "explicit_chunk", chunks):
+    with recording(coupling.ExplicitRunner, "steps", chunks):
         solver, rows = run_cli(out_dir, [FLAGSHIP, *EXPLICIT3D_CAPS,
                                          "--device", "cuda"])
     torch.cuda.synchronize()
@@ -2330,7 +2369,8 @@ def phase_explicit3d(tmp):
     print(f"[explicit3d] params_3d.cfg {' '.join(EXPLICIT3D_CAPS)}: "
           f"{solver.cycles} cycle(s), {steps} explicit steps in "
           f"{len(chunks)} chunk(s), {chunk_ms:.4f} ms per step (BCs and "
-          f"transport, host clock to the device's end), "
+          f"transport as graph replays, the capture included, host clock "
+          f"to the device's end), "
           f"{1e3 * solver.explicit_seconds / max(steps, 1):.4f} ms with the "
           f"VTI and the diagnostics row; flow solves {solver.flow_results}; "
           f"peak device memory {peak / 2**30:.2f} GiB; wall {wall:.2f} s")
@@ -2342,6 +2382,8 @@ def phase_explicit3d(tmp):
             steps >= 100 and len(chunks) == 1
             and solver.total_implicit_steps == 0,
         "no kernel of the 2D step launched": counts["ard2d"] == 0,
+        "the explicit graph replayed once per step":
+            explicit_replayed(solver),
         "the flow ran on ns3d": counts["ns3d"] > 0,
         "a row at T_final, all finite":
             float(last["time_s"]) >= EXPLICIT3D_T_FINAL * (1 - 1e-6) and all(
@@ -2356,12 +2398,14 @@ def phase_explicit3d(tmp):
     # a window of explicit steps on the run's final state, timed and
     # profiled (scripts/profile_torch_3d.py's window)
     prof = load_script(PROFILE)
-    (_, kit, dt, vol, _), *_ = chunks[0]
+    (run, kit, _), *_ = chunks[0]
+    dt, vol = float(run.dt), run.vol_loss.clone()
     n = EXPLICIT3D_PROFILE_STEPS
+    explicit_graph_line("explicit3d", st, kit, dt, vol, n)
     with open(os.path.join(out_dir, "profile.txt"), "w") as out:
         prof.window("explicit3d", lambda: coupling.explicit_chunk(
             st, kit, dt, vol, n), n, out)
-    del kit, chunks, st, solver
+    del kit, chunks, st, solver, run, vol
 
     # the small grid, CUDA against the CPU path: the mass loss over its 99
     # initially solid nodes keeps only the last bits of the f32 sum
@@ -2470,6 +2514,8 @@ def phase_explicit(tmp):
         "at least one whole cycle of explicit steps":
             steps >= 1000 and solver.total_implicit_steps == 0,
         "ard2d launched once per explicit step": counts["ard2d"] == steps,
+        "the explicit graph replayed once per step":
+            explicit_replayed(solver),
         "every kernel of the explicit path launched":
             all(counts[k] > 0 for k in PATH_EXPLICIT),
         "a row per chunk of output_every_corr steps, all finite":
@@ -2496,11 +2542,50 @@ def phase_explicit(tmp):
     dt = float(ard_ops.compute_dt(st, kit))
     vol = volume_loss_fraction(st, kit)
     n = EXPLICIT_PROFILE_STEPS
-    explicit_chunk(st, kit, dt, vol, n)
+    explicit_graph_line("explicit", st, kit, dt, vol, EXPLICITGRAPH_STEPS)
     with open(os.path.join(out_dir, "profile.txt"), "w") as out:
         prof.window("explicit", lambda: explicit_chunk(st, kit, dt, vol, n),
                     n, out, show=("ard2d",))
     return counts
+
+
+def explicit_graph_line(tag, st, kit, dt, vol, n):
+    """The ``[explicitgraph]`` line: ``n`` explicit steps from ``st``
+    through the kit's ExplicitRunner (its graph captured first) by route,
+    eager, graph, graph, eager, each window timed on the host clock to the
+    device's end; every window's end state must equal the first's bit for
+    bit. Returns the graph route's ms a step (the better window)."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+
+    run = coupling.explicit_runner_for(kit)
+    if not run.graph_route:
+        fail(f"{tag}: the explicit step's graph route refuses the kit "
+             f"({run.refusal})")
+    if run.graph is None:
+        run.load(st, kit, dt, vol)
+        run.steps(kit, 1)
+    ms = {True: [], False: []}
+    ends = []
+    for eager in (True, False, False, True):
+        run.load(st, kit, dt, vol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.steps(kit, n, eager)
+        torch.cuda.synchronize()
+        ms[eager].append(1e3 * (time.perf_counter() - t0) / n)
+        ends.append(run.result(st))
+    same = all(same_state(ends[0], e) for e in ends[1:])
+    print(f"[explicitgraph] {tag}: {n} explicit steps from the run's final "
+          f"state, ms a step (host clock to the device's end) eager "
+          f"{ms[True][0]:.4f}, graph {ms[False][0]:.4f}, graph "
+          f"{ms[False][1]:.4f}, eager {ms[True][1]:.4f}; end states bit "
+          f"for bit: {same}; capture {run.capture_ms:.1f} ms (its warm-up "
+          f"step included), graph pool {run.pool_bytes / 2**20:.1f} MiB, a "
+          f"replay stands for {json.dumps(run.launches)}")
+    if not same:
+        fail(f"{tag}: the explicit graph's end state differs from the eager "
+             f"route's")
+    return min(ms[False])
 
 
 def rank0_slab(kit, st, ranks):
@@ -2632,7 +2717,10 @@ def kernels2d_at(pkg, kit, sb, tag, record, results, other, op,
                                        kit.cfg, 0.05, kit.dtype, "cuda"))
     ard = (sb.C, sb.vel, ns.vel_magnitude(sb.vel), sb.node_type, Ds, salt,
            float(ard_ops.compute_dt(sb, kit)), kit)
-    cn, cp = kernels.ard2d(*ard), kernels.ard2d_plain(*ard)
+    # dt on the device for the kernel (the explicit graph's buffer)
+    ard_k = ard[:6] + (torch.full((), ard[6], dtype=torch.float32,
+                                  device="cuda"), kit)
+    cn, cp = kernels.ard2d(*ard_k), kernels.ard2d_plain(*ard)
     jf = (pkg.FLUID, pkg.INLET, pkg.OUTLET, pkg.FICTITIOUS)
     counts = bond_counts(
         kit, fluid | solid,
@@ -2649,10 +2737,10 @@ def kernels2d_at(pkg, kit, sb, tag, record, results, other, op,
     print(f"{log} ard2d{tag}: {int(salt.sum())} of {int(solid.sum())} "
           f"SOLID nodes salt-blocked")
     record("ard2d" + tag, float((cn - cp).abs().max()),
-           torch.equal(cn, cp), lambda: (kernels.ard2d(*ard),),
-           lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n, flops)
+           torch.equal(cn, cp), lambda: (kernels.ard2d(*ard_k),),
+           lambda: kernels.ard2d_plain(*ard), "bit-equal", 26 * n + 4, flops)
     results["ard2d" + tag]["apart_ms"] = apart_ms(
-        lambda: kernels.ard2d(*ard),
+        lambda: kernels.ard2d(*ard_k),
         lambda: torch.add(other, other, out=other))
     print(f"{log} ard2d{tag} in situ "
           f"{results['ard2d' + tag]['apart_ms']:.4f} ms")
@@ -2788,6 +2876,7 @@ def phase_amr(tmp, pkg):
             all(ex_counts[k] > 0 for k in PATH_AMR_EXPLICIT),
         "ard2d twice per explicit step (a launch a block)":
             ex_counts["ard2d"] == 2 * steps and steps >= 200,
+        "the explicit graph replayed once per step": explicit_replayed(ex),
         "finite rows, loss not decreasing": all(
             np.isfinite(warm_rows[c]).all() for c in warm_rows.dtype.names)
             and bool(np.all(np.diff(warm_rows["pin_mass_loss_pct"]) >= 0.0)),
@@ -2842,7 +2931,8 @@ def phase_amrg(tmp):
           f"and rows included); launches {json.dumps(ex_counts)}")
     x0, _, _ = run_cuda_and_cpu(
         tmp, "amrg", "parity_extrapolate_x0",
-        [PARITY, *PARITY_CAPS, "implicit_extrapolate_x0=1"])
+        [PARITY, *PARITY_CAPS, "implicit_extrapolate_x0=1",
+         "implicit_fused_chunk=1"])
 
     # part 3: the block run on the card; the gather run is part 2's
     block, block_rows = run_cli(os.path.join(tmp, "amrg_block"),
@@ -2872,6 +2962,7 @@ def phase_amrg(tmp):
         "all state tensors on cuda": all(
             t.is_cuda for t in solver.final_state.tensors()),
         "the explicit run took its steps": steps >= 200,
+        "the explicit graph replayed once per step": explicit_replayed(ex),
         "gather within BANKED_GATES of block": bool(diffs) and all(
             diffs[c] <= g for c, g in BANKED_GATES.items()),
     }

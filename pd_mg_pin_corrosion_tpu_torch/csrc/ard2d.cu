@@ -16,7 +16,11 @@
 //     operation, summed in stencil order (acc = acc + term) from +0, so with
 //     FMA contraction off (-fmad=false) the result equals the plain PyTorch
 //     version bit for bit for finite inputs;
-//   * C_new = max(C_i + dt (diff - alpha/V_H adv), 0), a NaN kept.
+//   * C_new = max(C_i + dt (diff - alpha/V_H adv), 0), a NaN kept;
+//   * dt is read from device memory (a 0-d float32 tensor), so a CUDA
+//     graph that captures the launch reads the dt of each replay (the
+//     explicit step's graph, coupling.ExplicitRunner) and the wrapper
+//     reads nothing back from the device.
 //
 // Bond classes by selects, every slot's terms added. The twin's terms of a
 // bond to an off-grid, WALL or OUTSIDE neighbour (V_j = 0), of a
@@ -155,7 +159,8 @@ __global__ void __launch_bounds__(kArdThreads, PD_ARD2D_BLOCKS)
 ard2d_kernel(const float* __restrict__ C, const float2* __restrict__ vel,
              const float* __restrict__ vmag, const uint8_t* __restrict__ nt,
              const float* __restrict__ Ds, const uint8_t* __restrict__ salt,
-             float dt, const int* __restrict__ slot_off,
+             const float* __restrict__ dt_ptr,
+             const int* __restrict__ slot_off,
              const float4* __restrict__ slot_coef,
              const int2* __restrict__ runs, int S, int nruns, int ny, int nx,
              float beta, float D_L, float two_D_L, float alpha_art, float dx,
@@ -277,6 +282,7 @@ ard2d_kernel(const float* __restrict__ C, const float2* __restrict__ vel,
     }
   }
 
+  const float dt = *dt_ptr;
 #pragma unroll
   for (int q = 0; q < kR; ++q) {
     if (active & (1u << q)) {
@@ -303,12 +309,13 @@ PD_EXPORT void pd_ard2d_geometry(int* out) {
   for (int a = 0; a < 8; ++a) out[a] = g[a];
 }
 
-// vel: [ny, nx, 2] (8-byte aligned); salt: [ny, nx] bool (one byte);
-// slot_off, slot_coef, runs: kernels/ns2d.py ns2d_tables for this tile's
-// pitch (slot_coef 16-byte aligned).
+// vel: [ny, nx, 2] (8-byte aligned); salt: [ny, nx] bool (one byte); dt:
+// one float on the device; slot_off, slot_coef, runs: kernels/ns2d.py
+// ns2d_tables for this tile's pitch (slot_coef 16-byte aligned).
 PD_EXPORT int pd_ard2d(const float* C, const float* vel, const float* vmag,
                        const uint8_t* node_type, const float* Ds,
-                       const uint8_t* salt, float dt, const int* slot_off,
+                       const uint8_t* salt, const float* dt,
+                       const int* slot_off,
                        const float* slot_coef, const int* runs, int S,
                        int nruns, int ny, int nx, float beta, float D_L,
                        float two_D_L, float alpha_art, float dx,

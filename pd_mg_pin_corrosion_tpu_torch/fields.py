@@ -56,6 +56,26 @@ class State:
         return [getattr(self, f.name) for f in fields(self)]
 
 
+def store_into(bufs: State, st: State, written: set) -> None:
+    """Copy the fields of ``st`` that are not ``bufs``' own tensors into
+    them, noting their names in ``written``: a runner's static buffers,
+    which its captured CUDA graphs read and write in place."""
+    for f in fields(State):
+        buf, t = getattr(bufs, f.name), getattr(st, f.name)
+        if t is not buf:
+            buf.copy_(t)
+            written.add(f.name)
+
+
+def copies_of(bufs: State, state: State, written: set) -> State:
+    """``state`` with fresh copies of ``bufs``' ``written`` fields (the
+    runner's next step overwrites its buffers) and its own tensors for the
+    rest."""
+    return State(**{f.name: (getattr(bufs, f.name).clone()
+                             if f.name in written else getattr(state, f.name))
+                    for f in fields(State)})
+
+
 # torch dtype of each non-float field (the float fields take the run dtype)
 _FIXED_DTYPES = {"node_type": torch.uint8, "phase": torch.uint8,
                  "grain_id": torch.int32, "is_gb": torch.bool,

@@ -178,8 +178,11 @@ _tables: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 def ard2d(C, vel, vmag, node_type, Ds, salt, dt, kit: Kit):
     """ard2d_plain's contract: the kernel on CUDA float32 tensors, the plain
-    version on CPU tensors. ``dt`` is a Python float (the explicit step's
-    fixed dt) or a 0-d tensor."""
+    version on CPU tensors. ``dt`` is a Python float or a 0-d tensor. The
+    kernel reads dt from the device, so a CUDA graph that captures the
+    launch reads each replay's dt: a 0-d float32 tensor on C's device is
+    passed as it is (the explicit step's graph hands its dt buffer), a
+    float is filled into one on the card (no copy from the host)."""
     if use_plain("ard2d", C, vel, vmag, node_type, Ds, salt):
         return ard2d_plain(C, vel, vmag, node_type, Ds, salt, dt, kit)
     ny, nx = kit.shape
@@ -189,6 +192,13 @@ def ard2d(C, vel, vmag, node_type, Ds, salt, dt, kit: Kit):
         raise ValueError(f"ard2d: shapes do not match the 2D grid {kit.shape}")
     if node_type.dtype != torch.uint8 or salt.dtype != torch.bool:
         raise TypeError("ard2d: node_type must be uint8 and salt bool")
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), float(dt), dtype=torch.float32, device=C.device)
+    elif (dt.shape != () or dt.dtype != torch.float32
+          or dt.device != C.device):
+        raise TypeError(f"ard2d: dt must be a float or a 0-d float32 tensor "
+                        f"on {C.device}, got {dt.dtype} {tuple(dt.shape)} "
+                        f"on {dt.device}")
     lib = load().lib
     tab = _tables.get(kit)
     if tab is None:
@@ -197,7 +207,7 @@ def ard2d(C, vel, vmag, node_type, Ds, salt, dt, kit: Kit):
     C_out = torch.empty_like(C)
     rc = lib.pd_ard2d(
         ptr(C), ptr(vel), ptr(vmag), ptr(node_type), ptr(Ds), ptr(salt),
-        float(dt), ptr(tab.offsets), ptr(tab.coefs), ptr(tab.runs), kit.S,
+        ptr(dt), ptr(tab.offsets), ptr(tab.coefs), ptr(tab.runs), kit.S,
         tab.runs.shape[0], ny, nx, kit.beta_lap, cfg.D_liquid,
         2.0 * cfg.D_liquid, cfg.alpha_art_diff, cfg.dx, kit.alpha / kit.V_H,
         ptr(C_out), C.device.index, stream(C))

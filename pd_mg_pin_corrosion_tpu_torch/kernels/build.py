@@ -93,7 +93,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pd_basis_axpy.argtypes = [vp, vp, i64, vp, i32, i64, i32, i32, vp,
                                   i32, vp]
     lib.pd_ard2d.restype = i32
-    lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, f32, vp, vp, vp, i32,
+    lib.pd_ard2d.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                              i32, i32, i32, f32, f32, f32, f32, f32, f32, vp,
                              i32, vp]
     lib.pd_ard2d_geometry.restype = None

@@ -31,13 +31,13 @@ from __future__ import annotations
 import os
 import time
 import weakref
-from dataclasses import fields, replace
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from .dispatch import is_structured, ops_for
-from .fields import DeviceUnavailable, State
+from .fields import DeviceUnavailable, State, copies_of, store_into
 from .grid import FLUID
 from .kernels import add_launch_counts, launch_counts, no_collection
 from .kit import Kit
@@ -122,6 +122,63 @@ def parity_tables(kit) -> bool:
                          getattr(kit, "coarse", None)))
 
 
+def graph_refusal(kit) -> str | None:
+    """Why a CUDA graph of one flow iteration or explicit step does not
+    take ``kit``, or None: it runs on the card, in float32 (a float64 NS
+    step is the plain twin, whose gather of the FLUID rows reads their
+    count back from the device, which no capture can hold), without
+    gs_parity tables (their sweeps copy to the host every call) and off a
+    mesh's slab (halos staged through the host)."""
+    if kit.device.type != "cuda":
+        return "the CPU"
+    if kit.dtype != torch.float32:
+        return "float64"
+    if parity_tables(kit):
+        return "gs_parity's host sweeps"
+    if getattr(kit, "slab", None) is not None:
+        return "a mesh"
+    return None
+
+
+def capture_graph(kit, body, what: str):
+    """Run ``body()`` once on a side stream (the warm-up: a real iteration
+    or step, which builds any table a kernel makes at its first call),
+    then capture it on that stream into a CUDA graph, inside
+    ``no_collection``. Returns (graph, the kernel launches one replay
+    stands for, the growth of the reserved device memory across it: the
+    graph's private pool, the capture's wall ms with its warm-up). Raises
+    DeviceUnavailable without a card and whatever the capture raises:
+    there is no fallback."""
+    if not torch.cuda.is_available() or kit.device.type != "cuda":
+        raise DeviceUnavailable(
+            f"a CUDA graph of {what} needs a card; the kit is on "
+            f"{kit.device}")
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(kit.device)
+    side.wait_stream(torch.cuda.current_stream(kit.device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(kit.device).wait_stream(side)
+    with no_collection():
+        torch.cuda.synchronize(kit.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(kit.device)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                body()
+        finally:
+            # the capture launched nothing: take its counts back
+            after = launch_counts()
+            launched = {k: n - before[k] for k, n in after.items()
+                        if n != before[k]}
+            add_launch_counts({k: -n for k, n in launched.items()})
+    torch.cuda.synchronize(kit.device)
+    pool = torch.cuda.memory_reserved(kit.device) - reserved
+    return graph, launched, pool, 1e3 * (time.perf_counter() - t0)
+
+
 class FlowRunner:
     """One kit's flow iteration, in place on static buffers.
 
@@ -129,10 +186,8 @@ class FlowRunner:
     flow time step (0-d), both allocated once and refreshed in place, so a
     captured graph reads and writes the same addresses on every replay.
     The kit's own tensors never change after ``build_*``, so the graph
-    reads them directly. ``graph_route``: on the card, in float32, no
-    gs_parity tables, no mesh slab (a float64 NS step is the plain twin,
-    whose gather of the FLUID rows reads their count back from the device,
-    which no capture can hold). ``launches`` are the kernel launches one
+    reads them directly. ``graph_route``: ``graph_refusal`` finds no
+    reason against it. ``launches`` are the kernel launches one
     replay stands for, added to the wrappers' counters at each replay;
     ``capture_ms`` and ``pool_bytes`` are the capture's wall time (its
     warm-up iteration included) and the growth of the reserved device
@@ -145,10 +200,7 @@ class FlowRunner:
         self.ops = ops_for(kit)
         self.corrections = bool(kit.cfg.channel_flow_corrections
                                 and is_structured(kit))
-        self.graph_route = (kit.device.type == "cuda"
-                            and kit.dtype == torch.float32
-                            and not parity_tables(kit)
-                            and getattr(kit, "slab", None) is None)
+        self.graph_route = graph_refusal(kit) is None
         self.state: State | None = None
         self.dt: torch.Tensor | None = None
         self.written: set = set()   # fields the iteration replaces
@@ -174,19 +226,12 @@ class FlowRunner:
         """The solve's state: fresh copies of the fields the iteration
         replaces, ``state``'s own tensors for the rest, the pressure from
         rho."""
-        out = {f.name: (getattr(self.state, f.name).clone()
-                        if f.name in self.written else getattr(state, f.name))
-               for f in fields(State)}
-        out["pressure"] = self.ops.tait_pressure(out["rho"], kit)
-        return State(**out)
+        out = copies_of(self.state, state, self.written)
+        return replace(out, pressure=self.ops.tait_pressure(out.rho, kit))
 
     def store(self, st: State) -> None:
         """Copy the fields of ``st`` that are not the buffers into them."""
-        for f in fields(State):
-            buf, t = getattr(self.state, f.name), getattr(st, f.name)
-            if t is not buf:
-                buf.copy_(t)
-                self.written.add(f.name)
+        store_into(self.state, st, self.written)
 
     def advance(self, kit):
         """(pre-step state with the BCs applied, the stepped state) from
@@ -222,40 +267,11 @@ class FlowRunner:
         FLOW_COUNTS["eager"] += 1
 
     def capture(self, kit) -> None:
-        """Run ``body`` once on a side stream (the warm-up: this
-        iteration), then capture it on that stream into ``graph``. Raises
-        DeviceUnavailable without a card and whatever the capture raises:
-        there is no fallback."""
-        if not torch.cuda.is_available() or kit.device.type != "cuda":
-            raise DeviceUnavailable(
-                f"a CUDA graph of the flow iteration needs a card; the kit "
-                f"is on {kit.device}")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(kit.device)
-        side.wait_stream(torch.cuda.current_stream(kit.device))
-        with torch.cuda.stream(side):
-            self.body(kit)
-        torch.cuda.current_stream(kit.device).wait_stream(side)
-        with no_collection():
-            torch.cuda.synchronize(kit.device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(kit.device)
-            before = launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=side):
-                    self.body(kit)
-            finally:
-                # the capture launched nothing: take its counts back
-                after = launch_counts()
-                launched = {k: n - before[k] for k, n in after.items()
-                            if n != before[k]}
-                add_launch_counts({k: -n for k, n in launched.items()})
-        torch.cuda.synchronize(kit.device)
-        self.launches = launched
-        self.pool_bytes = torch.cuda.memory_reserved(kit.device) - reserved
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
-        self.graph = graph
+        """``capture_graph`` of ``body``: its warm-up runs this
+        iteration."""
+        (self.graph, self.launches, self.pool_bytes,
+         self.capture_ms) = capture_graph(kit, lambda: self.body(kit),
+                                          "the flow iteration")
         FLOW_COUNTS["captures"] += 1
 
 

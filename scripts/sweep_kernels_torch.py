@@ -375,6 +375,7 @@ def sweep_ard2d(libs):
     twin = kernels.ard2d_plain(*args)
     out = torch.empty_like(st.C)
     z = torch.empty_like(st.vel)
+    dt_dev = torch.full((), dt, dtype=torch.float32, device="cuda")
 
     def other():
         torch.add(st.vel, st.vel, out=z)
@@ -395,7 +396,7 @@ def sweep_ard2d(libs):
         def fn():
             rc = lib.pd_ard2d(
                 ptr(st.C), ptr(st.vel), ptr(vmag), ptr(st.node_type), ptr(Ds),
-                ptr(salt), dt, ptr(tab.offsets), ptr(tab.coefs),
+                ptr(salt), ptr(dt_dev), ptr(tab.offsets), ptr(tab.coefs),
                 ptr(tab.runs), kit.S, tab.runs.shape[0], *kit.shape,
                 kit.beta_lap, cfg.D_liquid, 2.0 * cfg.D_liquid,
                 cfg.alpha_art_diff, cfg.dx, kit.alpha / kit.V_H, ptr(out), 0,

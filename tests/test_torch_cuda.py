@@ -1058,9 +1058,10 @@ def test_gather_flow_and_implicit_step_on_cuda_equal_cpu():
 
 
 def test_extrapolated_start_runs_on_cuda_equal_cpu(tmp_path):
-    """parity.cfg in float32 with implicit_extrapolate_x0 = 1, the first
-    cycle (two implicit steps): the CLI on CUDA against the CPU, within
-    1e-4."""
+    """parity.cfg in float32 with implicit_extrapolate_x0 = 1 in chunks
+    (implicit_fused_chunk = 1: the knob acts in the JAX package's device
+    loops only), the first cycle (two implicit steps, one chunk): the CLI
+    on CUDA against the CPU, within 1e-4."""
     _card()
     from pd_mg_pin_corrosion_tpu_torch import cli
 
@@ -1069,7 +1070,7 @@ def test_extrapolated_start_runs_on_cuda_equal_cpu(tmp_path):
         solver = cli.run([PARITY, f"output_dir={tmp_path / device}",
                           "precision=f32", "flow_max_iters=300",
                           "T_final=1.2", "implicit_extrapolate_x0=1",
-                          "--device", device])
+                          "implicit_fused_chunk=1", "--device", device])
         assert solver.cycle_steps == [2] and solver.gmres_warnings == 0
         rows[device] = np.atleast_1d(np.genfromtxt(
             tmp_path / device / "diagnostics.csv", delimiter=",", names=True))
@@ -1859,3 +1860,177 @@ def test_cycles_graph_equals_eager_route(case, tmp_path, monkeypatch):
         assert launched["pack3d"] > 0 and launched["ns3d"] > 0
         assert launched["matvec3d"] > 0 and launched["slots3d_f64"] > 0
     print(f"{case}: {json.dumps(g)}")
+
+
+# ---------------------------------------------------------------------------
+# The explicit step as a CUDA graph (coupling.ExplicitRunner) and ard2d's dt
+# read from the device
+# ---------------------------------------------------------------------------
+
+def _ard2d_case(case):
+    """(ard2d's arguments but dt, the float dt) at the explicit path's
+    567 x 347 fine-calibration shape or on one block of params_amr.cfg,
+    with a seeded C that salt-blocks some SOLID nodes (the coarse block
+    holds none)."""
+    from pd_mg_pin_corrosion_tpu_torch import amr_blocks as ab
+
+    if case == "fine_calibration":
+        cfg = Config.load(os.path.join(os.path.dirname(PARITY), "..", "..",
+                                       "config",
+                                       "params_fine_calibration.cfg"))
+        grid = build_grid(cfg)
+        kit = build_kit(grid, cfg, device="cuda")
+        st = _seeded_C(initialize_state(
+            grid, cfg, grains=grains.generate(grid, cfg), device="cuda"))
+        assert kit.shape == (567, 347)
+    else:
+        _, bkit, st = _amr_on("cuda")
+        kit = getattr(bkit, case)
+        st = ab._split_state(bkit, st)[case == "coarse"]
+    salt = ard_ops.compute_salt_blocked(st, kit)
+    n_solid = int((st.node_type == 1).sum())
+    if case == "coarse":
+        assert n_solid == 0
+    else:
+        assert 0 < int(salt.sum()) < n_solid
+    Ds = ard_ops.solid_diffusivity(st.is_gb, st.is_precip, kit.cfg,
+                                   ard_ops.micro_d_factor(kit.cfg, 0.05,
+                                                          kit.dtype, "cuda"))
+    args = (st.C, st.vel, ns.vel_magnitude(st.vel), st.node_type, Ds, salt)
+    return args, float(ard_ops.compute_dt(st, kit)), kit
+
+
+@pytest.mark.parametrize("case", ["fine_calibration", "fine", "coarse"])
+def test_ard2d_reads_dt_from_the_device(case):
+    """ard2d with dt as a 0-d float32 tensor on the card (the explicit
+    graph's dt buffer), at the explicit path's shape and at the block
+    shapes: bit for bit its twin with the float dt, and the wrapper with
+    the float (filled into a tensor on the card) the same bits; a dt on
+    the host or in float64 is refused."""
+    _card()
+    args, dt, kit = _ard2d_case(case)
+    dt_dev = torch.full((), dt, dtype=torch.float32, device="cuda")
+    n0 = kernels.ard2d.launches
+    c_dev, c_float = (kernels.ard2d(*args, dt_dev, kit),
+                      kernels.ard2d(*args, dt, kit))
+    assert kernels.ard2d.launches == n0 + 2
+    twin = kernels.ard2d_plain(*args, dt, kit)
+    assert not torch.equal(twin, args[0])
+    assert torch.equal(_bits(c_dev), _bits(twin))
+    assert torch.equal(_bits(c_float), _bits(twin))
+    for bad in (torch.tensor(dt, dtype=torch.float32),
+                dt_dev.to(torch.float64), dt_dev.reshape(1)):
+        with pytest.raises(TypeError):
+            kernels.ard2d(*args, bad, kit)
+
+
+EXPLICIT_CYCLES = ((6, 1.0, 0.0), (5, 0.7, 0.2))
+
+
+@pytest.mark.parametrize("case", ["parity", "grid3d", "blocks", "gather"])
+def test_explicit_graph_equals_the_eager_route(case):
+    """Two cycles of explicit steps through the kit's ExplicitRunner (the
+    second with 0.7 times the CFL dt and 0.2 more volume loss, loaded into
+    its buffers), on the graph route and on the eager route from one
+    state: every field bit for bit, the same launch counts (ard2d once a
+    2D step, once a block), replays only on the graph route, one capture
+    that the second cycle reuses."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+    from pd_mg_pin_corrosion_tpu_torch.dispatch import ops_for
+
+    _card()
+    kit, st = _flow_case(case)
+    st = _seeded_C(st)
+    run = coupling.explicit_runner_for(kit)
+    assert run.graph_route and run.refusal is None
+    dt = float(ops_for(kit).ard_compute_dt(st, kit))
+    vol = coupling.volume_loss_fraction(st, kit)
+    out = {}
+    for eager in (True, False):
+        n0 = kernels.launch_counts()
+        coupling.reset_explicit_counts()
+        s = st
+        for n, f_dt, d_vol in EXPLICIT_CYCLES:
+            run.load(s, kit, f_dt * dt, vol + d_vol)
+            run.steps(kit, n, eager)
+            s = run.result(s)
+        out[eager] = (s, dict(coupling.EXPLICIT_COUNTS), {
+            k: v - n0[k] for k, v in kernels.launch_counts().items()})
+    (e, e_c, e_n), (g, g_c, g_n) = out[True], out[False]
+    for a, b in zip(e.tensors(), g.tensors()):
+        assert torch.equal(_flow_bits(a), _flow_bits(b))
+    assert not torch.equal(g.C, st.C)
+    steps = sum(n for n, _, _ in EXPLICIT_CYCLES)
+    assert e_n == g_n
+    assert e_n["ard2d"] == {"parity": steps, "blocks": 2 * steps}.get(case, 0)
+    assert e_c == {"replays": 0, "eager": steps, "captures": 0}
+    assert g_c == {"replays": steps - 1, "eager": 1, "captures": 1}
+    assert run.pool_bytes >= 0 and run.capture_ms > 0
+
+
+def test_explicit_graph_replay_is_one_launch_record():
+    """One explicit step on the graph route is one host launch record
+    (cudaGraphLaunch), and adds the ard2d launch it stands for to the
+    counter."""
+    from pd_mg_pin_corrosion_tpu_torch import coupling
+
+    _card()
+    kit, st = _flow_case("parity")
+    st = _seeded_C(st)
+    run = coupling.explicit_runner_for(kit)
+    run.load(st, kit, float(ard_ops.compute_dt(st, kit)), 0.0)
+    run.steps(kit, 2)
+    assert run.graph is not None and run.launches == {"ard2d": 1}
+    torch.cuda.synchronize()
+    n0 = kernels.ard2d.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run.steps(kit, 1)
+        torch.cuda.synchronize()
+    records = [e.name for e in prof.events() if e.name.startswith("cu") and any(
+        k in e.name for k in ("LaunchKernel", "Memset", "Memcpy",
+                              "GraphLaunch"))]
+    assert len(records) == 1 and "GraphLaunch" in records[0]
+    assert kernels.ard2d.launches == n0 + 1
+
+
+def test_explicit_graph_route_is_the_cards_alone(tmp_path, capsys):
+    """The explicit graph takes a float32 kit on the card; gs_parity,
+    float64 and the CPU step eagerly, and a run on the card says which
+    condition refused the graph in one line. parity.cfg explicit through
+    the CLI on the card: f32 replays the graph (one capture, ard2d once a
+    step), f64 steps eagerly and prints the line once."""
+    from pd_mg_pin_corrosion_tpu_torch import cli, coupling
+
+    _card()
+    cfg = Config.load(PARITY)
+    grid = build_grid(cfg)
+    for keys, device, why in (
+            (["precision=f32"], "cuda", None),
+            (["precision=f32", "gs_parity=1"], "cuda",
+             "gs_parity's host sweeps"),
+            (["precision=f64", "gs_parity=0"], "cuda", "float64"),
+            (["precision=f32"], "cpu", "the CPU")):
+        cfg.apply_overrides(keys)
+        run = coupling.ExplicitRunner(build_kit(grid, cfg, device=device))
+        assert run.refusal == why and run.graph_route == (why is None)
+    args = [PARITY, "flow_max_iters=100", "use_implicit=0", "T_final=2e-5",
+            "corrosion_steps_per_check=12", "output_every_corr=5",
+            "--device", "cuda"]
+    line = ("explicit steps: the CUDA graph of the explicit step does not "
+            "run on float64; this run steps eagerly")
+    for precision in ("f32", "f64"):
+        capsys.readouterr()
+        n0 = kernels.ard2d.launches
+        solver = cli.run([*args, f"precision={precision}",
+                          f"output_dir={tmp_path / precision}"])
+        printed = capsys.readouterr().out.splitlines().count(line)
+        g, steps = solver.explicit_graph, solver.explicit_steps
+        assert steps > 12 and g["replays"] + g["eager"] == steps
+        if precision == "f32":
+            assert g == {"replays": steps - 1, "eager": 1, "captures": 1}
+            assert kernels.ard2d.launches - n0 == steps and printed == 0
+        else:
+            assert g["replays"] == g["captures"] == 0 and printed == 1
+            assert kernels.ard2d.launches == n0

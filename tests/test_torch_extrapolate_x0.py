@@ -1,17 +1,20 @@
-"""implicit_extrapolate_x0 in the port: each implicit step after the first of
-a coupling cycle starts GMRES from 2 C_n - C_{n-1} (clipped to
-[0, C_solid_init] on the unknown rows, C on the others), C_n taken after
-the step's BCs and C_{n-1} before the previous step's; the first step of a
-cycle starts from C.
+"""implicit_extrapolate_x0 in the port, by the JAX package's rule: the knob
+acts only in the device loops. In a chunk of implicit_fused_chunk steps
+(the JAX package's ``implicit_inner_chunk``) each step starts GMRES from
+2 C_n - C_{n-1} (clipped to [0, C_solid_init] on the unknown rows, C on the
+others), C_n taken after the step's BCs and C_{n-1} before the previous
+step's, the history seeded with C at the start of every chunk (the JAX
+launch's ``init + (state.C,)``); one step at a time every step starts from
+C after its BCs, whatever the knob says (the JAX CLI calls
+``implicit_inner_step(state, op, kit)``).
 
-In the JAX package the knob acts only inside its fused device loop, which
-re-seeds the history at the start of every launch; with
-implicit_fused_chunk >= corrosion_steps_per_check a launch is a cycle
-(coupling.py:852-854), and parity.cfg's implicit_output_every lies beyond
-the run, so no output boundary ends a launch early. Gates:
-tests/test_parity.py's (solid_nodes exact, time_s 1e-9, the rest 1e-6) in
-float64; with the knob off the CSVs are those the port wrote before the
-knob existed, byte for byte.
+Against the JAX CLI in float64 with the knob on: a launch a cycle, chunks
+of 2 that end inside a cycle and at an output boundary, the step-at-a-time
+route, and gs_parity (whose host sweeps step one at a time in the port,
+the history re-seeded where a JAX chunk starts). Gates:
+tests/test_parity.py's (solid_nodes exact, time_s 1e-9, the rest 1e-6);
+with the knob off the CSVs are those the port wrote before the knob
+existed, byte for byte.
 """
 
 import os
@@ -77,20 +80,89 @@ def _run_port(out, overrides):
     return solver, _rows(out)
 
 
-def test_extrapolated_start_f64_matches_jax(tmp_path):
-    """The whole capped parity.cfg run with the knob on, against the JAX
-    package's fused loop, one launch a cycle."""
-    ref = _run_jax(tmp_path / "jax", [*KNOB, "implicit_fused_chunk=50"])
-    solver, ours = _run_port(tmp_path / "port", KNOB)
-    assert solver.total_dissolved == 180 and len(ours) == len(ref) >= 6
-    assert max(solver.cycle_steps) >= 2  # a cycle the knob acts in
+def _assert_gates(ours, ref):
+    """tests/test_parity.py's gates, row by row."""
+    assert len(ours) == len(ref)
     np.testing.assert_array_equal(ours["solid_nodes"], ref["solid_nodes"])
     np.testing.assert_allclose(ours["time_s"], ref["time_s"], rtol=1e-9)
     for col in ("pin_mass_loss_pct", "v_max", "C_max_fluid"):
         np.testing.assert_allclose(ours[col], ref[col], rtol=1e-6, err_msg=col)
 
 
-def _spied_run(tmp_path, monkeypatch, overrides):
+def test_extrapolated_start_f64_matches_jax(tmp_path):
+    """The whole capped parity.cfg run with the knob on, both CLIs with
+    implicit_fused_chunk = 50: a launch (a chunk) a cycle."""
+    overrides = [*KNOB, "implicit_fused_chunk=50"]
+    ref = _run_jax(tmp_path / "jax", overrides)
+    solver, ours = _run_port(tmp_path / "port", overrides)
+    assert solver.total_dissolved == 180 and len(ours) == len(ref) >= 6
+    assert max(solver.cycle_steps) >= 2  # a cycle the knob acts in
+    assert solver.step_graph["chunks"] == solver.cycles
+    _assert_gates(ours, ref)
+
+
+# chunks of 2 in cycles of 5 steps (no dissolution ends one) with a VTI
+# every 3 steps: cycle 1 runs chunks [1, 2], [3] (output boundary), [4, 5];
+# cycle 2 [6] (output boundary), [7]
+SHORT_CHUNKS = [*KNOB, "implicit_fused_chunk=2", "implicit_output_every=3",
+                "dissolution_batch=1000", "corrosion_steps_per_check=5",
+                "T_final=4.2"]
+
+
+def test_chunks_inside_a_cycle_f64_match_jax(tmp_path):
+    """Chunks that end inside a cycle, at the launch cap and at an output
+    boundary, each re-seeding the history: the port's CLI against the JAX
+    CLI in float64, the same VTI snapshots."""
+    ref = _run_jax(tmp_path / "jax", SHORT_CHUNKS)
+    solver, ours = _run_port(tmp_path / "port", SHORT_CHUNKS)
+    assert solver.cycle_steps == [5, 2]
+    assert solver.step_graph["chunks"] == 5
+    _assert_gates(ours, ref)
+    vti = sorted(p.name for p in (tmp_path / "port").glob("corr_*.vti"))
+    assert vti == sorted(p.name for p in (tmp_path / "jax").glob(
+        "corr_*.vti")) and len(vti) == 2
+
+
+def test_step_at_a_time_f64_matches_jax(tmp_path):
+    """implicit_fused_chunk = 0 with the knob on: both CLIs start every
+    step from C after its BCs; the rows to the gates."""
+    overrides = [*KNOB, "T_final=1.2"]
+    ref = _run_jax(tmp_path / "jax", overrides)
+    solver, ours = _run_port(tmp_path / "port", overrides)
+    assert solver.step_graph["chunks"] == 0 and solver.cycle_steps == [2]
+    _assert_gates(ours, ref)
+
+
+# gs_parity with chunks of 2 in cycles of 3 steps: the port steps one at a
+# time (host sweeps) and re-seeds after the cap, where JAX's chunk ends
+GS_CHUNKS = [*KNOB, "gs_parity=1", "implicit_fused_chunk=2",
+             "dissolution_batch=1000", "corrosion_steps_per_check=3",
+             "T_final=2.4"]
+
+
+def test_gs_parity_chunks_f64_match_jax(tmp_path, monkeypatch):
+    """gs_parity under implicit_fused_chunk = 2 with the knob on: the JAX
+    CLI runs chunks, the port steps one at a time and re-seeds the history
+    wherever a JAX chunk starts (seen in the runner's ``reseed`` calls);
+    the rows to the gates."""
+    seeds = []
+    real = coupling.StepRunner.reseed
+
+    def reseed(self):
+        seeds.append(self.C_prev is not None)
+        return real(self)
+
+    monkeypatch.setattr(coupling.StepRunner, "reseed", reseed)
+    ref = _run_jax(tmp_path / "jax", GS_CHUNKS)
+    solver, ours = _run_port(tmp_path / "port", GS_CHUNKS)
+    assert solver.cycle_steps == [3, 1]
+    assert solver.step_graph["chunks"] == 0
+    # after step 2 of cycle 1 (the cap); the cycles' starts seed in begin
+    assert seeds == [True]
+    _assert_gates(ours, ref)
+
+
+def _spied_run(tmp_path, monkeypatch, overrides, cycle_steps=(2,)):
     """Per implicit step: C before the step, C after its BCs (what the
     solve is handed), the unknown rows, and the start GMRES was given,
     read from the step runner's buffers around its head segment."""
@@ -106,27 +178,58 @@ def _spied_run(tmp_path, monkeypatch, overrides):
         return out
 
     monkeypatch.setattr(coupling.StepRunner, "head", head)
-    solver, _ = _run_port(tmp_path, [*overrides, "T_final=1.2"])
-    assert solver.cycle_steps == [2] and len(steps) == len(starts) == 2
+    n = sum(cycle_steps)   # steps of 0.6 s: T_final halfway into the last
+    solver, _ = _run_port(tmp_path, [*overrides,
+                                     f"T_final={0.6 * n - 0.3:.1f}"])
+    assert solver.cycle_steps == list(cycle_steps)
+    assert len(steps) == len(starts) == n
     return solver, steps, starts
 
 
+def _extrapolated(step, C_prev):
+    """The start the JAX rule gives a step whose history holds C_prev."""
+    c_max = step["C_bc"].new_tensor(1.0)  # C_solid_init
+    return torch.where(step["unknown"], torch.clamp(
+        2.0 * step["C_bc"] - C_prev, 0.0, c_max), step["C_bc"])
+
+
 def test_second_step_starts_from_the_extrapolation(tmp_path, monkeypatch):
-    """The first cycle of parity.cfg has two steps: the first starts GMRES
-    from C, the second from the clipped 2 C_n - C_{n-1}."""
-    solver, steps, starts = _spied_run(tmp_path, monkeypatch, KNOB)
-    c_max = solver.final_state.C.new_tensor(1.0)  # C_solid_init
+    """The first cycle of parity.cfg has two steps, one chunk: the first
+    starts GMRES from C, the second from the clipped 2 C_n - C_{n-1}."""
+    _, steps, starts = _spied_run(tmp_path, monkeypatch,
+                                  [*KNOB, "implicit_fused_chunk=50"])
     assert torch.equal(starts[0], steps[0]["C_bc"])
     s1 = steps[1]
-    want = torch.where(s1["unknown"], torch.clamp(
-        2.0 * s1["C_bc"] - steps[0]["C_pre"], 0.0, c_max), s1["C_bc"])
-    assert torch.equal(starts[1], want)
+    assert torch.equal(starts[1], _extrapolated(s1, steps[0]["C_pre"]))
     moved = (starts[1] != s1["C_bc"])
     assert bool(moved.any()) and bool(s1["unknown"][moved].all())
 
 
+def test_a_chunk_inside_a_cycle_reseeds(tmp_path, monkeypatch):
+    """Chunks of 2 in a cycle of 3 steps: the third step, the first of the
+    second chunk, starts from its own C (the history re-seeded), not from
+    the extrapolation of the second step's C that a carried history would
+    give."""
+    _, steps, starts = _spied_run(
+        tmp_path, monkeypatch, [*KNOB, "implicit_fused_chunk=2",
+                                "dissolution_batch=1000"], cycle_steps=(3,))
+    assert torch.equal(starts[1], _extrapolated(steps[1], steps[0]["C_pre"]))
+    s2 = steps[2]
+    assert torch.equal(starts[2], _extrapolated(s2, s2["C_pre"]))
+    assert torch.equal(starts[2], s2["C_bc"])
+    assert not torch.equal(starts[2], _extrapolated(s2, steps[1]["C_pre"]))
+
+
 def test_knob_off_starts_every_step_from_c(tmp_path, monkeypatch):
     _, steps, starts = _spied_run(tmp_path, monkeypatch, BASE)
+    for s, x0 in zip(steps, starts):
+        assert torch.equal(x0, s["C_bc"])
+
+
+def test_knob_step_at_a_time_starts_every_step_from_c(tmp_path, monkeypatch):
+    """implicit_fused_chunk = 0 with the knob on: every step starts GMRES
+    from C after its BCs, as with the knob off."""
+    _, steps, starts = _spied_run(tmp_path, monkeypatch, KNOB)
     for s, x0 in zip(steps, starts):
         assert torch.equal(x0, s["C_bc"])
 

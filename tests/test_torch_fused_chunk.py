@@ -7,8 +7,10 @@ the CLI with chunks against the CLI one step at a time on parity.cfg f32:
 diagnostics.csv and mass_loss.csv byte for byte, the same VTI files (names
 and bytes), the same steps a cycle and the same console lines, with a
 chunk that ends at the step budget, at T_final, at the dissolution batch,
-at an output boundary inside it, with the extrapolated start carried
-across chunks, and at the default launch cap (implicit_fused_chunk = 1).
+at an output boundary inside it, with the extrapolated start (re-seeded
+at each chunk, as the JAX package's launches do: the steps at a time
+follow that rule on the route gs_parity's host sweeps take), and at the
+default launch cap (implicit_fused_chunk = 1).
 
 Against the JAX CLI, both with implicit_fused_chunk = 4 in float64,
 capped: the rows to tests/test_parity.py's gates and the console lines
@@ -69,14 +71,21 @@ def _files(path):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_chunks_equal_steps_at_a_time(case, tmp_path, capsys):
+def test_chunks_equal_steps_at_a_time(case, tmp_path, capsys, monkeypatch):
     """The CLI with implicit_fused_chunk = 4 against the same run one step
     at a time: the same CSV bytes, VTI files, steps a cycle and console
-    lines; the chunks read the host once each."""
+    lines; the chunks read the host once each. With the extrapolated
+    start, the steps at a time follow the JAX chunk's rule: the run takes
+    implicit_fused_chunk = 4 on gs_parity's step-at-a-time route (forced
+    on this kit, which has no gs_parity tables), whose history is
+    re-seeded where a chunk of 4 starts."""
     extra = CASES[case]
-    step, step_lines = _run(tmp_path, "step", [*extra,
-                                               "implicit_fused_chunk=0"],
-                            capsys)
+    route = "implicit_fused_chunk=0"
+    with monkeypatch.context() as m:
+        if case == "extrapolated_start":
+            m.setattr(coupling, "parity_tables", lambda kit: True)
+            route = "implicit_fused_chunk=4"
+        step, step_lines = _run(tmp_path, "step", [*extra, route], capsys)
     chunk, chunk_lines = _run(tmp_path, "chunk", [*extra,
                                                   "implicit_fused_chunk=4"],
                               capsys)
@@ -95,6 +104,8 @@ def test_chunks_equal_steps_at_a_time(case, tmp_path, capsys):
         assert step.cycle_steps[0] == 6 and sum(step.cycle_steps) == 9
     if case == "batch":
         assert max(step.cycle_steps) > 1 and step.total_dissolved >= 20
+    if case == "extrapolated_start":
+        assert max(step.cycle_steps) > 4   # a chunk starts inside a cycle
     if case == "output_boundary":
         vti = [n for n in files if n.startswith("corr_")]
         assert len(vti) == sum(step.cycle_steps) // 3 > 0

@@ -320,11 +320,17 @@ def test_runners_let_their_kit_go(name):
 
 def old_implicit_cycle(self, cfg, grid, state, kit, t_corr, gmres_tol):
     """CoupledSolver._implicit_cycle before the StepRunner: the old step,
-    C_prev threaded on the host."""
+    one at a time, C_prev threaded on the host by the JAX package's rule
+    (the knob acts under implicit_fused_chunk only; the history is seeded
+    with C wherever a JAX chunk starts: at the cycle's start, after the
+    launch cap, after a step on an output boundary)."""
     op = coupling.assemble(state, kit,
                            coupling.volume_loss_fraction(state, kit))
     n, dissolved = 0, False
-    C_prev = state.C if cfg.implicit_extrapolate_x0 else None
+    cap = cfg.implicit_fused_chunk if cfg.implicit_fused_chunk > 1 else 50
+    seeded = cfg.implicit_extrapolate_x0 and cfg.implicit_fused_chunk
+    C_prev = state.C if seeded else None
+    in_chunk = 0
     while (n < cfg.corrosion_steps_per_check and t_corr < cfg.T_final
            and not dissolved):
         C_pre = state.C
@@ -334,7 +340,11 @@ def old_implicit_cycle(self, cfg, grid, state, kit, t_corr, gmres_tol):
             C_prev = C_pre
         t_corr += float(dt)
         n += 1
+        in_chunk += 1
         self.total_implicit_steps += 1
+        if seeded and (in_chunk == cap or self.total_implicit_steps
+                       % cfg.implicit_output_every == 0):
+            C_prev, in_chunk = state.C, 0
         if self.total_implicit_steps % cfg.diagnostic_every == 0:
             self._write_diagnostics(cfg, t_corr, torch.stack(
                 [d.to(torch.float64) for d in diag]).tolist())
@@ -344,12 +354,15 @@ def old_implicit_cycle(self, cfg, grid, state, kit, t_corr, gmres_tol):
 
 
 def test_coupled_run_csvs_equal_the_old_step(tmp_path, monkeypatch):
-    """parity.cfg in f32 with the extrapolated start, three coupling
-    cycles (dissolutions and flow re-solves between them): the CLI's
-    diagnostics.csv and mass_loss.csv through the StepRunner byte for byte
-    those of the old step."""
-    args = [PARITY, "precision=f32", "flow_max_iters=300", "T_final=2.4",
-            "implicit_extrapolate_x0=1", "--device", "cpu"]
+    """parity.cfg in f32 with the extrapolated start in chunks of 2 (a VTI
+    every 3 steps ends one early), three coupling cycles of up to 4 steps
+    (dissolutions and flow re-solves between them): the CLI's
+    diagnostics.csv and mass_loss.csv through the StepRunner's chunks byte
+    for byte those of the old step one at a time."""
+    args = [PARITY, "precision=f32", "flow_max_iters=300", "T_final=5.4",
+            "implicit_extrapolate_x0=1", "implicit_fused_chunk=2",
+            "implicit_output_every=3", "dissolution_batch=1000",
+            "corrosion_steps_per_check=4", "--device", "cpu"]
     new = cli.run([*args, f"output_dir={tmp_path / 'new'}"])
     monkeypatch.setattr(coupling.CoupledSolver, "_implicit_cycle",
                         old_implicit_cycle)
